@@ -12,8 +12,9 @@ public API follows the JAX package::
 ``load_dict(d, device="cpu")`` puts a scene on the CPU, where every kernel
 runs as its plain PyTorch version. The port carries the plugins of a
 mesh scene with a diffuse BSDF, a directional sun and a constant
-environment, rendered by the ``path`` integrator through the cellserve
-accel; see ``loader.py``.
+environment, rendered by the ``path`` integrator through the accel that
+``MI3T_ACCEL`` names (cellserve, bvh_serve or bvh_tiled); see
+``loader.py``.
 """
 
 __version__ = "0.1.0"

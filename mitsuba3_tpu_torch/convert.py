@@ -8,6 +8,10 @@ flat dict of numpy arrays plus a dict of static fields. It takes a JAX
 nothing of JAX. ``scene_from_arrays`` builds the port's ``Scene`` from
 them on a device.
 
+The accel is one of cellserve (``MI3T_ACCEL`` auto or cells), bvh_serve
+(``serve``) or bvh_tiled (``tiled``); its kind is told by the fields it
+has, and ``meta["accel"]["kind"]`` carries it across.
+
 The JAX cellserve accel stores its cell occupancy as a packed byte
 bitmap (``occ_bytes``, cell c at byte c >> 3, bit c & 7); the port keeps
 it unpacked as one bool per cell (``occ``). ``unpack_occupancy`` and
@@ -22,6 +26,8 @@ import torch
 
 from .core.distr2d import SlicedMarginal2D
 from .integrators.path import PathConfig
+from .ops.bvh_serve import BVHServe
+from .ops.bvh_tiled import BVHTiled
 from .ops.cellserve import CellServe
 from .render.film import FilmConfig
 from .render.scene import Scene
@@ -34,8 +40,15 @@ SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
 SENSOR_ARRAYS = ("origin", "axis_x", "axis_y", "axis_z", "tan_half_x",
                  "tan_half_y")
-ACCEL_ARRAYS = ("tris", "start", "occ", "lo", "inv_cell")
-ACCEL_META = ("res", "n_tris", "pair_slots", "max_steps")
+# accel kind -> (class, array fields, static fields)
+ACCELS = {
+    "cells": (CellServe, ("tris", "start", "occ", "lo", "inv_cell"),
+              ("res", "n_tris", "pair_slots", "max_steps")),
+    "serve": (BVHServe, ("tris", "bounds", "sup"),
+              ("n_leaves", "m_pad", "topk")),
+    "tiled": (BVHTiled, ("leaf_bounds", "tris", "prim", "scene_lo",
+                         "scene_span"), ("n_leaves",)),
+}
 SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
               "delta_emitter_types", "bsdf_types", "bsdf_flags", "spp")
 
@@ -78,21 +91,34 @@ def arrays_from_scene(scene):
     for name in SENSOR_ARRAYS:
         arrays[f"sensor.{name}"] = _np(getattr(scene.sensor, name))
     acc = scene.accel
-    res = int(acc.res)
-    if hasattr(acc, "occ_bytes"):
-        occ = unpack_occupancy(_np(acc.occ_bytes), res ** 3)
-    else:
-        occ = _np(acc.occ)
-    for name in ACCEL_ARRAYS:
-        arrays[f"accel.{name}"] = occ if name == "occ" else _np(
-            getattr(acc, name))
+    kind = accel_kind(acc)
+    _, array_names, meta_names = ACCELS[kind]
+    for name in array_names:
+        if name == "occ" and hasattr(acc, "occ_bytes"):
+            value = unpack_occupancy(_np(acc.occ_bytes), int(acc.res) ** 3)
+        else:
+            value = _np(getattr(acc, name))
+        arrays[f"accel.{name}"] = value
 
     meta = {name: getattr(scene, name) for name in SCENE_META}
     meta["film"] = _fields(scene.film, FilmConfig)
     meta["sensor_config"] = _fields(scene.sensor_config, SensorConfig)
     meta["integrator"] = _fields(scene.integrator, PathConfig)
-    meta["accel"] = {name: int(getattr(acc, name)) for name in ACCEL_META}
+    meta["accel"] = {name: int(getattr(acc, name)) for name in meta_names}
+    meta["accel"]["kind"] = kind
     return arrays, meta
+
+
+def accel_kind(acc) -> str:
+    """"cells", "serve" or "tiled", from the accel's fields (a JAX or a
+    port accel alike)."""
+    for kind, marks in (("cells", ("start", "inv_cell")),
+                        ("serve", ("sup", "m_pad")),
+                        ("tiled", ("leaf_bounds", "scene_span"))):
+        if all(hasattr(acc, mark) for mark in marks):
+            return kind
+    raise NotImplementedError(
+        f"accel {type(acc).__name__} is not ported to mitsuba3_tpu_torch")
 
 
 def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
@@ -105,11 +131,13 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
 
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
     leaves.setdefault("de_params", None)
+    acc_meta = dict(meta["accel"])
+    cls, array_names, _ = ACCELS[acc_meta.pop("kind")]
     return Scene(
         **leaves,
         env_warp=SlicedMarginal2D(**group("env_warp", WARP_ARRAYS)),
         sensor=SensorData(**group("sensor", SENSOR_ARRAYS)),
-        accel=CellServe(**group("accel", ACCEL_ARRAYS), **meta["accel"]),
+        accel=cls(**group("accel", array_names), **acc_meta),
         **{name: meta[name] for name in SCENE_META},
         film=FilmConfig(**meta["film"]),
         sensor_config=SensorConfig(**meta["sensor_config"]),

@@ -7,8 +7,11 @@ for the plugins the port carries:
 - a ``perspective`` sensor with an ``hdrfilm`` (default Gaussian rfilter)
   and the ``independent`` sampler;
 - the ``path`` integrator;
-- the cellserve accel (``ops/cellserve.py``), which scenes above 8192 faces
-  use.
+- for scenes above 8192 faces, the accel that ``MI3T_ACCEL`` names, as the
+  JAX package reads it: ``auto`` (the default) and ``cells`` give cellserve
+  (``ops/cellserve.py``) on every device, ``serve`` gives ``bvh_serve`` and
+  ``tiled`` gives ``bvh_tiled``; ``xla``, ``grid`` and ``none`` are not
+  ported.
 
 Any other plugin raises ``NotImplementedError`` naming it. The host-side
 table building is the JAX package's, so the scene's arrays equal its
@@ -16,6 +19,8 @@ leaves. The scene lives on ``device``: the card unless the caller asks for
 the CPU.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -27,11 +32,14 @@ from . import sensors as sensors_pkg
 from .emitters import envmap as env_mod
 from .integrators import config_from_dict as integrator_from_dict
 from .integrators.path import PathConfig
-from .ops import cellserve
+from .ops import bvh_serve, bvh_tiled, cellserve
 from .render.film import FilmConfig
 from .render.scene import TRI_CHUNK, TRI_PAD, Scene
 
-ACCEL_MIN_FACES = 8192   # scenes above this many faces use cellserve
+ACCEL_MIN_FACES = 8192   # scenes above this many faces get an accel
+ACCELS = {"auto": cellserve.build, "cells": cellserve.build,
+          "serve": bvh_serve.build, "tiled": bvh_tiled.build}
+UNPORTED_ACCELS = ("xla", "grid", "none")
 
 _FILM_KEYS = ("type", "width", "height", "rfilter")
 _SAMPLER_KEYS = ("type", "sample_count")
@@ -120,6 +128,16 @@ def _directional_row(espec: dict) -> np.ndarray:
     row[6:9] = axis / max(np.linalg.norm(axis), 1e-12)
     row[3:6] = _rgb(espec.get("irradiance"), (1, 1, 1))
     return row
+
+
+def _accel_builder():
+    """The accel build that ``MI3T_ACCEL`` selects."""
+    choice = os.environ.get("MI3T_ACCEL", "auto")
+    if choice in UNPORTED_ACCELS:
+        raise _not_ported(f"MI3T_ACCEL={choice!r}")
+    if choice not in ACCELS:
+        raise ValueError(f"MI3T_ACCEL: unknown accel {choice!r}")
+    return ACCELS[choice]
 
 
 def load_dict(d: dict, device=None) -> Scene:
@@ -238,8 +256,8 @@ def load_dict(d: dict, device=None) -> Scene:
             f"the dense intersector for scenes of at most {ACCEL_MIN_FACES} "
             f"faces (this one has {n_padded})")
     p0w = vertices[faces[:, 0]]
-    accel = cellserve.build(p0w, vertices[faces[:, 1]] - p0w,
-                            vertices[faces[:, 2]] - p0w, device=dev)
+    accel = _accel_builder()(p0w, vertices[faces[:, 1]] - p0w,
+                             vertices[faces[:, 2]] - p0w, device=dev)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)

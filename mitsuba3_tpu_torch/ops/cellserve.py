@@ -20,7 +20,7 @@ unresolved rays (JAX runs fixed widths because XLA compiles per shape).
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -328,15 +328,6 @@ def serve_blocks_plain(tris, rays, r0, nr, want_uv: bool):
     return t_o.reshape(-1), p_o.reshape(-1), u_o.reshape(-1), v_o.reshape(-1)
 
 
-def _check(name, x, dtype, shape, dev):
-    if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
-            or not x.is_contiguous():
-        raise ValueError(
-            f"serve_blocks: {name} must be a contiguous {dtype} tensor of "
-            f"shape {shape} on {dev}, got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device} (contiguous={x.is_contiguous()})")
-
-
 def serve_blocks(tris, rays, r0, nr, want_uv: bool):
     """K1: serve every 128-pair sub-block over its CSR row window.
 
@@ -345,18 +336,18 @@ def serve_blocks(tris, rays, r0, nr, want_uv: bool):
     want_uv). CPU tensors take the plain version; CUDA tensors launch the
     kernel of csrc/cellserve_serve.cu on the current stream."""
     dev = rays.device
-    if dev.type == "cpu" and all(x.device.type == "cpu"
-                                 for x in (tris, r0, nr)):
+    if native.on_cpu(rays, tris, r0, nr):
         return serve_blocks_plain(tris, rays, r0, nr, want_uv)
     if dev.type != "cuda":
         raise ValueError(f"serve_blocks: rays on {dev}; the kernel needs "
                          f"every tensor on one CUDA device")
     n_sub = r0.shape[0]
     np_pad = n_sub * K
-    _check("tris", tris, torch.float32, (tris.shape[0], 16, K), dev)
-    _check("rays", rays, torch.float32, (6, np_pad), dev)
-    _check("r0", r0, torch.int32, (n_sub,), dev)
-    _check("nr", nr, torch.int32, (n_sub,), dev)
+    check = functools.partial(native.check, "serve_blocks")
+    check("tris", tris, torch.float32, (tris.shape[0], 16, K), dev)
+    check("rays", rays, torch.float32, (6, np_pad), dev)
+    check("r0", r0, torch.int32, (n_sub,), dev)
+    check("nr", nr, torch.int32, (n_sub,), dev)
 
     def empty(dtype):
         return torch.empty(np_pad, dtype=dtype, device=dev)
@@ -366,32 +357,13 @@ def serve_blocks(tris, rays, r0, nr, want_uv: bool):
                 empty(torch.float32)) if want_uv else (None, None, None))
     if n_sub == 0:
         return t, p, u, v
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cellserve_serve(
-            tris.data_ptr(), rays.data_ptr(), r0.data_ptr(), nr.data_ptr(),
-            n_sub, np_pad, t.data_ptr(),
-            p.data_ptr() if want_uv else None,
-            u.data_ptr() if want_uv else None,
-            v.data_ptr() if want_uv else None,
-            int(want_uv), stream)
-    if err != 0:
-        raise RuntimeError(f"cellserve_serve kernel launch failed: "
-                           f"cudaError_t {err}")
+    native.launch(
+        "cellserve_serve", "ppppiqppppi", tris.data_ptr(), rays.data_ptr(),
+        r0.data_ptr(), nr.data_ptr(), n_sub, np_pad, t.data_ptr(),
+        p.data_ptr() if want_uv else None, u.data_ptr() if want_uv else None,
+        v.data_ptr() if want_uv else None, int(want_uv), dev=dev)
     LAUNCHES["closest" if want_uv else "anyhit"] += 1
     return t, p, u, v
-
-
-def _library():
-    lib = native.load("cellserve_serve")
-    fn = lib.cellserve_serve
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_longlong,
-                       vp, vp, vp, vp, ctypes.c_int, vp]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def sort_pairs(acc: CellServe, slots, o: Vec3, d: Vec3):

@@ -17,7 +17,7 @@ from ..core.frame import Frame
 from ..core.struct import struct
 from ..core.vec import Vec2, Vec3
 from ..emitters import envmap as env_mod
-from ..ops import cellserve
+from ..ops import bvh_serve, bvh_tiled, cellserve
 from ..render.film import FilmConfig
 from ..sensors import SensorConfig, SensorData
 from .records import (DirectionSample, PreliminaryIntersection, Ray,
@@ -54,7 +54,7 @@ class Scene:
     # BSDFs, sensor, accel
     bsdf_params: torch.Tensor         # [B, N_PARAMS]
     sensor: SensorData
-    accel: cellserve.CellServe
+    accel: cellserve.CellServe | bvh_serve.BVHServe | bvh_tiled.BVHTiled
     # static configuration
     n_emitters: int = 0
     n_area_emitters: int = 0
@@ -113,16 +113,24 @@ class Scene:
     # Intersection
     # ------------------------------------------------------------------
 
+    def _queries(self):
+        """(closest, any-hit) query functions of the scene's accel."""
+        if isinstance(self.accel, cellserve.CellServe):
+            return cellserve.intersect_cells, cellserve.occluded_cells
+        if isinstance(self.accel, bvh_serve.BVHServe):
+            return bvh_serve.intersect_bvh, bvh_serve.occluded_bvh
+        return bvh_tiled.intersect_bvh, bvh_tiled.occluded_bvh
+
     def ray_intersect_preliminary(self, ray: Ray, active=None):
-        t, prim, uv, valid = cellserve.intersect_cells(
+        t, prim, uv, valid = self._queries()[0](
             self.accel, ray.o, ray.d, ray.maxt, active=active)
         return PreliminaryIntersection(
             t=t, prim_uv=uv, prim_index=prim,
             shape_index=torch.where(valid, prim, -1))
 
     def ray_test(self, ray: Ray, active=None):
-        return cellserve.occluded_cells(self.accel, ray.o, ray.d, ray.maxt,
-                                        active=active)
+        return self._queries()[1](self.accel, ray.o, ray.d, ray.maxt,
+                                  active=active)
 
     def compute_surface_interaction(self, ray: Ray,
                                     pi: PreliminaryIntersection):

@@ -1,7 +1,9 @@
-"""Kernel K1 (``csrc/cellserve_serve.cu``) against its plain PyTorch
-version on the card, at test sizes, in closest and any-hit mode, and the
-port's render on the card against its render on the CPU. Run on a machine
-with a CUDA device::
+"""Kernels K1 (``csrc/cellserve_serve.cu``), K2 and K3 (``csrc/
+bvh_serve_cull.cu``, ``csrc/bvh_serve_serve.cu``) and K4
+(``csrc/bvh_tiled_mt.cu``) against their plain PyTorch versions on the
+card, at test sizes, in each mode and topk; the queries and the small
+terrain render of each accel on the card against the CPU. Run on a
+machine with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -14,6 +16,8 @@ import torch
 import chip_smoke
 import mitsuba3_tpu_torch as mt
 from mitsuba3_tpu_torch.core.vec import Vec3
+from mitsuba3_tpu_torch.ops import bvh_serve as bs
+from mitsuba3_tpu_torch.ops import bvh_tiled as bt
 from mitsuba3_tpu_torch.ops import cellserve as cs
 
 torch.set_num_threads(1)
@@ -99,6 +103,141 @@ def test_render_on_card_matches_cpu(cuda):
     cs.LAUNCHES.update(closest=0, anyhit=0)
     img_g = mt.render(mt.load_dict(d, device=cuda), seed=5, spp=4)
     assert cs.LAUNCHES["closest"] > 0 and cs.LAUNCHES["anyhit"] > 0
+    img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=4)
+    img_g = img_g.cpu().numpy()
+    img_c = img_c.numpy()
+    assert np.isfinite(img_g).all()
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K2, K3 (bvh_serve) and K4 (bvh_tiled) against their plain versions
+# ---------------------------------------------------------------------------
+
+def _serve_round(acc, o, d, maxt):
+    """The first cull of a bvh_serve query and its leaf sort: (f, i, best,
+    leaf_all)."""
+    f, i = bs.initial_state(o, d, maxt)
+    best = bs.cull_plain(acc, f, i[bs.LK])
+    live = (best[0] != bs.NONE) & (i[bs.RID] >= 0)
+    f, i, leaf_all, _, _ = bs.sort_requests(acc, f, i, best, live)
+    return f, i, best, leaf_all
+
+
+@pytest.mark.parametrize("topk", [1, 2])
+def test_cull_kernel_matches_plain(cuda, np_rng, topk):
+    tris, o, d = _soup(np_rng, n_ray=8192)
+    acc = bs.build(*tris, leaf_size=8, topk=topk, device=cuda)
+    assert acc.m_pad // bs.LC >= 2
+    f, i = bs.initial_state(_vec(o, cuda), _vec(d, cuda),
+                            torch.full((o.shape[0],), 1e30, device=cuda))
+    # a nonzero cursor: half the rays have visited their nearest leaf
+    first = bs.cull_plain(acc, f, i[bs.LK])[0]
+    lk = torch.where(torch.arange(first.shape[0], device=cuda) % 2 == 0,
+                     torch.where(first == bs.NONE, 0, first), 0)
+    lk = lk.to(torch.int32).contiguous()
+    before = bs.LAUNCHES["cull"]
+    got = bs.cull(acc, f, lk)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES["cull"] == before + 1
+    want = bs.cull_plain(acc, f, lk)
+    assert torch.equal(got, want)
+    assert (want[0] != bs.NONE).any()
+
+
+@pytest.mark.parametrize("topk", [1, 2])
+def test_serve_kernel_matches_plain(cuda, np_rng, topk):
+    tris, o, d = _soup(np_rng, n_ray=16384)
+    acc = bs.build(*tris, topk=topk, device=cuda)
+    f, _, _, leaf_all = _serve_round(
+        acc, _vec(o, cuda), _vec(d, cuda),
+        torch.full((o.shape[0],), 1e30, device=cuda))
+    blk = bs.block_ids(acc, leaf_all)
+    before = bs.LAUNCHES["serve"]
+    kt, kp, ku, kv, ks = bs.serve_blocks(acc, blk, f, leaf_all)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES["serve"] == before + 1
+    pt, pp, pu, pv, ps = bs.serve_blocks_plain(acc, blk, f, leaf_all)
+    assert torch.equal(ks, ps) and (ps != 0).any()
+    assert torch.equal(kt >= bs.BIG, pt >= bs.BIG)
+    hit = pt < bs.BIG
+    assert hit.any()
+    assert torch.allclose(kt[hit], pt[hit], rtol=1e-5, atol=0)
+    same = kp[hit] == pp[hit]
+    assert same.float().mean() >= 0.999
+    assert torch.all(kt[hit][~same] <= pt[hit][~same] + 1e-4)
+    assert torch.allclose(ku[hit][same], pu[hit][same], atol=1e-5)
+    assert torch.allclose(kv[hit][same], pv[hit][same], atol=1e-5)
+
+
+def _tiled_round(acc, o, d, maxt):
+    """The first 16-slot round of a bvh_tiled query: run_round's inputs."""
+    (ox, oy, oz, dx, dy, dz, mt_s), _ = bt._pack_sorted(acc, o, d, maxt)
+    ids_s, ents_s = bt._sort_leaf_lists(
+        bt._tile_leaf_lists(acc, ox, oy, oz, dx, dy, dz, mt_s))
+    n = mt_s.shape[0]
+    return (ids_s[:, :bt.LB_USE].contiguous(),
+            ents_s[:, :bt.LB_USE].contiguous(), acc.tris,
+            torch.stack([ox, oy, oz]), torch.stack([dx, dy, dz]), mt_s,
+            torch.full((n,), -1, dtype=torch.int32, device=mt_s.device),
+            torch.zeros_like(mt_s), torch.zeros_like(mt_s))
+
+
+@pytest.mark.parametrize("closest", [True, False], ids=["closest", "anyhit"])
+def test_tiled_kernel_matches_plain(cuda, np_rng, closest):
+    tris, o, d = _soup(np_rng, n_ray=8192)
+    acc = bt.build(*tris, device=cuda)
+    args = _tiled_round(acc, _vec(o, cuda), _vec(d, cuda),
+                        torch.full((o.shape[0],), 3.0, device=cuda))
+    mode = "closest" if closest else "anyhit"
+    before = bt.LAUNCHES[mode]
+    kt, kp, ku, kv = bt.run_round(*args, closest)
+    torch.cuda.synchronize()
+    assert bt.LAUNCHES[mode] == before + 1
+    pt, pp, pu, pv = bt.run_round_plain(*args, closest)
+    hit = pp >= 0
+    assert hit.any()
+    assert torch.equal(kp >= 0, hit)
+    if closest:
+        assert torch.allclose(kt, pt, rtol=1e-5, atol=0)
+        same = kp[hit] == pp[hit]
+        assert same.float().mean() >= 0.999
+        assert torch.allclose(ku[hit][same], pu[hit][same], atol=1e-5)
+        assert torch.allclose(kv[hit][same], pv[hit][same], atol=1e-5)
+    else:
+        assert torch.equal(kt, pt) and torch.equal(kp, pp)
+
+
+@pytest.mark.parametrize("accel", ["serve", "tiled"])
+def test_accel_queries_on_card_match_cpu(cuda, np_rng, accel):
+    tris, o, d = _soup(np_rng, n_ray=16384)
+    mod = bs if accel == "serve" else bt
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        acc = mod.build(*tris, device=dev)
+        t, prim, _, valid = mod.intersect_bvh(acc, _vec(o, dev),
+                                              _vec(d, dev), 1e30)
+        occ = mod.occluded_bvh(acc, _vec(o, dev), _vec(d, dev), 2.0)
+        results.append([x.cpu() for x in (t, prim, valid, occ)])
+    (tg, pg, vg, og), (tc, pc, vc, oc) = results
+    assert torch.equal(vg, vc) and torch.equal(og, oc)
+    assert (pg[vc] == pc[vc]).float().mean() > 0.999
+    assert torch.allclose(tg[vc], tc[vc], rtol=1e-5)
+
+
+@pytest.mark.parametrize("accel", ["serve", "tiled"])
+def test_accel_render_on_card_matches_cpu(cuda, monkeypatch, accel):
+    """The serve render is 48^2 so that its 9,216 primary rays go above
+    the gather-serve width and reach K3."""
+    monkeypatch.setenv("MI3T_ACCEL", accel)
+    d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f,
+                                      width=48 if accel == "serve" else 16)
+    counters = bs.LAUNCHES if accel == "serve" else bt.LAUNCHES
+    for k in counters:
+        counters[k] = 0
+    img_g = mt.render(mt.load_dict(d, device=cuda), seed=5, spp=4)
+    assert all(v > 0 for v in counters.values()), counters
     img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=4)
     img_g = img_g.cpu().numpy()
     img_c = img_c.numpy()

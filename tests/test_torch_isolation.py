@@ -73,3 +73,55 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
     out = _run(["chip_smoke.py"], cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+BUILD_AND_USE = """
+import sys
+from pathlib import Path
+sys.path.insert(0, {root!r})
+import numpy as np
+from mitsuba3_tpu_torch.ops import native
+native.BUILD_DIR = Path({build!r})
+from mitsuba3_tpu_torch import native as sah
+from mitsuba3_tpu_torch.ops import bvh_serve, bvh_tiled
+rng = np.random.default_rng(0)
+c = rng.uniform(-1, 1, (500, 3)).astype(np.float32)
+order = sah.build_bvh(c - 0.01, c + 0.01, 16)[0]
+assert sorted(order.tolist()) == list(range(500))
+e = rng.normal(0, 0.1, (500, 3)).astype(np.float32)
+bvh_tiled.build(c, e, e[::-1].copy(), device="cpu")
+bvh_serve.build(c, e, e[::-1].copy(), device="cpu")
+print("BUILT", sorted(p.name for p in Path({build!r}).iterdir()))
+print("FORBIDDEN", sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib",
+                                                 "mitsuba3_tpu")))
+"""
+
+
+def test_sah_builder_source_lives_in_the_port():
+    """The port compiles its own copy of the SAH builder (csrc/), never
+    the JAX package's source or library."""
+    from mitsuba3_tpu_torch.ops import native
+    src = PORT / "csrc" / "bvh_build.cpp"
+    assert "bvh_build.cpp" in native.SOURCES
+    body = src.read_text()
+    assert "mi_build_bvh" in body
+    jax_src = (ROOT / "mitsuba3_tpu" / "native" / "bvh.cpp").read_text()
+    assert body.endswith(jax_src)     # a copy, headed by a note
+    assert native._source("bvh_build.cpp") == src
+    assert native.library_path("bvh_build.cpp").parent == native.BUILD_DIR
+    assert native.BUILD_DIR == ROOT / "build" / "kernels"
+
+
+def test_building_the_sah_builder_leaves_jax_native_untouched(tmp_path):
+    """Building and using the port's builder (fresh, into its own build
+    directory) keeps mitsuba3_tpu/native/_native.so's bytes and mtime and
+    loads nothing of JAX or the JAX package."""
+    so = ROOT / "mitsuba3_tpu" / "native" / "_native.so"
+    before = (so.read_bytes(), so.stat().st_mtime_ns)
+    out = _run(["-c", BUILD_AND_USE.format(root=str(ROOT),
+                                           build=str(tmp_path))], cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+    assert "libbvh_build-" in out.stdout
+    assert (so.read_bytes(), so.stat().st_mtime_ns) == before
