@@ -23,11 +23,22 @@ Phases:
    each held against the cellserve image and checked to launch its kernels;
 5. agreement: the small terrain rendered on the card and on the CPU, under
    each accel;
-6. one JSON line of per-kernel numbers.
+6. kernels K5-K8 (the attic intersectors), each against its plain version
+   at full width on the terrain queries of ``benchmarks/bench_bvh.py``
+   (65,522 triangles, 2^19 primary rays): K5 as bvh_pallas packs the rays
+   (closest and any-hit), K6 as the first bvh_queue cull, K7 as its first
+   serve after the sort and the schedule, K8 as the first bvh2 round's
+   serve on the 2^19 bounce rays;
+7. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
+   closest and any-hit on 2^19 primary and 2^19 bounce rays, timed after
+   a warm-up, held to the dense oracle (``ops/intersect.py``) on the first
+   32,768 rays with ``bench_bvh.verify``'s checks and to bvh_tiled at full
+   width, and checked to launch every kernel of its module;
+8. JSON lines of render, query and per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
-terrain functions below are numpy copies of the benchmark's.
+terrain and ray functions below are numpy copies of the benchmarks'.
 """
 from __future__ import annotations
 
@@ -61,7 +72,16 @@ OPS_PER_TEST = 52
 # key and 2 comparisons (key > lk, id <= n_leaves)
 OPS_PER_SUP = 25
 OPS_PER_BOX = 29
+# operations of one ray-node test in csrc/bvh_pallas_traverse.cu: 18 for
+# the slabs, 4 to fold them and 3 comparisons (t_near <= t_far,
+# t_far >= 0, t_near <= best)
+OPS_PER_NODE = 25
 K = 128
+# bench_bvh's terrain queries: make_terrain(182), 2^19 rays of each kind;
+# the dense oracle holds the first HOLD_RAYS of them
+BVH_SIDE = 182
+BVH_RAYS = 1 << 19
+HOLD_RAYS = 32768
 LIBRARY_NOTE = ("none: no single PyTorch call computes this function")
 
 
@@ -100,6 +120,33 @@ def make_terrain(side: int, seed: int = 0):
     v = P[faces]
     p0 = v[:, 0]
     return p0, v[:, 1] - p0, v[:, 2] - p0
+
+
+def make_rays(n: int, seed: int, kind: str):
+    """n rays (o, d) of benchmarks/bench_bvh.py's terrain queries: "primary"
+    from a camera at altitude in pixel order, or incoherent "bounce" rays
+    from near the surface."""
+    rng = np.random.default_rng(seed)
+    if kind == "primary":
+        # camera at altitude looking down-forward; pixel-ordered grid
+        side = int(np.ceil(np.sqrt(n)))
+        u = (np.arange(side) + 0.5) / side
+        U, V = np.meshgrid(u, u, indexing="ij")
+        U, V = U.ravel()[:n], V.ravel()[:n]
+        o = np.tile(np.array([[0.0, -14.0, 8.0]], np.float32), (n, 1))
+        tgt = np.stack([(U - 0.5) * 20,
+                        (V - 0.5) * 20 - 2.0,
+                        np.zeros(n)], -1).astype(np.float32)
+        d = tgt - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    else:
+        # bounce-style: origins near the surface, cosine-ish directions up
+        o = rng.uniform(-9, 9, (n, 3)).astype(np.float32)
+        o[:, 2] = rng.uniform(0.0, 3.0, n)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d[:, 2] = np.abs(d[:, 2]) * rng.choice([1.0, -1.0], n)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
 
 
 def _lights():
@@ -174,11 +221,12 @@ def _check(cond, msg):
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def _cuda_ms(fn, reps: int):
+def _cuda_ms(fn, reps: int, warm: bool = True):
     """Mean milliseconds of fn() over `reps` launches (CUDA events, after
-    one warm-up call)."""
+    one warm-up call unless `warm` is False)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -203,7 +251,7 @@ def _row(name, tpu, source, replaces, mode, err, k_ms, p_ms, ops, nbytes,
          card, **extra):
     """One kernel's entry of the `kernels` line, printed as a comment."""
     bound_ms, by, ops_ms, bytes_ms = _bound(ops, nbytes)
-    print(f"# {tpu} {mode}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, "
+    print(f"# {tpu} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, "
           f"bound {bound_ms:.4f} ms by {by} (ops {ops:.4g} -> {ops_ms:.4f} "
           f"ms, bytes {nbytes:.4g} -> {bytes_ms:.4f} ms), "
           f"{k_ms / bound_ms:.1f}x the bound [{card}]")
@@ -263,9 +311,13 @@ def phase_kernels(mi, card: str):
     n_pairs = int((slots < acc.res ** 3).sum())
     n_sub = r0.shape[0]
     sum_nr = int(nr.sum())
-    # every real pair of a sub-block tests every row of its window; the
-    # padding pairs, all in the last sub-block, need none
-    tests = K * (K * sum_nr - (n_sub * K - n_pairs) * int(nr[-1]))
+    # every real pair of a sub-block tests every real triangle (id >= 0) of
+    # the rows of its window; the padding pairs, all in the last sub-block,
+    # need none
+    real = torch.cat([torch.zeros(1, dtype=torch.int64, device=nr.device),
+                      (acc.tris[:, 9] >= 0).sum(dim=1).cumsum(0)])
+    win = real[(r0 + nr).long()] - real[r0.long()]
+    tests = K * int(win.sum()) - (n_sub * K - n_pairs) * int(win[-1])
     print(f"# kernels: {n} lanes, {n_pairs} pairs, {n_sub} sub-blocks, "
           f"sum(nr) = {sum_nr} rows, slab table {acc.tris.shape[0]} rows "
           f"({acc.tris.numel() * 4 / 1e6:.1f} MB), res {acc.res}")
@@ -437,6 +489,323 @@ def phase_kernels_tiled(mi, card: str):
     del scene
     torch.cuda.empty_cache()
     return rows
+
+
+def _bvh_rays(kind: str):
+    """bench_bvh's 2^19 rays of `kind` on the card: (o, d, maxt 1e30)."""
+    import torch
+    from mitsuba3_tpu_torch.core.vec import Vec3
+
+    def vec(a):
+        t = torch.as_tensor(a, device="cuda")
+        return Vec3(*(t[:, i].contiguous() for i in range(3)))
+
+    o, d = make_rays(BVH_RAYS, 1, kind)
+    return vec(o), vec(d), torch.full((BVH_RAYS,), 1e30, device="cuda")
+
+
+def _hold_hits(tag, kt, ks, pt, ps, closest: bool):
+    """A kernel's (t, slot or prim) against its plain version's: hit sets
+    equal; closest: t within rtol 1e-5 and prim by _hold_t's rule, t equal
+    where nothing was hit; any-hit: equal. Returns max |dt|."""
+    import torch
+    hit = ps >= 0
+    _check(torch.equal(ks >= 0, hit), f"{tag}: hit sets differ on "
+           f"{int(((ks >= 0) != hit).sum())} lanes")
+    if closest:
+        err, _ = _hold_t(tag, kt, pt, hit, ks, ps)
+        _check(torch.equal(kt[~hit], pt[~hit]),
+               f"{tag}: t differs where nothing was hit")
+        return err
+    _check(torch.equal(kt, pt) and torch.equal(ks, ps),
+           f"{tag}: results differ")
+    print(f"# {tag}: {int(hit.sum())} occluded lanes, equal")
+    return 0.0
+
+
+def phase_kernels_attic(card: str):
+    """K5-K8 against their plain versions at full width on bench_bvh's
+    terrain queries (primary rays; K8 on the bounce rays): K5 as
+    intersect_bvh and occluded_bvh pack the rays, K6 as the first cull of a
+    bvh_queue query, K7 as its first serve after the sort and the schedule,
+    K8 as the first round's serve of a bvh2 query."""
+    import torch
+    from mitsuba3_tpu_torch.ops import bvh_serve as bs
+    from mitsuba3_tpu_torch.ops.attic import bvh2 as b2
+    from mitsuba3_tpu_torch.ops.attic import bvh_pallas as bp
+    from mitsuba3_tpu_torch.ops.attic import bvh_queue as bq
+
+    tris = make_terrain(BVH_SIDE)
+    o, d, maxt = _bvh_rays("primary")
+    rows = []
+
+    # K5: the packet walk, closest and any-hit
+    acc = bp.build(*tris, device="cuda")
+    o3, d3, mt = bp.pack_rays(o, d, torch.clamp(maxt, max=3e38))
+    npad = mt.shape[0]
+    print(f"# kernels (bvh_pallas): {npad} lanes in {npad // bp.TILE} tiles,"
+          f" {acc.node_bounds.shape[0]} nodes, {acc.n_leaves} leaves")
+    for closest, mode in ((True, "closest"), (False, "anyhit")):
+        kt, ks, _, _ = bp.traverse(acc, o3, d3, mt, closest)
+        work = {}
+        pt, ps, _, _ = bp.traverse_plain(acc, o3, d3, mt, closest,
+                                         stats=work)
+        torch.cuda.synchronize()
+        err = _hold_hits(f"K5 {mode}", kt, ks, pt, ps, closest)
+        k_ms = _cuda_ms(lambda: bp.traverse(acc, o3, d3, mt, closest), 10)
+        p_ms = _cuda_ms(lambda: bp.traverse_plain(acc, o3, d3, mt, closest),
+                        1, warm=False)
+        print(f"# K5 {mode}: {work['nodes']} (tile, node) visits, "
+              f"{work['leaves']} (tile, leaf) tests, {work['tests']} "
+              f"ray-triangle tests needed")
+        nbytes = ((acc.node_bounds.numel() + acc.node_meta.numel()
+                   + acc.tris.numel()) * 4 + npad * (28 + (16 if closest
+                                                          else 8)))
+        rows.append(_row(
+            f"bvh_pallas_traverse.{mode}", "K5", "bvh_pallas_traverse.cu",
+            "mitsuba3_tpu/ops/attic/bvh_pallas.py:158", mode, err, k_ms,
+            p_ms, work["box_tests"] * OPS_PER_NODE
+            + work["tests"] * OPS_PER_TEST, nbytes, card, accel="pallas",
+            **work))
+    del acc
+
+    # K6: the first cull of a bvh_queue query
+    acc = bq.build(*tris, device="cuda")
+    f, i = bq.initial_state(o, d, maxt)
+    npad = f.shape[1]
+    lk = (i[bs.LK] & bq.MASK31).contiguous()
+    kq = bq.cull_topk(acc, f, lk)
+    work = {}
+    pq = bq.cull_topk_plain(acc, f, lk, stats=work)
+    torch.cuda.synchronize()
+    _check(torch.equal(kq, pq), f"K6: keys differ on "
+           f"{int((kq != pq).sum())} of {kq.numel()}")
+    print(f"# K6: keys bit-equal, {int((pq[0] != bs.NONE).sum())} rays queue "
+          f"a leaf, {int((pq[-1] != bs.NONE).sum())} fill all {bq.KQ}; "
+          f"{work['chunks_taken']} (block, chunk) pairs taken; "
+          f"{work['sup_tests']} chunk-box and {work['box_tests']} leaf-box "
+          f"tests needed")
+    k_ms = _cuda_ms(lambda: bq.cull_topk(acc, f, lk), 20)
+    p_ms = _cuda_ms(lambda: bq.cull_topk_plain(acc, f, lk), 2)
+    rows.append(_row(
+        "bvh_queue_cull", "K6", "bvh_serve_cull.cu",
+        "mitsuba3_tpu/ops/attic/bvh_queue.py:60", "cull", 0.0, k_ms, p_ms,
+        work["sup_tests"] * OPS_PER_SUP + work["box_tests"] * OPS_PER_BOX,
+        (acc.bounds.numel() + acc.sup.numel()) * 4 + npad * (32 + 4 * bq.KQ),
+        card, accel="queue", **work))
+
+    # K7: the first serve, after the sort by queue head and the schedule
+    fs, is_ = bq.sort_by_head(acc, f, bq.fresh_cull(acc, f, i))
+    lids = bq.simulate(is_[bq.Q0:], fs[bs.TB])[0]
+    kt, kp, _, _ = bq.serve_multi(acc, lids, fs)
+    work = {}
+    pt, pp, _, _ = bq.serve_multi_plain(acc, lids, fs, stats=work)
+    torch.cuda.synchronize()
+    err = _hold_hits("K7", kt, kp, pt, pp, True)
+    print(f"# K7: {work['slots']} of {lids.numel()} (block, slot) pairs "
+          f"taken, {work['tests']} ray-triangle tests needed")
+    k_ms = _cuda_ms(lambda: bq.serve_multi(acc, lids, fs), 20)
+    p_ms = _cuda_ms(lambda: bq.serve_multi_plain(acc, lids, fs), 2)
+    rows.append(_row(
+        "bvh_queue_serve", "K7", "bvh_queue_serve.cu",
+        "mitsuba3_tpu/ops/attic/bvh_queue.py:211", "serve", err, k_ms, p_ms,
+        work["tests"] * (OPS_PER_TEST + 1),
+        (acc.tris.numel() + lids.numel()) * 4 + npad * (28 + 16), card,
+        accel="queue", **work))
+    del acc, f, i, fs, is_
+
+    # K8: the first round's serve of a bvh2 query on the bounce rays (on the
+    # primary rays every lane of that round wants a padding supernode of the
+    # cull, so the kernel would test nothing)
+    acc = b2.build(*tris, device="cuda")
+    o, d, maxt = _bvh_rays("bounce")
+    ids, rays, want = b2.first_round(acc, o, d, maxt)
+    kt, kp, _, _ = b2.serve(acc, ids, rays, want)
+    work = {}
+    pt, pp, _, _ = b2.serve_plain(acc, ids, rays, want, stats=work)
+    torch.cuda.synchronize()
+    err = _hold_hits("K8 bounce", kt, kp, pt, pp, True)
+    _check(work["tests"] > 0, "K8: the bounce round serves no supernode")
+    real = ids[(ids != b2.NONE_ID) & (ids < acc.n_nodes)]
+    n_ids = int(torch.unique(real).numel())
+    print(f"# K8 bounce: {ids.shape[0]} chunks, {int(real.numel())} served "
+          f"ids from the table ({n_ids} distinct), "
+          f"{int(((ids != b2.NONE_ID) & (ids >= acc.n_nodes)).sum())} "
+          f"padding ids; {work['lanes']} lanes served, {work['tests']} "
+          f"ray-triangle tests needed")
+    k_ms = _cuda_ms(lambda: b2.serve(acc, ids, rays, want), 20)
+    p_ms = _cuda_ms(lambda: b2.serve_plain(acc, ids, rays, want), 2)
+    nbytes = (n_ids * 10 * b2.LEAF * 4
+              + (ids.numel() + rays.numel() + want.numel()) * 4
+              + want.numel() * 16)
+    rows.append(_row(
+        "bvh2_serve", "K8", "bvh2_serve.cu",
+        "mitsuba3_tpu/ops/attic/bvh2.py:207", "serve", err, k_ms, p_ms,
+        work["tests"] * (OPS_PER_TEST + 1), nbytes, card, accel="bvh2",
+        rays="bounce", **work))
+    del acc
+    torch.cuda.empty_cache()
+    return rows
+
+
+# attic accel -> its query variants (suffix, closest hit, any hit)
+ATTIC_QUERIES = {
+    "pallas": (("", "intersect_bvh", "occluded_bvh"),
+               ("_sorted", "intersect_bvh_sorted", "occluded_bvh_sorted")),
+    "queue": (("", "intersect_bvh", "occluded_bvh"),),
+    "bvh2": (("", "intersect_bvh", "occluded_bvh"),),
+}
+
+
+def _timed_query(counters, fn, *args):
+    """(result, wall s, launches) of one call after one warm-up call: the
+    host clock around the call, ending in torch.cuda.synchronize();
+    `counters` (a module's LAUNCHES) are set to 0 just before the call and
+    read just after it."""
+    import torch
+    fn(*args)
+    torch.cuda.synchronize()
+    for k in counters:
+        counters[k] = 0
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(counters)
+
+
+def _hold_oracle(tag, closest, anyhit, acc, res, ref):
+    """bench_bvh.verify's checks of a closest-hit result `res` on the first
+    HOLD_RAYS rays against the dense oracle `ref`. Returns the prim match
+    share."""
+    import torch
+    t, p, v = res[0][:HOLD_RAYS], res[1][:HOLD_RAYS], res[3][:HOLD_RAYS]
+    so, sd, smt, t_n, p_n, v_n, occ_n = ref
+    _check(torch.equal(v, v_n), f"{tag}: valid differs from the oracle on "
+           f"{int((v != v_n).sum())} of {HOLD_RAYS} rays")
+    sel = v_n
+    same = p[sel] == p_n[sel]
+    frac = float(same.float().mean()) if same.numel() else 1.0
+    _check(frac >= 0.999, f"{tag}: prim matches the oracle on only {frac}")
+    _check(torch.allclose(t[sel][same], t_n[sel][same], rtol=1e-4,
+                          atol=1e-4), f"{tag}: t differs from the oracle")
+    _check(bool((t[sel][~same] <= t_n[sel][~same] + 1e-3).all()),
+           f"{tag}: a hit farther than the oracle's")
+    short = torch.where(v_n, t_n * 0.9, 1e30)
+    _check(not bool(anyhit(acc, so, sd, short)[sel].any()),
+           f"{tag}: occlusion reported short of the nearest hit")
+    occ = anyhit(acc, so, sd, torch.full_like(smt, 20.0))
+    occ_frac = float((occ == occ_n).float().mean())
+    _check(occ_frac > 0.9999, f"{tag}: any-hit at maxt 20 matches the "
+           f"oracle on only {occ_frac}")
+    act = torch.arange(HOLD_RAYS, device=smt.device) % 2 == 0
+    _check(not bool(closest(acc, so, sd, smt, active=act)[3][~act].any()),
+           f"{tag}: an inactive lane hit")
+    return frac
+
+
+def phase_attic_queries(card: str):
+    """bench_bvh's terrain queries (make_terrain(182), 2^19 primary and
+    2^19 bounce rays, maxt 1e30) through bvh_pallas, bvh_pallas sorted,
+    bvh_queue and bvh2, closest and any-hit: each timed once after a
+    warm-up, held to the dense oracle on the first HOLD_RAYS rays
+    (bench_bvh.verify's checks) and to bvh_tiled (K4) at full width.
+    Returns (each module's kernel launches over its timed query set,
+    query records)."""
+    import torch
+    from mitsuba3_tpu_torch.core.vec import Vec3
+    from mitsuba3_tpu_torch.ops import bvh_tiled as bt
+    from mitsuba3_tpu_torch.ops import intersect as isx
+    from mitsuba3_tpu_torch.ops.attic import bvh2, bvh_pallas, bvh_queue
+
+    p0, e1, e2 = make_terrain(BVH_SIDE)
+    # the oracle's 256-triangle chunks, padded with zero triangles as
+    # bench_bvh pads them
+    pad = np.zeros(((-p0.shape[0]) % 256, 3), np.float32)
+
+    def vec(a):
+        t = torch.as_tensor(np.concatenate([a, pad]), device="cuda")
+        return Vec3(*(t[:, i].contiguous() for i in range(3)))
+
+    tri_vecs = [vec(a) for a in (p0, e1, e2)]
+    accs, builds = {}, {}
+    mods = {"pallas": bvh_pallas, "queue": bvh_queue, "bvh2": bvh2}
+    for name, mod in (("tiled", bt), *mods.items()):
+        t0 = time.perf_counter()
+        accs[name] = mod.build(p0, e1, e2, device="cuda")
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t0
+    print(f"# attic queries: {p0.shape[0]} triangles; builds "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in builds.items()))
+
+    refs = {}
+    for kind in ("primary", "bounce"):
+        o, d, maxt = _bvh_rays(kind)
+        so = Vec3(o.x[:HOLD_RAYS], o.y[:HOLD_RAYS], o.z[:HOLD_RAYS])
+        sd = Vec3(d.x[:HOLD_RAYS], d.y[:HOLD_RAYS], d.z[:HOLD_RAYS])
+        smt = maxt[:HOLD_RAYS]
+        t_n, p_n, _, v_n = isx.intersect_naive(so, sd, smt, *tri_vecs)
+        occ_n = isx.occluded_naive(so, sd, torch.full_like(smt, 20.0),
+                                   *tri_vecs)
+        tiled = (bt.intersect_bvh(accs["tiled"], o, d, maxt),
+                 bt.occluded_bvh(accs["tiled"], o, d, maxt))
+        refs[kind] = (o, d, maxt, (so, sd, smt, t_n, p_n, v_n, occ_n), tiled)
+        print(f"# {kind}: oracle hit share {float(v_n.float().mean()):.4f} "
+              f"on the first {HOLD_RAYS} rays; bvh_tiled hit share "
+              f"{float(tiled[0][3].float().mean()):.4f}, occluded "
+              f"{float(tiled[1].float().mean()):.4f}")
+    del accs["tiled"]
+
+    launches, records = {}, []
+    for name, variants in ATTIC_QUERIES.items():
+        mod, acc = mods[name], accs[name]
+        launches[name] = dict.fromkeys(mod.LAUNCHES, 0)
+        for kind in ("primary", "bounce"):
+            o, d, maxt, oracle, (tref, occ_ref) = refs[kind]
+            for suffix, cname, aname in variants:
+                tag = f"{name}{suffix} {kind}"
+                closest, anyhit = getattr(mod, cname), getattr(mod, aname)
+                res, wall_c, n_c = _timed_query(mod.LAUNCHES, closest, acc,
+                                                o, d, maxt)
+                occ, wall_a, n_a = _timed_query(mod.LAUNCHES, anyhit, acc,
+                                                o, d, maxt)
+                for k in launches[name]:
+                    launches[name][k] += n_c[k] + n_a[k]
+                frac = _hold_oracle(tag, closest, anyhit, acc, res, oracle)
+                v, p = res[3], res[1]
+                v_eq = float((v == tref[3]).float().mean())
+                both = v & tref[3]
+                p_eq = float((p[both] == tref[1][both]).float().mean())
+                o_eq = float((occ == occ_ref).float().mean())
+                _check(v_eq >= 0.9999 and o_eq >= 0.9999 and p_eq >= 0.999,
+                       f"{tag}: against bvh_tiled, hit sets match on "
+                       f"{v_eq}, occlusion on {o_eq}, prim on {p_eq}")
+                rec = {"accel": name + suffix, "rays": kind,
+                       "n_rays": BVH_RAYS, "closest_s": wall_c,
+                       "anyhit_s": wall_a,
+                       "closest_mrays_per_s": BVH_RAYS / wall_c / 1e6,
+                       "anyhit_mrays_per_s": BVH_RAYS / wall_a / 1e6,
+                       "hit_share": float(v.float().mean()),
+                       "occluded_share": float(occ.float().mean()),
+                       "oracle_prim_match": frac, "tiled_valid_match": v_eq,
+                       "tiled_prim_match": p_eq, "tiled_occ_match": o_eq,
+                       "closest_launches": n_c, "anyhit_launches": n_a,
+                       "build_s": builds[name]}
+                records.append(rec)
+                print(f"# query {tag}: closest {rec['closest_mrays_per_s']:.3f}"
+                      f" Mrays/s ({wall_c * 1e3:.1f} ms, hit share "
+                      f"{rec['hit_share']:.4f}, launches {n_c}), any-hit "
+                      f"{rec['anyhit_mrays_per_s']:.3f} Mrays/s "
+                      f"({wall_a * 1e3:.1f} ms, launches {n_a}); oracle prim "
+                      f"match {frac:.5f};"
+                      f" vs bvh_tiled: valid {v_eq:.6f}, prim {p_eq:.6f}, "
+                      f"occluded {o_eq:.6f} [{card}]")
+        print(f"# {name}: launches over its timed queries {launches[name]}")
+        _check(all(n > 0 for n in launches[name].values()),
+               f"{name}: the queries did not launch every kernel: "
+               f"{launches[name]}")
+        del accs[name]
+        torch.cuda.empty_cache()
+    return launches, records
 
 
 # accel -> (launch counters, profiler labels of its kernels)
@@ -617,6 +986,10 @@ def main():
         renders.append(render)
     for accel in ("cells", "serve", "tiled"):
         timed(f"agreement {accel}", phase_agreement, mi, accel)
+    rows += timed("kernels K5-K8", phase_kernels_attic, card)
+    attic_launches, queries = timed("attic queries", phase_attic_queries,
+                                    card)
+    launches.update(attic_launches)
 
     for r in rows:
         counts = launches[r.pop("accel")]
@@ -624,6 +997,7 @@ def main():
         r["card"] = card
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"renders": renders, "card": card}))
+    print(json.dumps({"attic_queries": queries, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

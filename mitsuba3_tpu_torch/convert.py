@@ -10,7 +10,11 @@ them on a device.
 
 The accel is one of cellserve (``MI3T_ACCEL`` auto or cells), bvh_serve
 (``serve``) or bvh_tiled (``tiled``); its kind is told by the fields it
-has, and ``meta["accel"]["kind"]`` carries it across.
+has, and ``meta["accel"]["kind"]`` carries it across. ``accel_arrays`` and
+``accel_from_arrays`` do the same for an accel on its own, which may also
+be one of the attic's (``"pallas"`` for bvh_pallas, ``"bvh2"``; bvh_queue's
+is a ``"serve"`` accel); no scene holds an attic accel, so
+``scene_from_arrays`` refuses those two kinds.
 
 The JAX cellserve accel stores its cell occupancy as a packed byte
 bitmap (``occ_bytes``, cell c at byte c >> 3, bit c & 7); the port keeps
@@ -26,6 +30,8 @@ import torch
 
 from .core.distr2d import SlicedMarginal2D
 from .integrators.path import PathConfig
+from .ops.attic.bvh2 import BVH2
+from .ops.attic.bvh_pallas import BVHData
 from .ops.bvh_serve import BVHServe
 from .ops.bvh_tiled import BVHTiled
 from .ops.cellserve import CellServe
@@ -48,7 +54,11 @@ ACCELS = {
               ("n_leaves", "m_pad", "topk")),
     "tiled": (BVHTiled, ("leaf_bounds", "tris", "prim", "scene_lo",
                          "scene_span"), ("n_leaves",)),
+    "pallas": (BVHData, ("node_bounds", "node_meta", "tris", "prim_order"),
+               ("n_leaves",)),
+    "bvh2": (BVH2, ("bounds", "tris"), ("n_nodes",)),
 }
+ATTIC = ("pallas", "bvh2")   # standalone accels only: no scene holds one
 SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
               "delta_emitter_types", "bsdf_types", "bsdf_flags", "spp")
 
@@ -90,35 +100,55 @@ def arrays_from_scene(scene):
         arrays[f"env_warp.{name}"] = _np(getattr(scene.env_warp, name))
     for name in SENSOR_ARRAYS:
         arrays[f"sensor.{name}"] = _np(getattr(scene.sensor, name))
-    acc = scene.accel
-    kind = accel_kind(acc)
-    _, array_names, meta_names = ACCELS[kind]
-    for name in array_names:
-        if name == "occ" and hasattr(acc, "occ_bytes"):
-            value = unpack_occupancy(_np(acc.occ_bytes), int(acc.res) ** 3)
-        else:
-            value = _np(getattr(acc, name))
-        arrays[f"accel.{name}"] = value
+    acc_arrays, acc_meta = accel_arrays(scene.accel)
+    arrays.update({f"accel.{name}": a for name, a in acc_arrays.items()})
 
     meta = {name: getattr(scene, name) for name in SCENE_META}
     meta["film"] = _fields(scene.film, FilmConfig)
     meta["sensor_config"] = _fields(scene.sensor_config, SensorConfig)
     meta["integrator"] = _fields(scene.integrator, PathConfig)
-    meta["accel"] = {name: int(getattr(acc, name)) for name in meta_names}
-    meta["accel"]["kind"] = kind
+    meta["accel"] = acc_meta
     return arrays, meta
 
 
 def accel_kind(acc) -> str:
-    """"cells", "serve" or "tiled", from the accel's fields (a JAX or a
-    port accel alike)."""
+    """"cells", "serve", "tiled", "pallas" or "bvh2", from the accel's
+    fields (a JAX or a port accel alike)."""
     for kind, marks in (("cells", ("start", "inv_cell")),
                         ("serve", ("sup", "m_pad")),
-                        ("tiled", ("leaf_bounds", "scene_span"))):
+                        ("tiled", ("leaf_bounds", "scene_span")),
+                        ("pallas", ("node_meta", "prim_order")),
+                        ("bvh2", ("bounds", "n_nodes"))):
         if all(hasattr(acc, mark) for mark in marks):
             return kind
     raise NotImplementedError(
         f"accel {type(acc).__name__} is not ported to mitsuba3_tpu_torch")
+
+
+def accel_arrays(acc):
+    """(arrays, meta) of an accel alone: its array fields as numpy arrays,
+    its static fields and its kind (meta["kind"])."""
+    kind = accel_kind(acc)
+    _, array_names, meta_names = ACCELS[kind]
+    arrays = {}
+    for name in array_names:
+        if name == "occ" and hasattr(acc, "occ_bytes"):
+            arrays[name] = unpack_occupancy(_np(acc.occ_bytes),
+                                            int(acc.res) ** 3)
+        else:
+            arrays[name] = _np(getattr(acc, name))
+    meta = {name: int(getattr(acc, name)) for name in meta_names}
+    meta["kind"] = kind
+    return arrays, meta
+
+
+def accel_from_arrays(arrays: dict, meta: dict, device):
+    """The port's accel from `accel_arrays` output, on `device`."""
+    meta = dict(meta)
+    cls, array_names, _ = ACCELS[meta.pop("kind")]
+    return cls(**{name: torch.as_tensor(np.array(arrays[name]),
+                                        device=device)
+                  for name in array_names}, **meta)
 
 
 def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
@@ -129,15 +159,19 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
     def group(prefix, names):
         return {name: t(f"{prefix}.{name}") for name in names}
 
+    if meta["accel"]["kind"] in ATTIC:
+        raise NotImplementedError(
+            f"accel kind {meta['accel']['kind']!r}: no scene holds an attic "
+            f"accel; use accel_from_arrays")
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
     leaves.setdefault("de_params", None)
-    acc_meta = dict(meta["accel"])
-    cls, array_names, _ = ACCELS[acc_meta.pop("kind")]
+    acc = {name[len("accel."):]: a for name, a in arrays.items()
+           if name.startswith("accel.")}
     return Scene(
         **leaves,
         env_warp=SlicedMarginal2D(**group("env_warp", WARP_ARRAYS)),
         sensor=SensorData(**group("sensor", SENSOR_ARRAYS)),
-        accel=cls(**group("accel", array_names), **acc_meta),
+        accel=accel_from_arrays(acc, meta["accel"], device),
         **{name: meta[name] for name in SCENE_META},
         film=FilmConfig(**meta["film"]),
         sensor_config=SensorConfig(**meta["sensor_config"]),

@@ -1,9 +1,16 @@
-// K2 on Hopper: the bvh_serve cull kernel (nearest unvisited leaves).
+// K2 and K6 on Hopper: the bvh_serve cull kernel (nearest unvisited leaves).
 //
 // Replaces mitsuba3_tpu/ops/bvh_serve.py:_cull_kernel, the Pallas TPU
 // kernel launched by _cull. Its plain PyTorch version is cull_plain in
 // mitsuba3_tpu_torch/ops/bvh_serve.py; the wrapper cull there launches this
-// kernel for CUDA tensors.
+// kernel for CUDA tensors with TOPK 1 or 2.
+//
+// With TOPK = 8 it also replaces mitsuba3_tpu/ops/attic/bvh_queue.py:
+// _cull_topk_kernel (launched by _cull_topk), which computes the same
+// function with a queue of KQ = 8 keys: its 8 repeated min extractions over
+// a chunk's keys and its running 8 give the 8 smallest, since ids are
+// distinct. The wrapper cull_topk of mitsuba3_tpu_torch/ops/attic/
+// bvh_queue.py launches it, and its plain version is cull_topk_plain there.
 //
 // What it computes. For each ray (origin, direction, best t so far `tb`,
 // last served key `lk`) and each leaf box, the slab test gives
@@ -126,8 +133,9 @@ cull_kernel(const float* __restrict__ bounds, const float* __restrict__ sup,
 // bounds [8, m6] f32 (rows lo xyz, hi xyz, 2 pad); sup [8, supw] f32 chunk
 // union boxes (same rows); geo [R >= 7, npad] f32 rows ox oy oz dx dy dz tb;
 // lk [npad] i32; best [topk, npad] i32 out, npad = 512 * n_blocks; topk 1
-// or 2. Launches on `stream` and returns the launch's cudaError_t
-// (0 = success; cudaErrorInvalidValue for another topk).
+// or 2 (bvh_serve) or 8 (bvh_queue). Launches on `stream` and returns the
+// launch's cudaError_t (0 = success; cudaErrorInvalidValue for another
+// topk).
 extern "C" int bvh_serve_cull(const float* bounds, const float* sup, int m6,
                               int supw, int n_leaves, const float* geo,
                               const int* lk, int n_blocks, int* best,
@@ -139,6 +147,9 @@ extern "C" int bvh_serve_cull(const float* bounds, const float* sup, int m6,
                                                n_leaves, geo, lk, npad, best);
   } else if (topk == 2) {
     cull_kernel<2><<<n_blocks, RCHUNK, 0, s>>>(bounds, sup, m6, supw,
+                                               n_leaves, geo, lk, npad, best);
+  } else if (topk == 8) {
+    cull_kernel<8><<<n_blocks, RCHUNK, 0, s>>>(bounds, sup, m6, supw,
                                                n_leaves, geo, lk, npad, best);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -234,8 +234,8 @@ def serve_blocks_plain(acc: BVHServe, blk_ids, rays, leaf,
     skipped if its id repeats an earlier one of the block or no ray of the
     block wants it; a later slab replaces only with a strictly smaller t.
     Runs PLAIN_BLOCKS blocks at a time. With `stats`, adds to
-    stats["tests"] the ray-triangle tests this data needs: K per ray and
-    slab it wants."""
+    stats["tests"] the ray-triangle tests this data needs: per ray and
+    slab it wants, the slab's real triangles."""
     npad = rays.shape[1]
     nb = npad // BLK
     nsl = 2 * acc.topk
@@ -265,11 +265,13 @@ def serve_blocks_plain(acc: BVHServe, blk_ids, rays, leaf,
                 continue
             rows = c0 + sel
             r = [rs[i, rows][:, None, :] for i in range(7)]
-            tmin, prim, uu, vv = _mt_best(acc.tris[lid[sel].long()],
-                                          tuple(r[:3]), tuple(r[3:6]), r[6])
+            slab = acc.tris[lid[sel].long()]
+            tmin, prim, uu, vv = _mt_best(slab, tuple(r[:3]), tuple(r[3:6]),
+                                          r[6])
             w = want[sel]
             if stats is not None:
-                stats["tests"] = stats.get("tests", 0) + int(w.sum()) * K
+                stats["tests"] = stats.get("tests", 0) + int(
+                    (w.sum(dim=1) * bvh_tiled.real_tris(slab)).sum())
             better = w & (tmin < t_o[rows])
             t_o[rows] = torch.where(better, tmin, t_o[rows])
             p_o[rows] = torch.where(better, prim, p_o[rows])

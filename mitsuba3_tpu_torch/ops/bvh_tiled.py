@@ -222,6 +222,13 @@ def _sort_leaf_lists(dist):
 # Phase 2: kernel K4 and its plain version
 # ---------------------------------------------------------------------------
 
+def real_tris(slab):
+    """Triangles with a prim id >= 0 (row 9) per slab [S, rows, K] -> [S]
+    int64: the tests a ray needs against each slab, as its padding (id -1)
+    never hits. Counts the work the kernels' bounds are taken from."""
+    return (slab[:, 9] >= 0).sum(dim=1)
+
+
 def _mt_slabs(slab, o, d):
     """Möller-Trumbore of slabs [S, 16, KT] against tiles of rays
     (o, d: 3-tuples of [S, 1, R]) -> (t, u, v, ok), each [S, KT, R]; the
@@ -260,7 +267,7 @@ def run_round_plain(leaf_ids, entries, tris, o3, d3, t, prim, u, v,
     a leaf go to the largest id. Runs PLAIN_TILES tiles at a time. With
     `stats`, adds the (tile, slot) pairs taken to stats["slots"] and the
     ray-triangle tests this data needs to stats["tests"]: in each taken
-    slot, every ray whose best t is >= 0 tests the leaf's KT triangles,
+    slot, every ray whose best t is >= 0 tests the leaf's real triangles,
     and in any-hit mode only those up to its first hit."""
     n_tiles = leaf_ids.shape[0]
     dev = o3.device
@@ -288,7 +295,7 @@ def run_round_plain(leaf_ids, entries, tris, o3, d3, t, prim, u, v,
             hit = ok & (tt >= 0.0) & (tt <= best)
             if stats is not None:
                 # a ray with best t < 0 can hit nothing
-                n = torch.full_like(best[:, 0], KT, dtype=torch.int64)
+                n = real_tris(slab)[:, None].expand(-1, best.shape[2])
                 if not closest:
                     n = torch.where(hit.any(dim=1),
                                     hit.to(torch.int8).argmax(dim=1) + 1, n)

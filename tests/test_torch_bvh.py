@@ -294,22 +294,26 @@ def _cull_work_by_ray(acc, geo):
     return want
 
 
-def _serve_work_by_block(blk, leaf_all, k):
-    """K3's needed tests counted block by block: K per ray and distinct
-    slab of its block that the ray requests."""
+def _serve_work_by_block(blk, leaf_all, tris):
+    """K3's needed tests counted block by block: per ray and distinct slab
+    of its block that the ray requests, the slab's triangles with an id
+    >= 0."""
+    real = (tris[:, 9].numpy() >= 0).sum(axis=1)
     lanes = leaf_all.numpy().reshape(leaf_all.shape[0], blk.shape[0], -1)
     n = 0
     for b, ids in enumerate(blk.numpy()):
         for j, lid in enumerate(ids):
             if lid not in ids[:j]:
-                n += int((lanes[:, b] == lid).any(axis=0).sum()) * k
+                n += int((lanes[:, b] == lid).any(axis=0).sum()) * int(
+                    real[lid])
     return {"tests": n}
 
 
 def _tiled_work_by_slot(args, closest):
-    """K4's needed work counted slot by slot: per taken slot, KT tests
-    for every ray with t >= 0, or in any-hit mode its leading misses and
-    its first hit. The state between slots comes from one-slot rounds."""
+    """K4's needed work counted slot by slot: per taken slot, a test of
+    each triangle with an id >= 0 for every ray with t >= 0, or in any-hit
+    mode its leading misses and its first hit. The state between slots
+    comes from one-slot rounds."""
     leaf_ids, entries, tris, o3, d3 = args[:5]
     state = args[5:]
     want = {"slots": 0, "tests": 0}
@@ -323,10 +327,11 @@ def _tiled_work_by_slot(args, closest):
                 tuple(x[None, None, lanes] for x in o3),
                 tuple(x[None, None, lanes] for x in d3))
             hit = (ok & (tt >= 0.0) & (tt <= t_s[tile]))[0]   # [KT, TILE]
-            n = torch.full((t_bt.TILE,), t_bt.KT)
+            real = int((tris[leaf_ids[tile, s].long(), 9] >= 0).sum())
+            n = torch.full((t_bt.TILE,), real)
             if not closest:
                 misses = (hit.cumsum(dim=0) == 0).sum(dim=0)
-                n = torch.clamp(misses + 1, max=t_bt.KT)
+                n = torch.clamp(misses + 1, max=real)
             want["slots"] += 1
             want["tests"] += int(n[t_s[tile] >= 0.0].sum())
         state = t_bt.run_round_plain(
@@ -351,7 +356,7 @@ def test_plain_work_counts(np_rng, kernel):
         _, acc = _serve_accels(np_rng, 2)
         blk, rays, leaf_all = _first_serve(acc, _geo(np_rng, 1024))
         t_bs.serve_blocks_plain(acc, blk, rays, leaf_all, stats=work)
-        want = _serve_work_by_block(blk, leaf_all, t_bs.K)
+        want = _serve_work_by_block(blk, leaf_all, acc.tris)
         assert want["tests"] > 0
     else:
         closest = kernel == "closest"

@@ -1,9 +1,11 @@
 """Kernels K1 (``csrc/cellserve_serve.cu``), K2 and K3 (``csrc/
-bvh_serve_cull.cu``, ``csrc/bvh_serve_serve.cu``) and K4
-(``csrc/bvh_tiled_mt.cu``) against their plain PyTorch versions on the
-card, at test sizes, in each mode and topk; the queries and the small
-terrain render of each accel on the card against the CPU. Run on a
-machine with a CUDA device::
+bvh_serve_cull.cu``, ``csrc/bvh_serve_serve.cu``), K4
+(``csrc/bvh_tiled_mt.cu``) and the attic's K5-K8
+(``csrc/bvh_pallas_traverse.cu``, K2's kernel with 8 keys,
+``csrc/bvh_queue_serve.cu``, ``csrc/bvh2_serve.cu``) against their plain
+PyTorch versions on the card, at test sizes, in each mode and topk; the
+queries of each accel (and the small terrain render of each loader accel)
+on the card against the CPU. Run on a machine with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -19,6 +21,9 @@ from mitsuba3_tpu_torch.core.vec import Vec3
 from mitsuba3_tpu_torch.ops import bvh_serve as bs
 from mitsuba3_tpu_torch.ops import bvh_tiled as bt
 from mitsuba3_tpu_torch.ops import cellserve as cs
+from mitsuba3_tpu_torch.ops.attic import bvh2 as b2
+from mitsuba3_tpu_torch.ops.attic import bvh_pallas as bp
+from mitsuba3_tpu_torch.ops.attic import bvh_queue as bq
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -244,3 +249,146 @@ def test_accel_render_on_card_matches_cpu(cuda, monkeypatch, accel):
     assert np.isfinite(img_g).all()
     assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
     assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K5 (bvh_pallas), K6 and K7 (bvh_queue) and K8 (bvh2) against their plain
+# versions; the attic queries on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("closest", [True, False], ids=["closest", "anyhit"])
+def test_traverse_kernel_matches_plain(cuda, np_rng, closest):
+    tris, o, d = _soup(np_rng, n_ray=8192)
+    acc = bp.build(*tris, device=cuda)
+    maxt = torch.full((o.shape[0],), 3e38 if closest else 2.0, device=cuda)
+    maxt[::7] = -1.0
+    o3, d3, mt = bp.pack_rays(_vec(o, cuda), _vec(d, cuda), maxt)
+    mode = "closest" if closest else "anyhit"
+    before = bp.LAUNCHES[mode]
+    kt, ks, ku, kv = bp.traverse(acc, o3, d3, mt, closest)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES[mode] == before + 1
+    pt, ps, pu, pv = bp.traverse_plain(acc, o3, d3, mt, closest)
+    hit = ps >= 0
+    assert hit.any() and not hit[:8192:7].any()
+    assert torch.equal(ks >= 0, hit)
+    if closest:
+        assert torch.allclose(kt, pt, rtol=1e-5, atol=0)
+        same = ks[hit] == ps[hit]
+        assert same.float().mean() >= 0.999
+        assert torch.allclose(ku[hit][same], pu[hit][same], atol=1e-5)
+        assert torch.allclose(kv[hit][same], pv[hit][same], atol=1e-5)
+    else:
+        assert torch.equal(kt, pt) and torch.equal(ks, ps)
+
+
+def test_queue_cull_kernel_matches_plain(cuda, np_rng):
+    """K6 keys bit-equal from a nonzero cursor, with 8-triangle leaves."""
+    tris, o, d = _soup(np_rng, n_ray=8192)
+    acc = bq.build(*tris, leaf_size=8, device=cuda)
+    assert acc.m_pad // bs.LC >= 2
+    f, i = bq.initial_state(_vec(o, cuda), _vec(d, cuda),
+                            torch.full((o.shape[0],), 1e30, device=cuda))
+    first = bq.cull_topk_plain(acc, f, i[bs.LK])[2]
+    lk = torch.where(torch.arange(first.shape[0], device=cuda) % 2 == 0,
+                     torch.where(first == bs.NONE, 0, first), 0)
+    lk = lk.to(torch.int32).contiguous()
+    before = bq.LAUNCHES["cull"]
+    got = bq.cull_topk(acc, f, lk)
+    torch.cuda.synchronize()
+    assert bq.LAUNCHES["cull"] == before + 1
+    want = bq.cull_topk_plain(acc, f, lk)
+    assert torch.equal(got, want)
+    assert (want[bq.KQ - 1] != bs.NONE).any()
+
+
+def test_queue_serve_kernel_matches_plain(cuda, np_rng):
+    """K7 on the first schedule of a 16,384-ray query."""
+    tris, o, d = _soup(np_rng, n_ray=16384)
+    acc = bq.build(*tris, device=cuda)
+    f, i = bq.initial_state(_vec(o, cuda), _vec(d, cuda),
+                            torch.full((o.shape[0],), 1e30, device=cuda))
+    f, i = bq.sort_by_head(acc, f, bq.fresh_cull(acc, f, i))
+    lids = bq.simulate(i[bq.Q0:], f[bs.TB])[0]
+    before = bq.LAUNCHES["serve"]
+    kt, kp, ku, kv = bq.serve_multi(acc, lids, f)
+    torch.cuda.synchronize()
+    assert bq.LAUNCHES["serve"] == before + 1
+    pt, pp, pu, pv = bq.serve_multi_plain(acc, lids, f)
+    hit = pp >= 0
+    assert hit.any()
+    assert torch.equal(kp >= 0, hit)
+    assert torch.equal(kt[~hit], pt[~hit])
+    assert torch.allclose(kt[hit], pt[hit], rtol=1e-5, atol=0)
+    same = kp[hit] == pp[hit]
+    assert same.float().mean() >= 0.999
+    assert torch.allclose(ku[hit][same], pu[hit][same], atol=1e-5)
+    assert torch.allclose(kv[hit][same], pv[hit][same], atol=1e-5)
+
+
+def test_bvh2_serve_kernel_matches_plain(cuda, np_rng):
+    """K8 on 64 chunks: per chunk 4 distinct supernode ids (some NONE, some
+    past the table), each lane wanting one of them or none and aimed at
+    one of its triangles."""
+    tris, _, d = _soup(np_rng, n_ray=64 * b2.CHUNK)
+    acc = b2.build(*tris, device=cuda)
+    c = 64
+    ids = np.stack([np.sort(np_rng.choice(acc.n_nodes, 4, replace=False))
+                    for _ in range(c)]).astype(np.int32)
+    ids[::3, 3] = acc.n_nodes + 5
+    ids[1::4, 2:] = b2.NONE_ID
+    pick = np_rng.integers(0, 5, (c, b2.CHUNK))
+    want = np.where(pick < 4, np.take_along_axis(ids, np.minimum(pick, 3),
+                                                 axis=1), b2.NONE_ID)
+    w = want.reshape(-1)
+    node = np.minimum(w, acc.n_nodes - 1)
+    rows = acc.tris.cpu().numpy()[node, :, np_rng.integers(0, b2.LEAF,
+                                                           len(w))]
+    o = rows[:, 0:3] + 0.25 * rows[:, 3:6] + 0.25 * rows[:, 6:9] - 2.0 * d
+    tb = np.where(np.arange(len(w)) % 4 == 0, 1.5, 3e38)
+    rays = np.stack([*o.T, *d.T, np.zeros(len(w)), tb]).astype(np.float32)
+    rays = torch.as_tensor(np.ascontiguousarray(
+        rays.reshape(8, c, b2.CHUNK).transpose(1, 0, 2)), device=cuda)
+    ids = torch.as_tensor(ids, device=cuda)
+    want = torch.as_tensor(want.astype(np.int32), device=cuda)
+    before = b2.LAUNCHES["serve"]
+    kt, kp, ku, kv = b2.serve(acc, ids, rays, want)
+    torch.cuda.synchronize()
+    assert b2.LAUNCHES["serve"] == before + 1
+    pt, pp, pu, pv = b2.serve_plain(acc, ids, rays, want)
+    hit = pp >= 0
+    assert hit.sum() > 100
+    assert torch.equal(kp >= 0, hit)
+    assert torch.equal(kt[~hit], pt[~hit])
+    assert torch.allclose(kt[hit], pt[hit], rtol=1e-5, atol=0)
+    same = kp[hit] == pp[hit]
+    assert same.float().mean() >= 0.999
+    assert torch.allclose(ku[hit][same], pu[hit][same], atol=1e-5)
+    assert torch.allclose(kv[hit][same], pv[hit][same], atol=1e-5)
+
+
+ATTIC = {"pallas": (bp, "intersect_bvh", "occluded_bvh"),
+         "pallas_sorted": (bp, "intersect_bvh_sorted", "occluded_bvh_sorted"),
+         "queue": (bq, "intersect_bvh", "occluded_bvh"),
+         "bvh2": (b2, "intersect_bvh", "occluded_bvh")}
+
+
+@pytest.mark.parametrize("accel", sorted(ATTIC))
+def test_attic_queries_on_card_match_cpu(cuda, np_rng, accel):
+    """16,384 rays: wide enough for bvh_queue's K6/K7 cycles."""
+    mod, closest, anyhit = ATTIC[accel]
+    tris, o, d = _soup(np_rng, n_ray=16384)
+    for k in mod.LAUNCHES:
+        mod.LAUNCHES[k] = 0
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        acc = mod.build(*tris, device=dev)
+        t, prim, _, valid = getattr(mod, closest)(acc, _vec(o, dev),
+                                                  _vec(d, dev), 1e30)
+        occ = getattr(mod, anyhit)(acc, _vec(o, dev), _vec(d, dev), 2.0)
+        results.append([x.cpu() for x in (t, prim, valid, occ)])
+    assert all(v > 0 for v in mod.LAUNCHES.values()), mod.LAUNCHES
+    (tg, pg, vg, og), (tc, pc, vc, oc) = results
+    assert torch.equal(vg, vc) and torch.equal(og, oc)
+    assert (pg[vc] == pc[vc]).float().mean() > 0.999
+    assert torch.allclose(tg[vc], tc[vc], rtol=1e-5)
