@@ -9,7 +9,8 @@ Phases:
 1. the card's name and power limit (exits nonzero without a CUDA device);
 2. build every kernel and the SAH builder from ``mitsuba3_tpu_torch/csrc``
    into ``build/kernels/`` (nvcc or g++, one process per source, all at
-   once);
+   once), with ptxas' registers and spills per kernel (K1 and K4 must not
+   spill);
 3. kernels: one full-width round of the terrain64k main path (primary
    rays of the 512^2, 4 spp camera) through each kernel and its plain
    PyTorch version, compared and timed: K1 after pairgen and the pair sort
@@ -20,7 +21,8 @@ Phases:
    4 spp render, then a timed one, then one under torch.profiler for
    device time by kernel; first with the default accel (cellserve, K1),
    then under ``MI3T_ACCEL=serve`` (K2, K3) and ``MI3T_ACCEL=tiled`` (K4),
-   each held against the cellserve image and checked to launch its kernels;
+   each held against the cellserve image and checked to launch its kernels
+   (K1's and K4's device time per mode, closest and any-hit);
 5. agreement: the small terrain rendered on the card and on the CPU, under
    each accel;
 6. kernels K5-K8 (the attic intersectors), each against its plain version
@@ -83,6 +85,9 @@ BVH_SIDE = 182
 BVH_RAYS = 1 << 19
 HOLD_RAYS = 32768
 LIBRARY_NOTE = ("none: no single PyTorch call computes this function")
+# sources whose kernels must build without register spills (K1 and K4;
+# their launch bounds leave ptxas the registers they need)
+SPILL_FREE = ("cellserve_serve.cu", "bvh_tiled_mt.cu")
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +290,15 @@ def _hold_t(tag, kt, pt, hit, kp=None, pp=None):
     return max_err, frac
 
 
+def _hold_equal(tag, kernel_out, plain_out, names):
+    """Each named output of a kernel bit-equal to its plain version's."""
+    import torch
+    for name, k, p in zip(names, kernel_out, plain_out):
+        _check(torch.equal(k, p), f"{tag}: {name} differs from the plain "
+               f"version on {int((k != p).sum())} of {k.numel()} lanes")
+    print(f"# {tag}: {', '.join(names)} bit-equal to the plain version")
+
+
 def _primary_rays(scene):
     """The 1,048,576 primary rays of the terrain64k camera (one pass)."""
     from mitsuba3_tpu_torch.render import integrator as ri
@@ -324,16 +338,18 @@ def phase_kernels(mi, card: str):
 
     rows = []
     for want_uv, mode in ((True, "closest"), (False, "anyhit")):
-        kt, kp, _, _ = cs.serve_blocks(acc.tris, rays, r0, nr, want_uv)
-        pt, pp, _, _ = cs.serve_blocks_plain(acc.tris, rays, r0, nr,
-                                             want_uv)
+        kout = cs.serve_blocks(acc.tris, rays, r0, nr, want_uv)
+        pout = cs.serve_blocks_plain(acc.tris, rays, r0, nr, want_uv)
         torch.cuda.synchronize()
+        (kt, kp, _, _), (pt, pp, _, _) = kout, pout
         big_k, big_p = kt >= cs.BIG, pt >= cs.BIG
         _check(bool((big_k == big_p).all()),
                f"K1 {mode}: BIG (no hit) differs on "
                f"{int((big_k != big_p).sum())} pairs")
         err, _ = _hold_t(f"K1 {mode}", kt, pt, ~big_p,
                          *((kp, pp) if want_uv else ()))
+        _hold_equal(f"K1 {mode}", kout, pout,
+                    ("t", "prim", "u", "v") if want_uv else ("t",))
         k_ms = _cuda_ms(lambda: cs.serve_blocks(acc.tris, rays, r0, nr,
                                                 want_uv), 20)
         p_ms = _cuda_ms(lambda: cs.serve_blocks_plain(acc.tris, rays, r0,
@@ -458,10 +474,11 @@ def phase_kernels_tiled(mi, card: str):
           f"overlaps, slab table {acc.tris.numel() * 4 / 1e6:.1f} MB")
     rows = []
     for closest, mode in ((True, "closest"), (False, "anyhit")):
-        kt, kp, _, _ = bt.run_round(*args, closest)
+        kout = bt.run_round(*args, closest)
         work = {}
-        pt, pp, _, _ = bt.run_round_plain(*args, closest, stats=work)
+        pout = bt.run_round_plain(*args, closest, stats=work)
         torch.cuda.synchronize()
+        (kt, kp, _, _), (pt, pp, _, _) = kout, pout
         _check(torch.equal(kp >= 0, pp >= 0), f"K4 {mode}: hit sets differ")
         hit = pp >= 0
         if closest:
@@ -469,6 +486,7 @@ def phase_kernels_tiled(mi, card: str):
             miss = ~hit
             _check(torch.equal(kt[miss], pt[miss]),
                    f"K4 {mode}: t differs where nothing was hit")
+            _hold_equal(f"K4 {mode}", kout, pout, ("t", "prim", "u", "v"))
         else:
             _check(torch.equal(kt, pt) and torch.equal(kp, pp),
                    f"K4 {mode}: results differ")
@@ -808,13 +826,17 @@ def phase_attic_queries(card: str):
     return launches, records
 
 
-# accel -> (launch counters, profiler labels of its kernels)
+# accel -> (launch counters, profiler labels of its kernels by mode)
 def _accel_kernels(accel):
     from mitsuba3_tpu_torch.ops import bvh_serve, bvh_tiled, cellserve
-    return {"cells": (cellserve.LAUNCHES, {"K1": "serve_kernel<"}),
+    return {"cells": (cellserve.LAUNCHES,
+                      {"K1 closest": "serve_kernel<true>",
+                       "K1 any-hit": "serve_kernel<false>"}),
             "serve": (bvh_serve.LAUNCHES, {"K2": "cull_kernel<",
                                            "K3": "serve_kernel<"}),
-            "tiled": (bvh_tiled.LAUNCHES, {"K4": "mt_kernel<"})}[accel]
+            "tiled": (bvh_tiled.LAUNCHES,
+                      {"K4 closest": "mt_kernel<true>",
+                       "K4 any-hit": "mt_kernel<false>"})}[accel]
 
 
 def phase_render(mi, card: str, accel: str, ref=None):
@@ -904,15 +926,18 @@ def _profile(mi, scene, wall_unprofiled: float, kernels: dict):
               for label, key in kernels.items()}
     groups["other kernels"] = [e for e in events if not any(
         key in e.key for key in kernels.values())]
+    by_label = {}
     for label, group in groups.items():
-        print(f"# profile: {label}: "
-              f"{sum(e.device_time_total for e in group) / 1e3:.2f} ms "
-              f"device in {sum(e.count for e in group)} launches")
+        ms = sum(e.device_time_total for e in group) / 1e3
+        n = sum(e.count for e in group)
+        by_label[label] = {"device_ms": ms, "launches": n}
+        print(f"# profile: {label}: {ms:.2f} ms device in {n} launches")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
         print(f"#   {e.device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
               f"{e.key[:90]}")
     return {"device_busy_s": busy, "profiled_wall_s": wall,
-            "idle_share": max(0.0, 1 - busy / wall_unprofiled)}
+            "idle_share": max(0.0, 1 - busy / wall_unprofiled),
+            "profiled_kernels": by_label}
 
 
 def phase_agreement(mi, accel: str):
@@ -964,8 +989,12 @@ def main():
           f"{time.perf_counter() - t0:.1f} s into {native.BUILD_DIR}")
     for src, log in logs.items():
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln:
+            if any(w in ln for w in ("entry function", "registers", "spill",
+                                     "smem")):
                 print(f"#   {src}: {ln.strip()}")
+            if src in SPILL_FREE and "spill stores" in ln:
+                _check(" 0 bytes spill stores, 0 bytes spill loads" in ln,
+                       f"{src} spills: {ln.strip()}")
 
     def timed(label, fn, *args):
         t = time.perf_counter()

@@ -1,0 +1,120 @@
+"""Time drop-in variants of a hand-written kernel on the terrain64k render.
+
+    python3 -m mitsuba3_tpu_torch.tools.kernel_variants KERNEL NAME=FILE ...
+
+Run from the repository root on a machine with a card. KERNEL is
+``cellserve_serve`` (K1, the cellserve render) or ``bvh_tiled_mt`` (K4,
+``MI3T_ACCEL=tiled``); each FILE is a ``.cu`` that exports the same
+``extern "C"`` launcher as ``csrc/KERNEL.cu``, whose own build runs as the
+variant ``shipped``. Every variant is built with the shipped flags (ptxas'
+registers and spills are printed) and swapped into the loader in place of
+the shipped library. Per variant the tool prints the device ms and launches
+of each mode of the kernel over one 512x512 4 spp terrain64k render, after
+a warm-up render, with the image held bit-equal to the shipped kernel's;
+then it runs ``chip_smoke.py``'s kernel phase for KERNEL, which holds one
+full-width round to the plain version and times it. The variants run in
+the order given, then again in reverse, so that a drift of the card shows.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+# kernel -> (MI3T_ACCEL of its render, chip_smoke's phase for one round)
+KERNELS = {"cellserve_serve": ("cells", "phase_kernels"),
+           "bvh_tiled_mt": ("tiled", "phase_kernels_tiled")}
+OUT = Path("build") / "variants"
+
+
+def _build(kernel: str, sources: dict) -> dict:
+    """Build every variant at once; returns {name: loaded library}."""
+    from mitsuba3_tpu_torch.ops import native
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in sources.items():
+        lib = OUT / f"lib{kernel}-{name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            native._command(Path(src), lib), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_variants: {name} does not build:\n{log}")
+        for ln in log.splitlines():
+            if "registers" in ln or "spill stores" in ln:
+                print(f"# {name}: {ln.strip()}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("variants", nargs="+", metavar="NAME=FILE")
+    args = ap.parse_args(argv)
+    sources = dict(v.split("=", 1) for v in args.variants)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as smoke
+    import mitsuba3_tpu_torch as mi
+    from mitsuba3_tpu_torch.ops import native
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    accel, phase = KERNELS[args.kernel]
+    libs = {"shipped": native.load(args.kernel),
+            **_build(args.kernel, sources)}
+    _, labels = smoke._accel_kernels(accel)
+    with smoke._accel(accel):
+        scene = mi.load_dict(smoke.terrain64k_dict(mi.ScalarTransform4f))
+
+    def render():
+        return mi.render_with_stats(scene, seed=2, spp=4,
+                                    max_wavefront=1 << 20)[0]
+
+    order = list(libs) + list(libs)[::-1]
+    ref = None
+    for i, name in enumerate(order):
+        native._loaded[args.kernel] = libs[name]
+        render()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            img = render()
+            torch.cuda.synchronize()
+        if ref is None:
+            ref = img
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        per_mode = {label: (round(sum(e.device_time_total for e in events
+                                      if key in e.key) / 1e3, 3),
+                            sum(e.count for e in events if key in e.key))
+                    for label, key in labels.items()}
+        print(f"# {args.kernel} {name} (pass {i // len(libs)}), per render: "
+              f"{per_mode} (device ms, launches); image equal to shipped's: "
+              f"{torch.equal(img, ref)} [{card}]", flush=True)
+    del scene
+    torch.cuda.empty_cache()
+    for i, name in enumerate(order):
+        native._loaded[args.kernel] = libs[name]
+        print(f"# {args.kernel} {name} (pass {i // len(libs)}), one "
+              f"full-width round:", flush=True)
+        getattr(smoke, phase)(mi, card)
+    native._loaded[args.kernel] = libs["shipped"]
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -271,6 +271,105 @@ def test_run_round_plain_matches_jax(np_rng, closest):
                                    np.asarray(want[3])[hit], **UV_TOL)
 
 
+# a floor at z = 1 over [-2, 2]^2 in two halves, and a nearer step at
+# z = 0.5 over [-1, 1]^2: every coordinate is dyadic, so a ray from z = -1
+# along +z hits at t = 2 (floor) or 1.5 (step) with exact u and v, and
+# rays on the diagonal x + y = 0 hit both floor halves at t = 2
+FLOOR_LO = ([-2.0, -2.0, 1.0], [4.0, 0.0, 0.0], [0.0, 4.0, 0.0])
+FLOOR_HI = ([2.0, 2.0, 1.0], [-4.0, 0.0, 0.0], [0.0, -4.0, 0.0])
+STEP = ([-1.0, -1.0, 0.5], [2.0, 0.0, 0.0], [0.0, 2.0, 0.0])
+# per leaf, {column: (triangle, prim id)}: leaf 0 holds the floor's lower
+# half three times (ids 10, 30, 5: equal t, the largest id wins) and the
+# step, with empty slots between; leaf 1 the floor again (a later slot
+# wins at equal t); leaf 2 real up to column 127
+TIE_LEAVES = ({0: (FLOOR_LO, 10), 1: (FLOOR_HI, 11), 20: (STEP, 7),
+               50: (FLOOR_LO, 30), 90: (FLOOR_LO, 5)},
+              {0: (FLOOR_LO, 20), 1: (FLOOR_HI, 21)},
+              {33: (FLOOR_LO, 40), 127: (STEP, 3)})
+# per tile, (leaf slots, entries): slot orders that make the tie rules
+# matter, empty slots, and in tile 6 (whose rays all hit the floor) an
+# entry of 2.5 that the worst t of 2 skips, then one of 2.0 that it takes
+TIE_SLOTS = (([0], [0.0]), ([0, 1], [0.0, 0.0]), ([1, 0], [0.0, 0.0]),
+             ([2, 0, 1], [0.0] * 3), ([-1, 1, -1, 0], [0.0] * 4),
+             ([0, 1], [0.0, 2.5]), ([1, 0, 1, 2], [0.0, 2.5, 2.0, 0.0]),
+             ([2, 1, 0], [0.0] * 3))
+
+
+def k4_tie_round():
+    """run_round's arguments but `closest`, as numpy arrays, of a round of
+    8 tiles over TIE_LEAVES and TIE_SLOTS. Rays start at z = -1 on a
+    32 x 32 grid along +z (tile 6's grid inside the floor); per tile,
+    every 7th ray is inactive (t -1), every 11th has a previous hit at
+    t 1.5 (prim 99), every 13th a maxt of 1; the last tile has 700 rays
+    and padding (t -1) after them."""
+    tile = t_bt.TILE
+    tris = np.zeros((len(TIE_LEAVES), 16, t_bt.KT), np.float32)
+    tris[:, 9] = -1.0
+    for leaf, cols in enumerate(TIE_LEAVES):
+        for col, ((p0, e1, e2), pid) in cols.items():
+            tris[leaf, 0:3, col], tris[leaf, 3:6, col] = p0, e1
+            tris[leaf, 6:9, col], tris[leaf, 9, col] = e2, pid
+    n_tiles = len(TIE_SLOTS)
+    leaf_ids = np.full((n_tiles, t_bt.LB_USE), -1, np.int32)
+    entries = np.full((n_tiles, t_bt.LB_USE), t_bt.BIG, np.float32)
+    for i, (ids, ents) in enumerate(TIE_SLOTS):
+        leaf_ids[i, :len(ids)], entries[i, :len(ents)] = ids, ents
+    g = (np.arange(32) + 0.5) * (9.0 / 64.0) - 2.25     # dyadic, |x| < 2.25
+    x, y = (a.reshape(-1) for a in np.meshgrid(g, g, indexing="ij"))
+    o3 = np.zeros((3, n_tiles, tile), np.float32)
+    o3[0], o3[1], o3[2] = x, y, -1.0
+    o3[:2, 6] *= 0.5                                    # inside the floor
+    d3 = np.zeros((3, n_tiles, tile), np.float32)
+    d3[2] = 1.0
+    k = np.arange(tile)
+    t = np.full((n_tiles, tile), 3e38, np.float32)
+    prim = np.full((n_tiles, tile), -1, np.int32)
+    u = np.zeros((n_tiles, tile), np.float32)
+    t[:, k % 11 == 0], prim[:, k % 11 == 0] = 1.5, 99
+    u[:, k % 11 == 0] = 0.25
+    t[:, k % 13 == 0] = 1.0
+    t[:, k % 7 == 0] = -1.0
+    o3[:, -1, 700:] = 0.0
+    t[-1, 700:] = -1.0
+    return (leaf_ids, entries, tris, o3.reshape(3, -1), d3.reshape(3, -1),
+            t.reshape(-1), prim.reshape(-1), u.reshape(-1),
+            u.reshape(-1) * 0.5)
+
+
+@pytest.mark.parametrize("closest", [True, False], ids=["closest", "anyhit"])
+def test_run_round_plain_tie_rules_equal_jax(closest):
+    """K4's tie rules, which the kernel must keep: inside a leaf the
+    smallest t wins and equal ts go to the largest prim id; across slots a
+    later hit at equal t replaces the best; t == best is a hit. The plain
+    version gives JAX's Pallas kernel's (interpret mode) t, prim, u and v
+    (any-hit: t and prim) exactly."""
+    args = k4_tie_round()
+    got = t_bt.run_round_plain(*(torch.as_tensor(a) for a in args), closest)
+    pad = j_bt.LB - t_bt.LB_USE
+    leaf_ids, entries = args[:2]
+    want = j_bt._run_round(
+        jnp.asarray(np.pad(leaf_ids, ((0, 0), (0, pad)), constant_values=-1)),
+        jnp.asarray(np.pad(entries, ((0, 0), (0, pad)),
+                           constant_values=3.4e38)),
+        *(jnp.asarray(a) for a in args[2:]), closest, interpret=True)
+    # JAX's any-hit kernel leaves its u and v outputs unwritten
+    for name, g, w in list(zip("t prim u v".split(), got, want))[
+            :4 if closest else 2]:
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    t, prim = (x.numpy().reshape(len(TIE_SLOTS), -1) for x in got[:2])
+    if not closest:
+        assert (prim == 1).any() and (t == -1.0).any()
+        return
+    # the rules at work: the lower floor half hit through leaf 0 alone goes
+    # to id 30; a later slot of leaf 1 takes it to 20, a later leaf 0 back
+    # to 30; the step (t 1.5) wins where it covers the ray
+    for tile, ids in ((0, {30, 11, 7}), (1, {20, 21, 7}), (2, {30, 11, 7})):
+        hit = prim[tile][(prim[tile] >= 0) & (prim[tile] != 99)]
+        assert set(hit.tolist()) == ids, tile
+    assert ((t == 2.0) & (prim == 30)).any()
+    assert ((t == 1.5) & (prim == 7)).any()
+
+
 def _cull_work_by_ray(acc, geo):
     """K2's needed box tests counted ray by ray in numpy, from the leaf
     boxes (not the accel's union boxes)."""

@@ -214,6 +214,166 @@ def test_tiled_kernel_matches_plain(cuda, np_rng, closest):
         assert torch.equal(kt, pt) and torch.equal(kp, pp)
 
 
+# ---------------------------------------------------------------------------
+# K1 and K4 at the edges of their designs, equal to their plain versions
+# (t bit-equal, prim, u and v equal)
+# ---------------------------------------------------------------------------
+
+# last real column of each edge slab: the bounds of the 32-column groups
+# (K4 any-hit's lane groups, K1's ballots and 4-warp column split); the
+# last slab has empty slots (id -1, zero edges) between its real ones
+EDGE_LASTS = (0, 31, 32, 33, 127, 127)
+
+
+def _edge_slabs(np_rng, lasts=EDGE_LASTS):
+    """[len(lasts), 16, 128] slabs of random triangles over the rays of
+    _edge_rays, real in columns 0..last (unique prim ids), padding after;
+    the last real triangle is large and nearest."""
+    tris = np.zeros((len(lasts), 16, 128), np.float32)
+    tris[:, 9] = -1.0
+    for s, last in enumerate(lasts):
+        cols = np.arange(last + 1)
+        if s == len(lasts) - 1:
+            cols = cols[(cols % 5 != 2) | (cols == last)]
+        n = cols.size
+        p0 = np_rng.uniform(-1.5, 1.5, (n, 3))
+        p0[:, 2] = np_rng.uniform(0.5, 3.0, n)
+        slab = tris[s]
+        slab[0:3, cols] = p0.T
+        slab[3:9, cols] = np_rng.normal(0, 0.8, (6, n))
+        slab[9, cols] = 1000 * s + cols
+        # large first and last triangles, the last one nearest: a column
+        # cut one short or one long shows in t
+        slab[3:9, [0, last]] *= 3.0
+        slab[2, last] = 0.3
+    return tris
+
+
+def _edge_rays(np_rng, n):
+    """o [3, n] at z = -1 under the slabs, d [3, n] about +z."""
+    o = np.stack([np_rng.uniform(-1.5, 1.5, n), np_rng.uniform(-1.5, 1.5, n),
+                  np.full(n, -1.0)])
+    d = np.stack([np_rng.normal(0, 0.15, n), np_rng.normal(0, 0.15, n),
+                  np.ones(n)])
+    return o.astype(np.float32), (d / np.linalg.norm(d, axis=0)).astype(
+        np.float32)
+
+
+def _assert_equal(got, want, names="t prim u v"):
+    for name, g, w in zip(names.split(), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("want_uv", [True, False], ids=["closest", "anyhit"])
+def test_serve_kernel_edges_equal_plain(cuda, np_rng, want_uv):
+    """K1 over windows of the edge slabs, one row or several, two random
+    full rows, and an empty window (nr 0)."""
+    tris = np.concatenate([_edge_slabs(np_rng),
+                           _edge_slabs(np_rng, (127, 127))])
+    tris[6:, 9] = np.where(tris[6:, 9] >= 0, tris[6:, 9] + 9000, -1.0)
+    windows = [(r, 1) for r in range(6)] + [(0, 6), (2, 3), (6, 2), (3, 0)]
+    r0, nr = (torch.tensor(w, dtype=torch.int32, device=cuda)
+              for w in zip(*windows))
+    o, d = _edge_rays(np_rng, cs.K * len(windows))
+    rays = torch.as_tensor(np.concatenate([o, d]), device=cuda)
+    tris = torch.as_tensor(tris, device=cuda)
+    mode = "closest" if want_uv else "anyhit"
+    before = cs.LAUNCHES[mode]
+    got = cs.serve_blocks(tris, rays, r0, nr, want_uv)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES[mode] == before + 1
+    want = cs.serve_blocks_plain(tris, rays, r0, nr, want_uv)
+    _assert_equal(got, want, "t prim u v" if want_uv else "t")
+    hit = (want[0] < cs.BIG).reshape(len(windows), cs.K)
+    assert hit[:-1].any() and not hit[-1].any()
+
+
+def test_serve_kernel_tie_slab(cuda):
+    """tests/test_torch_cellserve.py's tie slab on the card: real columns
+    2, 7 and 9 in row 0, 0 and 5 in row 1; the first row, then the first
+    column, wins among equal ts."""
+    tri = ([-1.0, -1.0, 2.0], [3.0, 0.0, 0.0], [0.0, 3.0, 0.0])
+    far = ([-1.0, -1.0, 5.0], [3.0, 0.0, 0.0], [0.0, 3.0, 0.0])
+    slab = np.zeros((2, 16, cs.K), np.float32)
+    slab[:, 9] = -1.0
+    for r, row in enumerate([{9: (*far, 1), 7: (*tri, 11), 2: (*tri, 12)},
+                             {0: (*tri, 13), 5: (*far, 14)}]):
+        for col, (p0, e1, e2, pid) in row.items():
+            slab[r, 0:3, col], slab[r, 3:6, col] = p0, e1
+            slab[r, 6:9, col], slab[r, 9, col] = e2, pid
+    tris = torch.as_tensor(slab, device=cuda)
+    rays = torch.zeros((6, 3 * cs.K), device=cuda)
+    rays[5] = 1.0                              # every pair: o = 0, d = +z
+    r0 = torch.zeros(3, dtype=torch.int32, device=cuda)
+    nr = torch.tensor([2, 1, 0], dtype=torch.int32, device=cuda)
+    for want_uv in (True, False):
+        got = cs.serve_blocks(tris, rays, r0, nr, want_uv)
+        want = cs.serve_blocks_plain(tris, rays, r0, nr, want_uv)
+        _assert_equal(got, want, "t prim u v" if want_uv else "t")
+    t, p, u = (x.reshape(3, cs.K) for x in
+               cs.serve_blocks(tris, rays, r0, nr, True)[:3])
+    assert (t[:2] == 2.0).all() and (p[:2] == 12).all()
+    assert (t[2] == cs.BIG).all() and (p[2] == -1).all() and (u[2] == 0).all()
+
+
+def _edge_round(np_rng, dev, closest):
+    """run_round's arguments of 3 tiles over the edge slabs, the last tile
+    with 700 live rays and padding (t -1) after them. Tile 2 takes the
+    full slab 4 first, which occludes most of its rays in slot 0 in
+    any-hit mode. Every 9th ray is inactive
+    (t -1); closest: every 10th has a previous hit at t 1.2; any-hit: every
+    4th has maxt 0.6, short of most triangles."""
+    tile, n_tiles = bt.TILE, 3
+    slabs = _edge_slabs(np_rng)
+    slots = ([0, 1, 2, 3, 4, 5], [5, -1, 4, 3, 2, 1, 0], [4, 0, 5, -1, 1])
+    leaf_ids = np.full((n_tiles, bt.LB_USE), -1, np.int32)
+    for i, s in enumerate(slots):
+        leaf_ids[i, :len(s)] = s
+    entries = np.where(leaf_ids >= 0, 0.0, bt.BIG).astype(np.float32)
+    o, d = _edge_rays(np_rng, n_tiles * tile)
+    k = np.arange(n_tiles * tile)
+    t = np.full(n_tiles * tile, 3e38, np.float32)
+    prim = np.full(n_tiles * tile, -1, np.int32)
+    u = np.zeros(n_tiles * tile, np.float32)
+    if closest:
+        t[k % 10 == 0], prim[k % 10 == 0], u[k % 10 == 0] = 1.2, 77, 0.1
+    else:
+        t[k % 4 == 0] = 0.6
+    t[k % 9 == 0] = -1.0
+    t[2 * tile + 700:], o[:, 2 * tile + 700:] = -1.0, 0.0
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        leaf_ids, entries, slabs, o, d, t, prim, u, u * 0.5))
+
+
+@pytest.mark.parametrize("case", ["edges", "ties"])
+@pytest.mark.parametrize("closest", [True, False], ids=["closest", "anyhit"])
+def test_tiled_kernel_edges_equal_plain(cuda, np_rng, closest, case):
+    """K4 on the edge slabs (a last tile of 700 rays; inactive, occluded and
+    unoccluded rays in one tile) and on k4_tie_round's duplicate triangles
+    (equal t inside a leaf: the largest id wins; across slots: the later
+    one wins; a skipped prefetch candidate)."""
+    from test_torch_bvh import k4_tie_round
+    if case == "edges":
+        args = _edge_round(np_rng, cuda, closest)
+    else:
+        args = tuple(torch.as_tensor(a, device=cuda) for a in k4_tie_round())
+    mode = "closest" if closest else "anyhit"
+    before = bt.LAUNCHES[mode]
+    got = bt.run_round(*args, closest)
+    torch.cuda.synchronize()
+    assert bt.LAUNCHES[mode] == before + 1
+    want = bt.run_round_plain(*args, closest)
+    _assert_equal(got, want, "t prim u v" if closest else "t prim")
+    t_in, prim = args[5], want[1]
+    if closest:
+        assert (prim[t_in >= 0] != args[6][t_in >= 0]).float().mean() > 0.25
+    else:
+        # a tile with inactive, occluded and unoccluded rays
+        last = slice(2 * bt.TILE, 3 * bt.TILE)
+        assert (t_in[last] < 0).any() and (prim[last] == 1).any()
+        assert ((t_in[last] >= 0) & (prim[last] == -1)).any()
+
+
 @pytest.mark.parametrize("accel", ["serve", "tiled"])
 def test_accel_queries_on_card_match_cpu(cuda, np_rng, accel):
     tris, o, d = _soup(np_rng, n_ray=16384)
