@@ -9,14 +9,15 @@ Phases:
 1. the card's name and power limit (exits nonzero without a CUDA device);
 2. build every kernel and the SAH builder from ``mitsuba3_tpu_torch/csrc``
    into ``build/kernels/`` (nvcc or g++, one process per source, all at
-   once), with ptxas' registers and spills per kernel (K1 and K4 must not
-   spill);
+   once), with ptxas' registers and spills per kernel (K1-K4 and K6 must
+   not spill);
 3. kernels: one full-width round of the terrain64k main path (primary
    rays of the 512^2, 4 spp camera) through each kernel and its plain
    PyTorch version, compared and timed: K1 after pairgen and the pair sort
    (closest and any-hit), K2 as the first bvh_serve cull, K3 as the first
-   bvh_serve block serve after the leaf sort, K4 as the first bvh_tiled
-   16-slot round (closest and any-hit);
+   bvh_serve block serve after the leaf sort, K2 again on a late cull
+   (after the rounds have left at most 60 % of the width live), K4 as the
+   first bvh_tiled 16-slot round (closest and any-hit);
 4. render: ``load_dict`` of the terrain64k scene of ``bench.py``, a
    4 spp render, then a timed one, then one under torch.profiler for
    device time by kernel; first with the default accel (cellserve, K1),
@@ -30,7 +31,8 @@ Phases:
    (65,522 triangles, 2^19 primary rays): K5 as bvh_pallas packs the rays
    (closest and any-hit), K6 as the first bvh_queue cull, K7 as its first
    serve after the sort and the schedule, K8 as the first bvh2 round's
-   serve on the 2^19 bounce rays;
+   serve on the 2^19 bounce rays; K5 (unsorted and sorted) and K7 also
+   on the bounce rays, each in its own row;
 7. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
    closest and any-hit on 2^19 primary and 2^19 bounce rays, timed after
    a warm-up, held to the dense oracle (``ops/intersect.py``) on the first
@@ -85,9 +87,13 @@ BVH_SIDE = 182
 BVH_RAYS = 1 << 19
 HOLD_RAYS = 32768
 LIBRARY_NOTE = ("none: no single PyTorch call computes this function")
-# sources whose kernels must build without register spills (K1 and K4;
+# sources whose kernels must build without register spills (K1-K4, K6;
 # their launch bounds leave ptxas the registers they need)
-SPILL_FREE = ("cellserve_serve.cu", "bvh_tiled_mt.cu")
+SPILL_FREE = ("cellserve_serve.cu", "bvh_tiled_mt.cu", "bvh_serve_cull.cu",
+              "bvh_serve_serve.cu")
+# the late cull of the K2 phase: the first cull after the round loop has
+# left at most this share of the width live
+LATE_LIVE = 0.6
 
 
 # ---------------------------------------------------------------------------
@@ -380,10 +386,45 @@ def _accel(name):
             os.environ["MI3T_ACCEL"] = old
 
 
+def _hold_cull(tag, name, acc, f, lk, card):
+    """K2 against cull_plain on one cull of the rays f with cursors lk:
+    keys bit-equal; timed. Returns (its kernel row named `name`, the
+    keys)."""
+    import torch
+    from mitsuba3_tpu_torch.ops import bvh_serve as bs
+
+    npad = f.shape[1]
+    kb = bs.cull(acc, f, lk)
+    work = {}
+    pb = bs.cull_plain(acc, f, lk, stats=work)
+    torch.cuda.synchronize()
+    _check(torch.equal(kb, pb), f"{tag}: keys differ on "
+           f"{int((kb != pb).sum())} of {kb.numel()}")
+    n_chunks = acc.m_pad // bs.LC
+    print(f"# {tag}: keys bit-equal; {int((lk != bs.NONE).sum())} of {npad} "
+          f"cursors not NONE, {int((pb[0] != bs.NONE).sum())} rays request "
+          f"a leaf; {work['chunks_taken']} of {n_chunks * npad // bs.RCHUNK}"
+          f" (block, chunk) and {work['warps_taken']} of "
+          f"{n_chunks * npad // 32} (warp, chunk) pairs taken; "
+          f"{work['sup_tests']} chunk-box and {work['box_tests']} leaf-box "
+          f"tests needed")
+    k_ms = _cuda_ms(lambda: bs.cull(acc, f, lk), 20)
+    p_ms = _cuda_ms(lambda: bs.cull_plain(acc, f, lk), 2)
+    ops = work["sup_tests"] * OPS_PER_SUP + work["box_tests"] * OPS_PER_BOX
+    nbytes = (acc.bounds.numel() + acc.sup.numel()) * 4 \
+        + npad * (32 + 4 * acc.topk)
+    return _row(name, "K2", "bvh_serve_cull.cu",
+                "mitsuba3_tpu/ops/bvh_serve.py:112", "cull", 0.0, k_ms, p_ms,
+                ops, nbytes, card, accel="serve", **work), pb
+
+
 def phase_kernels_serve(mi, card: str):
-    """K2 (first cull) and K3 (first block serve after the leaf sort) of a
-    bvh_serve query on the terrain64k primary rays, against their plain
-    versions."""
+    """K2 (the first cull, and a late one) and K3 (the first block serve
+    after the leaf sort) of a bvh_serve query on the terrain64k primary
+    rays, against their plain versions. The late cull is the first after
+    the round loop (the kernels' own; one round at least) has left at
+    most LATE_LIVE of the width live, with the finished rays' NONE
+    cursors."""
     import torch
     from mitsuba3_tpu_torch.ops import bvh_serve as bs
 
@@ -396,52 +437,47 @@ def phase_kernels_serve(mi, card: str):
     print(f"# kernels (serve): {npad} lanes, {acc.n_leaves} leaves "
           f"(m_pad {acc.m_pad}), slab table {acc.tris.numel() * 4 / 1e6:.1f}"
           f" MB, topk {acc.topk}")
-    rows = []
-
     # K2: the first cull
-    lk = i[bs.LK]
-    kb = bs.cull(acc, f, lk)
-    work = {}
-    pb = bs.cull_plain(acc, f, lk, stats=work)
-    torch.cuda.synchronize()
-    _check(torch.equal(kb, pb), f"K2: keys differ on "
-           f"{int((kb != pb).sum())} of {kb.numel()}")
+    row, pb = _hold_cull("K2", "bvh_serve_cull", acc, f, i[bs.LK], card)
+    rows = [row]
     live = (pb[0] != bs.NONE) & (i[bs.RID] >= 0)
-    print(f"# K2: keys bit-equal, {int(live.sum())} rays request a leaf; "
-          f"{work['chunks_taken']} of {acc.m_pad // bs.LC * npad // bs.RCHUNK}"
-          f" (block, chunk) pairs taken; {work['sup_tests']} chunk-box and "
-          f"{work['box_tests']} leaf-box tests needed")
-    k_ms = _cuda_ms(lambda: bs.cull(acc, f, lk), 20)
-    p_ms = _cuda_ms(lambda: bs.cull_plain(acc, f, lk), 2)
-    ops = work["sup_tests"] * OPS_PER_SUP + work["box_tests"] * OPS_PER_BOX
-    nbytes = (acc.bounds.numel() + acc.sup.numel()) * 4 \
-        + npad * (32 + 4 * acc.topk)
-    rows.append(_row("bvh_serve_cull", "K2", "bvh_serve_cull.cu",
-                     "mitsuba3_tpu/ops/bvh_serve.py:112", "cull", 0.0, k_ms,
-                     p_ms, ops, nbytes, card, accel="serve", **work))
 
     # K3: the first block serve, after the sort by requested leaf
     fs, _, leaf_all, _, _ = bs.sort_requests(acc, f, i, pb, live)
     blk = bs.block_ids(acc, leaf_all)
-    kt, kp, _, _, ks = bs.serve_blocks(acc, blk, fs, leaf_all)
+    kout = bs.serve_blocks(acc, blk, fs, leaf_all)
     work = {}
-    pt, pp, _, _, ps = bs.serve_blocks_plain(acc, blk, fs, leaf_all,
-                                             stats=work)
+    pout = bs.serve_blocks_plain(acc, blk, fs, leaf_all, stats=work)
     torch.cuda.synchronize()
-    _check(torch.equal(ks, ps), "K3: served-rank bits differ")
-    _check(torch.equal(kt >= bs.BIG, pt >= bs.BIG), "K3: hit sets differ")
-    err, _ = _hold_t("K3", kt, pt, pt < bs.BIG, kp, pp)
+    _hold_equal("K3", kout, pout, ("t", "prim", "u", "v", "srv"))
+    hit = pout[0] < bs.BIG
+    err = float((kout[0][hit] - pout[0][hit]).abs().max()) \
+        if bool(hit.any()) else 0.0
     tests = work["tests"]
     k_ms = _cuda_ms(lambda: bs.serve_blocks(acc, blk, fs, leaf_all), 20)
     p_ms = _cuda_ms(lambda: bs.serve_blocks_plain(acc, blk, fs, leaf_all), 2)
     nbytes = (acc.tris.numel() * 4 + blk.numel() * 4
               + npad * (28 + 4 * acc.topk + 20))
-    print(f"# K3: {int((ps != 0).sum())} rays served, {tests} ray-triangle "
-          f"tests")
+    print(f"# K3: {int((pout[4] != 0).sum())} rays served, {int(hit.sum())} "
+          f"hit, {tests} ray-triangle tests needed")
     rows.append(_row("bvh_serve_serve", "K3", "bvh_serve_serve.cu",
                      "mitsuba3_tpu/ops/bvh_serve.py:273", "serve", err, k_ms,
                      p_ms, tests * (OPS_PER_TEST + 1), nbytes, card,
                      accel="serve", tests=tests))
+
+    # K2: a late cull, after closest-hit rounds at full width
+    best, live = bs._cull_state(acc, f, i)
+    n_live, rounds = int(live.sum()), 0
+    while rounds == 0 or n_live > LATE_LIVE * npad:
+        _check(rounds < 100, f"K2 late: {n_live} rays still live after "
+               f"{rounds} rounds")
+        f, i = bs._round_once(acc, f, i, best, live, n_live, True)
+        best, live = bs._cull_state(acc, f, i)
+        n_live, rounds = int(live.sum()), rounds + 1
+    print(f"# K2 late: after {rounds} rounds {n_live} of {npad} rays live")
+    row, _ = _hold_cull("K2 late", "bvh_serve_cull.late", acc, f, i[bs.LK],
+                        card)
+    rows.append(dict(row, rounds=rounds, live=n_live))
     del scene
     torch.cuda.empty_cache()
     return rows
@@ -543,10 +579,12 @@ def _hold_hits(tag, kt, ks, pt, ps, closest: bool):
 
 def phase_kernels_attic(card: str):
     """K5-K8 against their plain versions at full width on bench_bvh's
-    terrain queries (primary rays; K8 on the bounce rays): K5 as
-    intersect_bvh and occluded_bvh pack the rays, K6 as the first cull of a
-    bvh_queue query, K7 as its first serve after the sort and the schedule,
-    K8 as the first round's serve of a bvh2 query."""
+    terrain queries: K5 as intersect_bvh and occluded_bvh pack the primary
+    and the bounce rays, and as the sorted queries pack the bounce rays;
+    K6 as the first cull of a bvh_queue query on the primary rays, K7 as
+    its first serve after the sort and the schedule on either kind, K8 as
+    the first round's serve of a bvh2 query on the bounce rays. A row that
+    names `queries` counts its launches over those timed queries only."""
     import torch
     from mitsuba3_tpu_torch.ops import bvh_serve as bs
     from mitsuba3_tpu_torch.ops.attic import bvh2 as b2
@@ -557,34 +595,49 @@ def phase_kernels_attic(card: str):
     o, d, maxt = _bvh_rays("primary")
     rows = []
 
-    # K5: the packet walk, closest and any-hit
+    # K5: the packet walk, closest and any-hit; on the primary rays as
+    # intersect_bvh and occluded_bvh pack them, on the bounce rays also
+    # as the sorted queries pack them
     acc = bp.build(*tris, device="cuda")
-    o3, d3, mt = bp.pack_rays(o, d, torch.clamp(maxt, max=3e38))
-    npad = mt.shape[0]
-    print(f"# kernels (bvh_pallas): {npad} lanes in {npad // bp.TILE} tiles,"
-          f" {acc.node_bounds.shape[0]} nodes, {acc.n_leaves} leaves")
-    for closest, mode in ((True, "closest"), (False, "anyhit")):
-        kt, ks, _, _ = bp.traverse(acc, o3, d3, mt, closest)
-        work = {}
-        pt, ps, _, _ = bp.traverse_plain(acc, o3, d3, mt, closest,
-                                         stats=work)
-        torch.cuda.synchronize()
-        err = _hold_hits(f"K5 {mode}", kt, ks, pt, ps, closest)
-        k_ms = _cuda_ms(lambda: bp.traverse(acc, o3, d3, mt, closest), 10)
-        p_ms = _cuda_ms(lambda: bp.traverse_plain(acc, o3, d3, mt, closest),
-                        1, warm=False)
-        print(f"# K5 {mode}: {work['nodes']} (tile, node) visits, "
-              f"{work['leaves']} (tile, leaf) tests, {work['tests']} "
-              f"ray-triangle tests needed")
-        nbytes = ((acc.node_bounds.numel() + acc.node_meta.numel()
-                   + acc.tris.numel()) * 4 + npad * (28 + (16 if closest
-                                                          else 8)))
-        rows.append(_row(
-            f"bvh_pallas_traverse.{mode}", "K5", "bvh_pallas_traverse.cu",
-            "mitsuba3_tpu/ops/attic/bvh_pallas.py:158", mode, err, k_ms,
-            p_ms, work["box_tests"] * OPS_PER_NODE
-            + work["tests"] * OPS_PER_TEST, nbytes, card, accel="pallas",
-            **work))
+    print(f"# kernels (bvh_pallas): {acc.node_bounds.shape[0]} nodes, "
+          f"{acc.n_leaves} leaves")
+    packs = [("", ("pallas", "pallas_sorted"), "primary",
+              bp.pack_rays(o, d, torch.clamp(maxt, max=3e38)))]
+    ob, db, maxt_b = _bvh_rays("bounce")
+    mt_b = torch.clamp(maxt_b, max=3e38)
+    packs.append((".bounce", ("pallas",), "bounce",
+                  bp.pack_rays(ob, db, mt_b)))
+    packs.append((".bounce_sorted", ("pallas_sorted",), "bounce",
+                  bp.pack_rays(*bp._sorted(acc, ob, db, mt_b)[:3])))
+    for suffix, accels, kind, (o3, d3, mt) in packs:
+        npad = mt.shape[0]
+        for closest, mode in ((True, "closest"), (False, "anyhit")):
+            tag = f"K5 {mode}{suffix.replace('.', ' ')}"
+            kt, ks, _, _ = bp.traverse(acc, o3, d3, mt, closest)
+            work = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pt, ps, _, _ = bp.traverse_plain(acc, o3, d3, mt, closest,
+                                             stats=work)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+            err = _hold_hits(tag, kt, ks, pt, ps, closest)
+            k_ms = _cuda_ms(lambda: bp.traverse(acc, o3, d3, mt, closest),
+                            10)
+            print(f"# {tag}: {npad} lanes in {npad // bp.TILE} tiles, "
+                  f"{work['nodes']} (tile, node) visits, {work['leaves']} "
+                  f"(tile, leaf) tests, {work['tests']} ray-triangle tests "
+                  f"needed")
+            nbytes = ((acc.node_bounds.numel() + acc.node_meta.numel()
+                       + acc.tris.numel()) * 4
+                      + npad * (28 + (16 if closest else 8)))
+            rows.append(_row(
+                f"bvh_pallas_traverse.{mode}{suffix}", "K5",
+                "bvh_pallas_traverse.cu",
+                "mitsuba3_tpu/ops/attic/bvh_pallas.py:158", mode, err, k_ms,
+                p_ms, work["box_tests"] * OPS_PER_NODE
+                + work["tests"] * OPS_PER_TEST, nbytes, card, accel="pallas",
+                rays=kind, queries=[[a, kind] for a in accels], **work))
     del acc
 
     # K6: the first cull of a bvh_queue query
@@ -612,25 +665,33 @@ def phase_kernels_attic(card: str):
         (acc.bounds.numel() + acc.sup.numel()) * 4 + npad * (32 + 4 * bq.KQ),
         card, accel="queue", **work))
 
-    # K7: the first serve, after the sort by queue head and the schedule
-    fs, is_ = bq.sort_by_head(acc, f, bq.fresh_cull(acc, f, i))
-    lids = bq.simulate(is_[bq.Q0:], fs[bs.TB])[0]
-    kt, kp, _, _ = bq.serve_multi(acc, lids, fs)
-    work = {}
-    pt, pp, _, _ = bq.serve_multi_plain(acc, lids, fs, stats=work)
-    torch.cuda.synchronize()
-    err = _hold_hits("K7", kt, kp, pt, pp, True)
-    print(f"# K7: {work['slots']} of {lids.numel()} (block, slot) pairs "
-          f"taken, {work['tests']} ray-triangle tests needed")
-    k_ms = _cuda_ms(lambda: bq.serve_multi(acc, lids, fs), 20)
-    p_ms = _cuda_ms(lambda: bq.serve_multi_plain(acc, lids, fs), 2)
-    rows.append(_row(
-        "bvh_queue_serve", "K7", "bvh_queue_serve.cu",
-        "mitsuba3_tpu/ops/attic/bvh_queue.py:211", "serve", err, k_ms, p_ms,
-        work["tests"] * (OPS_PER_TEST + 1),
-        (acc.tris.numel() + lids.numel()) * 4 + npad * (28 + 16), card,
-        accel="queue", **work))
-    del acc, f, i, fs, is_
+    # K7: the first serve, after the sort by queue head and the schedule,
+    # on the primary and on the bounce rays
+    for kind in ("primary", "bounce"):
+        ok, dk, mk = (o, d, maxt) if kind == "primary" else _bvh_rays(kind)
+        f, i = bq.initial_state(ok, dk, mk)
+        npad = f.shape[1]
+        fs, is_ = bq.sort_by_head(acc, f, bq.fresh_cull(acc, f, i))
+        lids = bq.simulate(is_[bq.Q0:], fs[bs.TB])[0]
+        tag = "K7" if kind == "primary" else "K7 bounce"
+        kt, kp, _, _ = bq.serve_multi(acc, lids, fs)
+        work = {}
+        pt, pp, _, _ = bq.serve_multi_plain(acc, lids, fs, stats=work)
+        torch.cuda.synchronize()
+        err = _hold_hits(tag, kt, kp, pt, pp, True)
+        print(f"# {tag}: {work['slots']} of {lids.numel()} (block, slot) "
+              f"pairs taken, {work['tests']} ray-triangle tests needed")
+        k_ms = _cuda_ms(lambda: bq.serve_multi(acc, lids, fs), 20)
+        p_ms = _cuda_ms(lambda: bq.serve_multi_plain(acc, lids, fs), 2)
+        rows.append(_row(
+            "bvh_queue_serve" + ("" if kind == "primary" else ".bounce"),
+            "K7", "bvh_queue_serve.cu",
+            "mitsuba3_tpu/ops/attic/bvh_queue.py:211", "serve", err, k_ms,
+            p_ms, work["tests"] * (OPS_PER_TEST + 1),
+            (acc.tris.numel() + lids.numel()) * 4 + npad * (28 + 16), card,
+            accel="queue", rays=kind, queries=[["queue", kind]], **work))
+        del f, i, fs, is_
+    del acc
 
     # K8: the first round's serve of a bvh2 query on the bounce rays (on the
     # primary rays every lane of that round wants a padding supernode of the
@@ -1023,6 +1084,11 @@ def main():
     for r in rows:
         counts = launches[r.pop("accel")]
         r["launches"] = counts[r["mode"]]
+        if "queries" in r:
+            r["launches"] = sum(
+                q[f"{kind}_launches"][r["mode"]] for q in queries
+                for kind in ("closest", "anyhit")
+                if [q["accel"], q["rays"]] in r["queries"])
         r["card"] = card
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"renders": renders, "card": card}))

@@ -21,30 +21,66 @@
 // arithmetic overflows and would pass). The output is each ray's TOPK
 // smallest counting keys, ascending, padded with NONE = 0x7FFFFFFF.
 //
-// Design. One CTA of 512 threads per 512-ray block, one thread per ray,
-// which keeps an ascending list of its TOPK smallest keys in registers (an
-// insertion; ids are distinct, so it equals the Pallas chunk
-// extract-and-merge). Leaves come in chunks of 128: per chunk every thread
-// slab-tests the chunk's union box (the supernode), and the chunk is skipped
-// for the whole block exactly when no ray of the block enters it
-// (__syncthreads_or), as the Pallas kernel skips it. A chunk that is taken
-// stages its 128 boxes (3 KB) in shared memory and every thread reads them
-// as broadcasts. The slab test is sub, mul, min and max only, so the keys
-// are bit-equal to the plain version's.
+// What bounds it on the H100. Per ray and leaf the test is ~29 fp32 and
+// integer operations on 24 bytes of box; the boxes (terrain64k: 768 x 24 B)
+// sit in L2, and each ray reads 28 B and writes 4 B per rank, so the kernel
+// is bound by operations on the leaves that the data needs: per live ray,
+// each chunk's union box and the real leaves of the chunks it enters.
+// Late in a query most rays are done, and bvh_serve's round loop gives a
+// ray that is done the cursor NONE. What a test costs beyond its
+// operations is what the design cuts: work for rays that cannot yield a
+// key, 32-ray groups that no ray of enters a chunk, the pad leaves of the
+// last chunk, and, in a render's many narrow late launches (a few
+// thousand rays, set by one CTA's latency), a single warp walking every
+// leaf of every chunk it enters.
 //
-// What bounds it on the H100. Per ray and leaf the test is ~25 fp32
-// operations on 24 bytes of box read from shared memory; the boxes
-// (terrain64k: 768 x 24 B) sit in L2, and each ray reads 28 B and writes
-// 4 B per rank, so the kernel is bound by fp32 operations, less the chunks
-// skipped. chip_smoke.py measures both terms of the bound.
+// Design. One CTA of 4 warps per 32 rays: each warp holds the same 32 rays,
+// one per lane, and tests a quarter of each chunk's leaves (warp w the
+// leaves 32 w .. 32 w + 31 of the chunk), keeping an ascending list of its
+// TOPK smallest keys per ray in registers (an insertion; ids are distinct,
+// so it equals the Pallas chunk extract-and-merge). At the end warp 0
+// merges the four lists through shared memory: the TOPK smallest of the
+// union are the TOPK smallest of the four lists' keys. So a narrow launch
+// spreads over four times the warps, with no barrier before the merge.
+// - Inert rays. A ray with lk == NONE can yield no key (an int32 key never
+//   exceeds 0x7FFFFFFF), nor can one with tb <= 0 (entry >= 0). Such a ray
+//   enters no chunk; a CTA whose rays are all inert writes NONE without
+//   looking at a chunk. bvh_serve sorts finished rays to the end of the
+//   width, so a late round has many such CTAs. The rule is exact for every
+//   caller, K6's included.
+// - Chunks. Leaves come in chunks of 128. A ray enters a chunk when it
+//   passes the slab test of the chunk's union box (the supernode); the
+//   CTA skips a chunk that none of its 32 rays enters (__any_sync; the
+//   Pallas kernel skips a chunk for a block of 512). The skip is exact: a
+//   leaf box lies inside its chunk's union box, and the slab arithmetic
+//   (sub, mul by a fixed-sign inverse, min, max) is monotone under
+//   rounding, so a ray that fails the union box fails every leaf box of the
+//   chunk.
+// - Staging. Lane l of warp w loads the box of leaf 32 w + l of the next
+//   chunk it takes into registers (coalesced row loads) while the warp
+//   tests the current chunk, and stores it into the warp's own shared slot
+//   as 8 floats, (lo.xyz, hi.x) and (hi.yz, -, -): a thread reads a box
+//   with one 128-bit and one 64-bit broadcast load, and the warps never
+//   wait for each other.
+// - Leaves. A warp's loop stops at the chunk's last real leaf
+//   (n_leaves - 128 c) in place of a per-leaf id test, and
+//   lk < key < (the list's largest key) is one unsigned compare of
+//   key - (lk + 1) against a limit kept with the list.
+// The slab test is sub, mul, min and max only, so the keys are bit-equal to
+// the plain version's.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int LC = 128;      // leaves per chunk
-constexpr int RCHUNK = 512;  // rays per block = threads per CTA
+constexpr int LC = 128;       // leaves per chunk
+constexpr int RCHUNK = 512;   // rays per block of the caller (width unit)
+constexpr int WARPS = 4;      // warps per CTA, each over a quarter chunk
+constexpr int LW = LC / WARPS;  // leaves per warp per chunk = 32 lanes
+constexpr int THREADS = 32 * WARPS;
+constexpr int BOX_F = 8;      // floats per staged box: lo.xyz hi.x | hi.yz
 constexpr int NONE = 0x7FFFFFFF;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float inv_dir(float c) {
   return 1.0f / (fabsf(c) < 1e-9f ? (c < 0.0f ? -1e-9f : 1e-9f) : c);
@@ -69,63 +105,139 @@ __device__ __forceinline__ void slab_test(
   tf = fminf(tf, fmaxf(t0, t1));
 }
 
+struct Ray {
+  float ox, oy, oz, ix, iy, iz, tb;
+  bool busy;  // can yield a key: lk != NONE and tb > 0
+};
+
+// The first chunk after c that a ray of the warp enters, or n_chunks.
+__device__ __forceinline__ int next_chunk(int c, int n_chunks,
+                                          const float* __restrict__ sup,
+                                          int supw, const Ray& r) {
+  for (++c; c < n_chunks; ++c) {
+    bool enters = false;
+    if (r.busy) {
+      float tn, tf;
+      slab_test(__ldg(sup + c), __ldg(sup + supw + c),
+                __ldg(sup + 2 * supw + c), __ldg(sup + 3 * supw + c),
+                __ldg(sup + 4 * supw + c), __ldg(sup + 5 * supw + c), r.ox,
+                r.oy, r.oz, r.ix, r.iy, r.iz, tn, tf);
+      enters = tn <= tf && (tn > 0.0f ? tn : 0.0f) < r.tb;
+    }
+    if (__any_sync(FULL, enters)) return c;
+  }
+  return n_chunks;
+}
+
+// Insert `key` into the ascending list `keys`, dropping its largest key;
+// the caller has checked key < keys[TOPK - 1]. Selects only, so the list
+// stays in registers.
 template <int TOPK>
-__global__ void __launch_bounds__(RCHUNK)
+__device__ __forceinline__ void insert(int (&keys)[TOPK], int key) {
+#pragma unroll
+  for (int s = TOPK - 1; s > 0; --s)
+    keys[s] = keys[s - 1] > key ? keys[s - 1]
+                                : (keys[s] > key ? key : keys[s]);
+  keys[0] = min(keys[0], key);
+}
+
+template <int TOPK>
+__global__ void __launch_bounds__(THREADS)
 cull_kernel(const float* __restrict__ bounds, const float* __restrict__ sup,
             int m6, int supw, int n_leaves, const float* __restrict__ geo,
             const int* __restrict__ lk, long long npad,
             int* __restrict__ best) {
-  __shared__ float box[6][LC];
-  const long long ray = static_cast<long long>(blockIdx.x) * RCHUNK +
-                        threadIdx.x;
+  __shared__ __align__(16) float box[WARPS][LW * BOX_F];
+  __shared__ int part[WARPS - 1][TOPK][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long ray = static_cast<long long>(blockIdx.x) * 32 + lane;
   // geo is [R >= 7, npad]: ox oy oz dx dy dz tb
-  const float ox = geo[ray], oy = geo[npad + ray], oz = geo[2 * npad + ray];
-  const float ix = inv_dir(geo[3 * npad + ray]);
-  const float iy = inv_dir(geo[4 * npad + ray]);
-  const float iz = inv_dir(geo[5 * npad + ray]);
-  const float tb = geo[6 * npad + ray];
   const int last = lk[ray];
+  Ray r;
+  r.tb = geo[6 * npad + ray];
+  r.busy = last != NONE && r.tb > 0.0f;
   int keys[TOPK];
 #pragma unroll
   for (int k = 0; k < TOPK; ++k) keys[k] = NONE;
-
-  const int n_chunks = m6 / LC;
-  for (int c = 0; c < n_chunks; ++c) {
-    float tn, tf;
-    slab_test(sup[c], sup[supw + c], sup[2 * supw + c], sup[3 * supw + c],
-              sup[4 * supw + c], sup[5 * supw + c], ox, oy, oz, ix, iy, iz,
-              tn, tf);
-    const bool enters = tn <= tf && (tn > 0.0f ? tn : 0.0f) < tb;
-    // a barrier too: every thread is done with the previous chunk's boxes
-    if (!__syncthreads_or(enters)) continue;
-    for (int k = threadIdx.x; k < 6 * LC; k += RCHUNK)
-      box[k / LC][k % LC] = bounds[(k / LC) * m6 + c * LC + k % LC];
-    __syncthreads();
-    for (int i = 0; i < LC; ++i) {
-      slab_test(box[0][i], box[1][i], box[2][i], box[3][i], box[4][i],
-                box[5][i], ox, oy, oz, ix, iy, iz, tn, tf);
-      const float entry = tn > 0.0f ? tn : 0.0f;
-      const int id = c * LC + i + 1;
-      const int key = static_cast<int>(
-          (static_cast<unsigned>(__float_as_int(entry)) & 0xFFFF0000u) |
-          static_cast<unsigned>(id));
-      if (!(tn <= tf && entry < tb && key > last && id <= n_leaves) ||
-          key >= keys[TOPK - 1])
-        continue;
-      // insert into the ascending list, dropping its largest key
+  if (__any_sync(FULL, r.busy)) {  // the same answer in every warp
+    r.ox = geo[ray];
+    r.oy = geo[npad + ray];
+    r.oz = geo[2 * npad + ray];
+    r.ix = inv_dir(geo[3 * npad + ray]);
+    r.iy = inv_dir(geo[4 * npad + ray]);
+    r.iz = inv_dir(geo[5 * npad + ray]);
+    // last < key < keys[TOPK - 1] <=> key - base < lim, unsigned (exact for
+    // every int32 last below keys[TOPK - 1]); an inert ray takes nothing
+    const unsigned base = static_cast<unsigned>(last) + 1u;
+    unsigned lim = r.busy ? static_cast<unsigned>(NONE) - base : 0u;
+    const int n_chunks = m6 / LC;
+    float* slot = box[warp];
+    // this lane's leaf of chunk c, and how many leaves of it this warp has
+    auto leaf_of = [&](int c) { return c * LC + warp * LW + lane; };
+    auto count = [&](int c) {
+      return max(0, min(LW, n_leaves - c * LC - warp * LW));
+    };
+    float nb[6];
+    int c = next_chunk(-1, n_chunks, sup, supw, r);
+    if (c < n_chunks && lane < count(c)) {
 #pragma unroll
-      for (int s = TOPK - 1; s >= 0; --s) {
-        if (s > 0 && keys[s - 1] > key) {
-          keys[s] = keys[s - 1];
-        } else {
-          keys[s] = key;
-          break;
+      for (int k = 0; k < 6; ++k) nb[k] = __ldg(bounds + k * m6 + leaf_of(c));
+    }
+    while (c < n_chunks) {
+      const int n = count(c);
+      __syncwarp();  // every lane is done with the previous chunk's boxes
+      if (lane < n) {
+        *reinterpret_cast<float4*>(slot + lane * BOX_F) =
+            make_float4(nb[0], nb[1], nb[2], nb[3]);
+        *reinterpret_cast<float2*>(slot + lane * BOX_F + 4) =
+            make_float2(nb[4], nb[5]);
+      }
+      __syncwarp();
+      const int cn = next_chunk(c, n_chunks, sup, supw, r);
+      if (cn < n_chunks && lane < count(cn)) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+          nb[k] = __ldg(bounds + k * m6 + leaf_of(cn));
+      }
+      const int id0 = c * LC + warp * LW + 1;
+      for (int i = 0; i < n; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(slot + i * BOX_F);
+        const float2 b = *reinterpret_cast<const float2*>(slot + i * BOX_F + 4);
+        float tn, tf;
+        slab_test(a.x, a.y, a.z, a.w, b.x, b.y, r.ox, r.oy, r.oz, r.ix, r.iy,
+                  r.iz, tn, tf);
+        const float entry = tn > 0.0f ? tn : 0.0f;
+        const int key = static_cast<int>(
+            (static_cast<unsigned>(__float_as_int(entry)) & 0xFFFF0000u) |
+            static_cast<unsigned>(id0 + i));
+        if (tn <= tf && entry < r.tb &&
+            static_cast<unsigned>(key) - base < lim) {
+          insert(keys, key);
+          lim = static_cast<unsigned>(keys[TOPK - 1]) - base;
         }
       }
+      c = cn;
     }
   }
+  // merge the four lists into warp 0's
+  if (warp > 0) {
 #pragma unroll
-  for (int k = 0; k < TOPK; ++k) best[k * npad + ray] = keys[k];
+    for (int k = 0; k < TOPK; ++k) part[warp - 1][k][lane] = keys[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int w = 0; w < WARPS - 1; ++w) {
+#pragma unroll
+      for (int k = 0; k < TOPK; ++k) {
+        const int key = part[w][k][lane];
+        if (key < keys[TOPK - 1]) insert(keys, key);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < TOPK; ++k) best[k * npad + ray] = keys[k];
+  }
 }
 
 }  // namespace
@@ -142,15 +254,16 @@ extern "C" int bvh_serve_cull(const float* bounds, const float* sup, int m6,
                               int topk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long npad = static_cast<long long>(n_blocks) * RCHUNK;
+  const int grid = n_blocks * (RCHUNK / 32);
   if (topk == 1) {
-    cull_kernel<1><<<n_blocks, RCHUNK, 0, s>>>(bounds, sup, m6, supw,
-                                               n_leaves, geo, lk, npad, best);
+    cull_kernel<1><<<grid, THREADS, 0, s>>>(bounds, sup, m6, supw,
+                                              n_leaves, geo, lk, npad, best);
   } else if (topk == 2) {
-    cull_kernel<2><<<n_blocks, RCHUNK, 0, s>>>(bounds, sup, m6, supw,
-                                               n_leaves, geo, lk, npad, best);
+    cull_kernel<2><<<grid, THREADS, 0, s>>>(bounds, sup, m6, supw,
+                                              n_leaves, geo, lk, npad, best);
   } else if (topk == 8) {
-    cull_kernel<8><<<n_blocks, RCHUNK, 0, s>>>(bounds, sup, m6, supw,
-                                               n_leaves, geo, lk, npad, best);
+    cull_kernel<8><<<grid, THREADS, 0, s>>>(bounds, sup, m6, supw,
+                                              n_leaves, geo, lk, npad, best);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -8,8 +8,8 @@ leaves are served to dense ray blocks:
     1. CULL (kernel K2, ``csrc/bvh_serve_cull.cu``): per ray, the TOPK
        smallest packed keys (f32 entry bits >> 16 << 16 | leaf id + 1) over
        the leaves it enters with entry < its best t and key > its last
-       served key; a 128-leaf chunk that no ray of a 512-ray block enters
-       is skipped for the block.
+       served key. The kernel skips a 128-leaf chunk for 32 rays none of
+       which enters it, and a ray whose cursor is NONE (it is done).
     2. SORT by requested leaf (stable): rays wanting the same leaf become
        contiguous, and the inert ones sort to the end.
     3. SERVE:
@@ -42,7 +42,7 @@ from . import bvh_tiled, native
 
 K = 128          # triangles per leaf
 LC = 128         # leaves per cull chunk
-RCHUNK = 512     # rays per cull block (one CTA of K2); width granularity
+RCHUNK = 512     # rays per cull block; width granularity
 BLK = 128        # rays per serve block (one CTA of K3)
 TAIL_DIV = 8     # gather serve when live rays <= width / TAIL_DIV
 TOPK = 1         # default leaf visits per round
@@ -125,21 +125,27 @@ def _slab(b, o, inv):
     return tn, tf
 
 
-def _cull_work(acc: BVHServe, o, inv, tb, stats: dict):
-    """The box tests a cull of these rays needs, added to `stats`: every
-    ray tests each chunk's union box ("sup_tests") and the real leaves of
-    each chunk whose union box it enters ("box_tests"); "chunks_taken"
-    counts the (RCHUNK-ray block, chunk) pairs in which some ray enters.
-    A leaf box lies inside its chunk's box, so no other leaf can pass."""
+def _cull_work(acc: BVHServe, o, inv, tb, lk, stats: dict):
+    """The box tests a cull of these rays needs, added to `stats`. A ray
+    is inert when its cursor is NONE or its best t is not > 0: no key can
+    pass, and it needs no test. Every other ray tests each chunk's union
+    box ("sup_tests") and the real leaves of each chunk whose union box it
+    enters ("box_tests"); "chunks_taken" and "warps_taken" count the
+    (RCHUNK-ray block, chunk) and (32-ray warp, chunk) pairs in which some
+    ray enters. A leaf box lies inside its chunk's box, so no other leaf
+    can pass."""
     n_chunks = acc.m_pad // LC
+    busy = (lk != NONE) & (tb > 0.0)                              # [1, R]
     tn, tf = _slab([acc.sup[r, :n_chunks, None] for r in range(6)], o, inv)
-    enters = (tn <= tf) & (torch.where(tn > 0.0, tn, 0.0) < tb)   # [C, R]
+    enters = busy & (tn <= tf) & (torch.where(tn > 0.0, tn, 0.0) < tb)
     real = torch.clamp(acc.n_leaves - LC * torch.arange(
         n_chunks, device=tb.device), 0, LC)
-    for key, n in (("sup_tests", enters.numel()),
+    for key, n in (("sup_tests", n_chunks * int(busy.sum())),
                    ("box_tests", int((enters * real[:, None]).sum())),
                    ("chunks_taken", int(enters.reshape(
-                       n_chunks, -1, RCHUNK).any(dim=2).sum()))):
+                       n_chunks, -1, RCHUNK).any(dim=2).sum())),
+                   ("warps_taken", int(enters.reshape(
+                       n_chunks, -1, 32).any(dim=2).sum()))):
         stats[key] = stats.get(key, 0) + n
 
 
@@ -161,7 +167,8 @@ def cull_plain(acc: BVHServe, geo, lk, stats: dict | None = None):
         o = (g[OX][None], g[OY][None], g[OZ][None])
         inv = (_inv(g[DX])[None], _inv(g[DY])[None], _inv(g[DZ])[None])
         if stats is not None:
-            _cull_work(acc, o, inv, g[TB][None], stats)
+            _cull_work(acc, o, inv, g[TB][None],
+                       lk[None, r0:r0 + PLAIN_RAYS], stats)
         tn, tf = _slab(b, o, inv)                       # [M6, R]
         # where(> 0) rather than maximum(., 0): -0.0 becomes +0.0, as in JAX
         entry = torch.where(tn > 0.0, tn, 0.0)
@@ -376,7 +383,10 @@ def sort_requests(acc: BVHServe, f, i, best, live):
     rank has none), the keys of ranks 1.. and the sorted live mask."""
     m6, topk = acc.m_pad, acc.topk
     leaf = _leaf_of(best[0], m6, live)
-    lk_in = torch.where(live, best[0], i[LK])
+    # a ray that is not live never changes again (the serve is masked by
+    # live_s), so every later cull returns NONE for it whatever its cursor
+    # is: NONE tells K2 so, and it skips the ray
+    lk_in = torch.where(live, best[0], NONE)
     leaf_s, perm = torch.sort(leaf, stable=True)
     f = f[:, perm]
     i = i[:, perm]

@@ -3,8 +3,9 @@
     python3 -m mitsuba3_tpu_torch.tools.kernel_variants KERNEL NAME=FILE ...
 
 Run from the repository root on a machine with a card. KERNEL is
-``cellserve_serve`` (K1, the cellserve render) or ``bvh_tiled_mt`` (K4,
-``MI3T_ACCEL=tiled``); each FILE is a ``.cu`` that exports the same
+``cellserve_serve`` (K1, the cellserve render), ``bvh_serve_cull`` or
+``bvh_serve_serve`` (K2 or K3, ``MI3T_ACCEL=serve``) or ``bvh_tiled_mt``
+(K4, ``MI3T_ACCEL=tiled``); each FILE is a ``.cu`` that exports the same
 ``extern "C"`` launcher as ``csrc/KERNEL.cu``, whose own build runs as the
 variant ``shipped``. Every variant is built with the shipped flags (ptxas'
 registers and spills are printed) and swapped into the loader in place of
@@ -26,6 +27,8 @@ from pathlib import Path
 
 # kernel -> (MI3T_ACCEL of its render, chip_smoke's phase for one round)
 KERNELS = {"cellserve_serve": ("cells", "phase_kernels"),
+           "bvh_serve_cull": ("serve", "phase_kernels_serve"),
+           "bvh_serve_serve": ("serve", "phase_kernels_serve"),
            "bvh_tiled_mt": ("tiled", "phase_kernels_tiled")}
 OUT = Path("build") / "variants"
 

@@ -370,26 +370,29 @@ def test_run_round_plain_tie_rules_equal_jax(closest):
     assert ((t == 1.5) & (prim == 7)).any()
 
 
-def _cull_work_by_ray(acc, geo):
+def _cull_work_by_ray(acc, geo, lk):
     """K2's needed box tests counted ray by ray in numpy, from the leaf
-    boxes (not the accel's union boxes)."""
+    boxes (not the accel's union boxes); a ray with cursor NONE or best t
+    <= 0 needs none."""
     lb = acc.bounds[:6, :acc.n_leaves].numpy()
     d = geo[3:6]
     inv = 1.0 / np.where(np.abs(d) < 1e-9, np.where(d < 0, -1e-9, 1e-9),
                          d).astype(np.float32)
+    busy = (lk != t_bs.NONE) & (geo[6] > 0)
     n_chunks = acc.m_pad // t_bs.LC
-    want = {"sup_tests": n_chunks * geo.shape[1], "box_tests": 0,
-            "chunks_taken": 0}
+    want = {"sup_tests": n_chunks * int(busy.sum()), "box_tests": 0,
+            "chunks_taken": 0, "warps_taken": 0}
     for c in range(n_chunks):
         seg = lb[:, c * t_bs.LC:(c + 1) * t_bs.LC]
         t0 = (seg[:3].min(axis=1)[:, None] - geo[:3]) * inv
         t1 = (seg[3:].max(axis=1)[:, None] - geo[:3]) * inv
         tn = np.minimum(t0, t1).max(axis=0)
         tf = np.maximum(t0, t1).min(axis=0)
-        enters = (tn <= tf) & (np.maximum(tn, 0.0) < geo[6])
+        enters = busy & (tn <= tf) & (np.maximum(tn, 0.0) < geo[6])
         want["box_tests"] += int(enters.sum()) * seg.shape[1]
         want["chunks_taken"] += int(
             enters.reshape(-1, t_bs.RCHUNK).any(axis=1).sum())
+        want["warps_taken"] += int(enters.reshape(-1, 32).any(axis=1).sum())
     return want
 
 
@@ -445,12 +448,18 @@ def test_plain_work_counts(np_rng, kernel):
     count made ray by ray, block by block or slot by slot."""
     work = {}
     if kernel == "cull":
+        # inert rays: every 3rd cursor NONE, a whole block of them, and
+        # _geo's 16 rays with tb -1
         _, acc = _serve_accels(np_rng, 1, leaf_size=8)
-        geo = _geo(np_rng, 1024)
-        t_bs.cull_plain(acc, torch.as_tensor(geo),
-                        torch.zeros(1024, dtype=torch.int32), stats=work)
-        want = _cull_work_by_ray(acc, geo)
+        geo = _geo(np_rng, 2048)
+        lk = np.zeros(2048, np.int32)
+        lk[::3] = t_bs.NONE
+        lk[512:1024] = t_bs.NONE
+        t_bs.cull_plain(acc, torch.as_tensor(geo), torch.as_tensor(lk),
+                        stats=work)
+        want = _cull_work_by_ray(acc, geo, lk)
         assert 0 < want["box_tests"] < 1024 * acc.n_leaves
+        assert want["warps_taken"] < 32 * want["chunks_taken"]
     elif kernel == "serve":
         _, acc = _serve_accels(np_rng, 2)
         blk, rays, leaf_all = _first_serve(acc, _geo(np_rng, 1024))
@@ -465,6 +474,37 @@ def test_plain_work_counts(np_rng, kernel):
         want = _tiled_work_by_slot(args, closest)
         assert 0 < want["tests"] < want["slots"] * t_bt.TILE * t_bt.KT
     assert work == want
+
+
+@pytest.mark.parametrize("closest", [True, False], ids=["closest", "anyhit"])
+@pytest.mark.parametrize("topk", [1, 2])
+def test_rounds_give_finished_rays_none_cursors(np_rng, topk, closest):
+    """After each round every ray that was not live carries the cursor
+    NONE, and the next cull (whose kernel skips such rays) returns NONE for
+    it, as it does from the cursor the ray had."""
+    _, acc = _serve_accels(np_rng, topk, leaf_size=8)
+    o, d = rand_rays(np_rng, 4000)
+    maxt = torch.as_tensor(np.where(np.arange(4000) % 5 == 0, 1.0, 1e30)
+                           .astype(np.float32))
+    f, i = t_bs.initial_state(tvec(o), tvec(d), maxt)
+    best, live = t_bs._cull_state(acc, f, i)
+    n_done = 0
+    for _ in range(4):
+        done_ids = i[t_bs.RID][~live]
+        lk_before = dict(zip(i[t_bs.RID].tolist(), i[t_bs.LK].tolist()))
+        f, i = t_bs._round_once(acc, f, i, best, live, int(live.sum()),
+                                closest)
+        done = torch.isin(i[t_bs.RID], done_ids)
+        assert bool((i[t_bs.LK][done] == t_bs.NONE).all())
+        n_done = max(n_done, int(done.sum()))
+        best, live = t_bs._cull_state(acc, f, i)
+        assert bool((best[:, done] == t_bs.NONE).all())
+        assert not bool(live[done].any())
+        old = torch.tensor([lk_before[r] for r in i[t_bs.RID].tolist()],
+                           dtype=torch.int32)
+        assert bool((t_bs.cull_plain(acc, f, old)[:, done]
+                     == t_bs.NONE).all())
+    assert n_done > 512
 
 
 def test_tiled_coherence_key_equals_jax(np_rng):

@@ -374,6 +374,126 @@ def test_tiled_kernel_edges_equal_plain(cuda, np_rng, closest, case):
         assert ((t_in[last] >= 0) & (prim[last] == -1)).any()
 
 
+# ---------------------------------------------------------------------------
+# K2 (and K6) and K3 at the edges of their designs, bit-equal to their plain
+# versions
+# ---------------------------------------------------------------------------
+
+def _cull_edge_case(np_rng, dev, topk):
+    """(accel, rays f, cursors lk) of 8 blocks of 512 rays over 8-triangle
+    leaves, whose last chunk is partial: block 1's cursors are all NONE,
+    block 2's rays have tb -1 (both whole inert CTAs); block 3 has half of
+    each warp's cursors NONE; in block 4 every other ray has cursor NONE
+    though it would enter chunks; the other blocks have nonzero cursors
+    (the nearest leaf visited) on every other ray."""
+    tris, o, d = _soup(np_rng, n_ray=8 * bs.RCHUNK)
+    acc = bs.build(*tris, leaf_size=8, topk=min(topk, bs.MAX_TOPK),
+                   device=dev)
+    assert acc.m_pad // bs.LC >= 2 and acc.n_leaves % bs.LC != 0
+    f, i = bs.initial_state(_vec(o, dev), _vec(d, dev),
+                            torch.full((o.shape[0],), 1e30, device=dev))
+    blk = torch.arange(f.shape[1], device=dev) // bs.RCHUNK
+    first = bs.cull_plain(acc, f, i[bs.LK])[0]
+    lk = torch.where(torch.arange(f.shape[1], device=dev) % 2 == 0,
+                     torch.where(first == bs.NONE, 0, first), 0)
+    lane = torch.arange(f.shape[1], device=dev) % 32
+    none = ((blk == 1) | ((blk == 3) & (lane < 16))
+            | ((blk == 4) & (lane % 2 == 1)))
+    assert bool((first[(blk == 4) & (lane % 2 == 1)] != bs.NONE).any())
+    lk = torch.where(none, bs.NONE, lk).to(torch.int32).contiguous()
+    f[bs.TB, blk == 2] = -1.0
+    return acc, f, lk
+
+
+@pytest.mark.parametrize("topk", [1, 2, 8])
+def test_cull_kernel_edges_equal_plain(cuda, np_rng, topk):
+    """K2 (topk 1, 2) and K6 (topk 8): keys bit-equal with whole inert
+    CTAs, half-inert warps, NONE cursors on rays that would enter a chunk
+    and a partial last chunk."""
+    acc, f, lk = _cull_edge_case(np_rng, cuda, topk)
+    if topk == bq.KQ:
+        kernel, plain, counter = bq.cull_topk, bq.cull_topk_plain, bq.LAUNCHES
+    else:
+        kernel, plain, counter = bs.cull, bs.cull_plain, bs.LAUNCHES
+    before = counter["cull"]
+    got = kernel(acc, f, lk)
+    torch.cuda.synchronize()
+    assert counter["cull"] == before + 1
+    want = plain(acc, f, lk)
+    assert torch.equal(got, want)
+    blk = torch.arange(f.shape[1], device=cuda) // bs.RCHUNK
+    assert bool((want[:, (blk == 1) | (blk == 2)] == bs.NONE).all())
+    assert bool((want[0, blk >= 3] != bs.NONE).any())
+
+
+def _serve_edge_case(np_rng, dev, topk):
+    """(accel, blk_ids, rays, leaf) of 6 blocks over 8 slabs: the edge
+    slabs 0-5 (last real column 0, 31, 32, 33, 127, 127 with gaps), slab 6
+    = slab 4's triangles under other ids, slab 7 = slab 5 with one large
+    nearest triangle in columns 3 and 40, the latter under a larger id
+    (slab 0's one real triangle is that large one too). Block 0 is inert;
+    block 1 has first = last = slab 0; block 2 wants
+    slabs 1 and 3, and slab 5, which it is not served; block 3 wants
+    slab 7 (an equal-t tie in a slab); block 4 wants slab 4 at rank 0 and,
+    with topk 2, slab 6 at rank 1 (equal t across two slabs); block 5
+    wants slabs 2 and 6 at rank 0 and slabs 6 and 2 at rank 1. Every 7th
+    ray has tb 1.0."""
+    big = np.array([-3.0, -3.0, 0.2, 8.0, 0.0, 0.0, 0.0, 8.0, 0.0],
+                   np.float32)         # nearer than every edge triangle
+    slabs = _edge_slabs(np_rng)
+    slabs[0, :9, 0] = big
+    tie = slabs[4].copy()
+    tie[9] = np.where(tie[9] >= 0, tie[9] + 500, -1.0)
+    dup = slabs[5].copy()
+    assert dup[9, 3] >= 0 and dup[9, 40] >= 0
+    dup[:9, 3] = dup[:9, 40] = big
+    dup[9, 40] = 9999.0
+    tris = np.concatenate([slabs, tie[None], dup[None]])
+    m, m6, nb = tris.shape[0], bs.LC, 6
+    npad = nb * bs.BLK
+    leaf = np.full((topk, nb, bs.BLK), m6, np.int32)
+    leaf[0, 1] = 0
+    leaf[0, 2, :40], leaf[0, 2, 40:80], leaf[0, 2, 80:] = 1, 5, 3
+    leaf[0, 3] = 7
+    leaf[0, 4] = 4
+    leaf[0, 5, :64], leaf[0, 5, 64:] = 2, 6
+    if topk == 2:
+        leaf[1, 4] = 6
+        leaf[1, 5, :64], leaf[1, 5, 64:] = 6, 2
+    o, d = _edge_rays(np_rng, npad)
+    tb = np.where(np.arange(npad) % 7 == 0, 1.0, 1e30).astype(np.float32)
+    rays = torch.as_tensor(np.concatenate([o, d, tb[None]]), device=dev)
+    z = torch.zeros((8, m6), device=dev)
+    acc = bs.BVHServe(tris=torch.as_tensor(tris, device=dev), bounds=z,
+                      sup=z[:, :8].contiguous(), n_leaves=m, m_pad=m6,
+                      topk=topk)
+    leaf = torch.as_tensor(leaf.reshape(topk, npad), device=dev)
+    return acc, bs.block_ids(acc, leaf), rays, leaf
+
+
+@pytest.mark.parametrize("topk", [1, 2])
+def test_serve_blocks_kernel_edges_equal_plain(cuda, np_rng, topk):
+    """K3: t, prim, u, v and srv bit-equal on inert blocks, first = last
+    leaf, slabs padded after column 0, 31, 32 or 33, slabs with gaps, a
+    wanted slab that is not served, and equal-t ties in a slab and across
+    two slabs."""
+    acc, blk, rays, leaf = _serve_edge_case(np_rng, cuda, topk)
+    before = bs.LAUNCHES["serve"]
+    got = bs.serve_blocks(acc, blk, rays, leaf)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES["serve"] == before + 1
+    want = bs.serve_blocks_plain(acc, blk, rays, leaf)
+    _assert_equal(got, want, "t prim u v srv")
+    t, p, _, _, srv = (x.reshape(-1, bs.BLK) for x in want)
+    assert (t[0] == bs.BIG).all() and (p[0] == -1).all() and (srv[0] == 0).all()
+    assert (srv[2, 40:80] == 0).all() and (srv[2, :40] == 1).all()
+    assert ((p[1] == 0) | (t[1] > 1.0)).all() and (p[1] == 0).sum() > 64
+    assert (p[3] == 9999).sum() > 64 and not (p[3] == 5003).any()
+    if topk == 2:
+        hit = p[4] >= 0
+        assert hit.any() and (p[4][hit] < 4500).all() and (srv[4] == 3).all()
+
+
 @pytest.mark.parametrize("accel", ["serve", "tiled"])
 def test_accel_queries_on_card_match_cpu(cuda, np_rng, accel):
     tris, o, d = _soup(np_rng, n_ray=16384)

@@ -127,12 +127,14 @@ def test_building_the_sah_builder_leaves_jax_native_untouched(tmp_path):
     assert (so.read_bytes(), so.stat().st_mtime_ns) == before
 
 
-def test_kernel_variants_refuses_without_a_card():
+@pytest.mark.parametrize("kernel", ["bvh_serve_cull", "bvh_serve_serve",
+                                    "bvh_tiled_mt", "cellserve_serve"])
+def test_kernel_variants_refuses_without_a_card(kernel):
     """The variant-timing tool runs only on the card: without one it exits
     with code 2 before it builds anything."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the tool would run")
     out = _run(["-m", "mitsuba3_tpu_torch.tools.kernel_variants",
-                "bvh_tiled_mt", "v=does_not_exist.cu"], cwd=ROOT)
+                kernel, "v=does_not_exist.cu"], cwd=ROOT)
     assert out.returncode == 2, out.stderr
     assert "no CUDA device" in out.stderr
