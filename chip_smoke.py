@@ -26,19 +26,34 @@ Phases:
    (K1's and K4's device time per mode, closest and any-hit);
 5. agreement: the small terrain rendered on the card and on the CPU, under
    each accel;
-6. kernels K5-K8 (the attic intersectors), each against its plain version
+6. Cornell fwd + PRB bwd, ``bench.py``'s main path: ``load_dict(
+   cornell_box(512, 512, max_depth=8))`` with ``prb`` (dense intersector,
+   area light), one warm-up and one timed step of ``bench.py``'s
+   grad_step at 64 spp (the image loss against a zero target,
+   gradients of bsdf_params, em_radiance, textures and env_data), Mrays/s
+   counted as ``bench.py`` counts it ((1 + bwd_ratio) x forward rays,
+   bwd_ratio measured on a 64^2 wavefront), one profiled pass; a 32^2
+   Cornell render on the card against the CPU;
+7. terrain64k PRB step: the terrain64k scene with ``prb`` through
+   cellserve, one warm-up, one timed and one profiled grad_step
+   (gradients of bsdf_params, env_data and de_params); K1 closest and
+   any-hit must launch in the primal and, as often, in the replay; K1's
+   device ms per step; the small terrain's step on the card against the
+   CPU;
+8. kernels K5-K8 (the attic intersectors), each against its plain version
    at full width on the terrain queries of ``benchmarks/bench_bvh.py``
    (65,522 triangles, 2^19 primary rays): K5 as bvh_pallas packs the rays
    (closest and any-hit), K6 as the first bvh_queue cull, K7 as its first
    serve after the sort and the schedule, K8 as the first bvh2 round's
    serve on the 2^19 bounce rays; K5 (unsorted and sorted) and K7 also
-   on the bounce rays, each in its own row;
-7. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
+   on the bounce rays, each in its own row; closest hits bit-equal in t,
+   prim, u and v;
+9. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
    closest and any-hit on 2^19 primary and 2^19 bounce rays, timed after
    a warm-up, held to the dense oracle (``ops/intersect.py``) on the first
    32,768 rays with ``bench_bvh.verify``'s checks and to bvh_tiled at full
    width, and checked to launch every kernel of its module;
-8. JSON lines of render, query and per-kernel numbers.
+10. JSON lines of render, query, PRB and per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -558,6 +573,15 @@ def _bvh_rays(kind: str):
     return vec(o), vec(d), torch.full((BVH_RAYS,), 1e30, device="cuda")
 
 
+def _hold_closest(tag, kout, pout):
+    """A closest-hit kernel's (t, prim, u, v) bit-equal to its plain
+    version's, after _hold_hits' checks (which print max |dt| and the prim
+    match share). Returns max |dt| on the hit lanes (0 when equal)."""
+    err = _hold_hits(tag, kout[0], kout[1], pout[0], pout[1], True)
+    _hold_equal(tag, kout, pout, ("t", "prim", "u", "v"))
+    return err
+
+
 def _hold_hits(tag, kt, ks, pt, ps, closest: bool):
     """A kernel's (t, slot or prim) against its plain version's: hit sets
     equal; closest: t within rtol 1e-5 and prim by _hold_t's rule, t equal
@@ -613,15 +637,18 @@ def phase_kernels_attic(card: str):
         npad = mt.shape[0]
         for closest, mode in ((True, "closest"), (False, "anyhit")):
             tag = f"K5 {mode}{suffix.replace('.', ' ')}"
-            kt, ks, _, _ = bp.traverse(acc, o3, d3, mt, closest)
+            kout = bp.traverse(acc, o3, d3, mt, closest)
             work = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pt, ps, _, _ = bp.traverse_plain(acc, o3, d3, mt, closest,
-                                             stats=work)
+            pout = bp.traverse_plain(acc, o3, d3, mt, closest, stats=work)
             torch.cuda.synchronize()
             p_ms = (time.perf_counter() - t0) * 1e3
-            err = _hold_hits(tag, kt, ks, pt, ps, closest)
+            if closest:
+                err = _hold_closest(tag, kout, pout)
+            else:
+                err = _hold_hits(tag, kout[0], kout[1], pout[0], pout[1],
+                                 False)
             k_ms = _cuda_ms(lambda: bp.traverse(acc, o3, d3, mt, closest),
                             10)
             print(f"# {tag}: {npad} lanes in {npad // bp.TILE} tiles, "
@@ -674,11 +701,11 @@ def phase_kernels_attic(card: str):
         fs, is_ = bq.sort_by_head(acc, f, bq.fresh_cull(acc, f, i))
         lids = bq.simulate(is_[bq.Q0:], fs[bs.TB])[0]
         tag = "K7" if kind == "primary" else "K7 bounce"
-        kt, kp, _, _ = bq.serve_multi(acc, lids, fs)
+        kout = bq.serve_multi(acc, lids, fs)
         work = {}
-        pt, pp, _, _ = bq.serve_multi_plain(acc, lids, fs, stats=work)
+        pout = bq.serve_multi_plain(acc, lids, fs, stats=work)
         torch.cuda.synchronize()
-        err = _hold_hits(tag, kt, kp, pt, pp, True)
+        err = _hold_closest(tag, kout, pout)
         print(f"# {tag}: {work['slots']} of {lids.numel()} (block, slot) "
               f"pairs taken, {work['tests']} ray-triangle tests needed")
         k_ms = _cuda_ms(lambda: bq.serve_multi(acc, lids, fs), 20)
@@ -699,11 +726,11 @@ def phase_kernels_attic(card: str):
     acc = b2.build(*tris, device="cuda")
     o, d, maxt = _bvh_rays("bounce")
     ids, rays, want = b2.first_round(acc, o, d, maxt)
-    kt, kp, _, _ = b2.serve(acc, ids, rays, want)
+    kout = b2.serve(acc, ids, rays, want)
     work = {}
-    pt, pp, _, _ = b2.serve_plain(acc, ids, rays, want, stats=work)
+    pout = b2.serve_plain(acc, ids, rays, want, stats=work)
     torch.cuda.synchronize()
-    err = _hold_hits("K8 bounce", kt, kp, pt, pp, True)
+    err = _hold_closest("K8 bounce", kout, pout)
     _check(work["tests"] > 0, "K8: the bounce round serves no supernode")
     real = ids[(ids != b2.NONE_ID) & (ids < acc.n_nodes)]
     n_ids = int(torch.unique(real).numel())
@@ -953,17 +980,19 @@ def phase_render(mi, card: str, accel: str, ref=None):
         _check(rel <= 0.01, f"{accel}: image mean {a.mean()} is not within "
                f"1 % of the cellserve render's {b.mean()}")
     print(line + f" [{card}]")
-    out.update(_profile(mi, scene, wall, labels))
+    out.update(_profile(lambda: mi.render_with_stats(
+        scene, seed=2, spp=4, max_wavefront=1 << 20), wall, labels))
     del scene
     torch.cuda.empty_cache()
     return launches, out, img1
 
 
-def _profile(mi, scene, wall_unprofiled: float, kernels: dict):
-    """Device time by kernel over one render (torch.profiler); the idle
-    share is taken against the unprofiled render's wall time too, since
-    the profiler slows the host. `kernels` maps a label to the substring
-    of the CUDA kernel names it sums."""
+def _profile(run, wall_unprofiled: float, kernels: dict):
+    """Device time by kernel over one call of `run` (a render, or a pass of
+    a PRB step) under torch.profiler; the idle share is taken against the
+    same work's unprofiled wall time, since the profiler slows the host.
+    `kernels` maps a label to the substring of the CUDA kernel names it
+    sums."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -971,7 +1000,7 @@ def _profile(mi, scene, wall_unprofiled: float, kernels: dict):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        mi.render_with_stats(scene, seed=2, spp=4, max_wavefront=1 << 20)
+        run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -979,8 +1008,9 @@ def _profile(mi, scene, wall_unprofiled: float, kernels: dict):
               and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in events)
     busy = busy_us / 1e6
-    print(f"# profile: device busy {busy:.4f} s; wall {wall:.3f} s "
-          f"profiled (idle share {max(0.0, 1 - busy / wall):.3f}), "
+    print(f"# profile: device busy {busy:.4f} s in "
+          f"{sum(e.count for e in events)} kernel launches; wall {wall:.3f} "
+          f"s profiled (idle share {max(0.0, 1 - busy / wall):.3f}), "
           f"{wall_unprofiled:.3f} s unprofiled (idle share "
           f"{max(0.0, 1 - busy / wall_unprofiled):.3f})")
     groups = {label: [e for e in events if key in e.key]
@@ -1016,6 +1046,252 @@ def phase_agreement(mi, accel: str):
     _check(close > 0.995, f"{accel}: only {close:.5f} of values agree")
     _check(np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3),
            f"{accel}: image means disagree")
+
+
+# ---------------------------------------------------------------------------
+# PRB (bench.py's main path): Cornell fwd + PRB bwd, terrain64k PRB step
+# ---------------------------------------------------------------------------
+
+CORNELL_SPP = 64
+TERRAIN_PRB_SPP = 4
+
+
+def _prb_dict(d):
+    """`d` with the ``prb`` integrator (bench.py:46)."""
+    return dict(d, integrator=dict(d["integrator"], type="prb"))
+
+
+def _grad_step(scene, names, seed: int, spp: int, passes=None, between=None):
+    """bench.py's grad_step on the port: per pass, the image loss
+    mean((develop(pass image) - 0)^2) differentiated by PRB w.r.t. the θ
+    tables `names`; gradients add up over passes. `passes` limits the
+    passes run (all by default); `between(stage)` is called after each
+    pass's forward ("fwd") and backward ("bwd"). Returns (last loss, rays
+    of the forward passes, {name: gradient}, passes run)."""
+    import torch
+    from mitsuba3_tpu_torch.render import film as film_mod
+    from mitsuba3_tpu_torch.render import integrator as ri
+
+    def leaf(v):
+        return v.detach().clone().requires_grad_(True)
+
+    sppc, n_passes = ri.plan_passes(scene, spp)
+    n_passes = n_passes if passes is None else passes
+    acc, rays, loss = None, 0, None
+    for i in range(n_passes):
+        # a tuple entry (the textures) gets a leaf per tensor
+        theta = {k: tuple(map(leaf, v)) if isinstance(v, tuple) else leaf(v)
+                 for k, v in ((k, getattr(scene, k)) for k in names)}
+        flat = [t for v in theta.values()
+                for t in (v if isinstance(v, tuple) else (v,))]
+        img_i, wgt_i, rays_i = ri.render_pass(
+            scene.replace(**theta), ri.pass_seed(seed, i), sppc, pass_idx=i,
+            spp_total=spp)
+        if between is not None:
+            between("fwd")
+        loss = torch.mean(film_mod.develop(img_i, wgt_i) ** 2)
+        grads = torch.autograd.grad(loss, flat)
+        if between is not None:
+            between("bwd")
+        acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+        rays += rays_i
+    it = iter(acc)
+    acc = {k: tuple(next(it) for _ in v) if isinstance(v, tuple)
+           else next(it) for k, v in theta.items()}
+    return float(loss.detach()), rays, acc, n_passes
+
+
+def _bwd_ratio(scene, side: int = 64):
+    """bench.py:83-105: the replay's ray count over the primal's on a
+    side^2 wavefront of pixel-centre rays (one sample each), all of θ
+    differentiated."""
+    import torch
+    from mitsuba3_tpu_torch import sensors
+    from mitsuba3_tpu_torch.ad import prb
+    from mitsuba3_tpu_torch.core.vec import Vec2, Vec3
+    from mitsuba3_tpu_torch.render import sampler as sampler_mod
+
+    n = side * side
+    idx = torch.arange(n, dtype=torch.int64, device=scene.device)
+    rng = sampler_mod.seed(7, torch.zeros_like(idx), idx, 1)
+    px = ((idx % side).to(torch.float32) + 0.5) / side
+    py = ((idx // side).to(torch.float32) + 0.5) / side
+    ray = sensors.sample_ray(scene.sensor, Vec2(px, py))
+    cfg = prb.PRBConfig(max_depth=scene.integrator.max_depth)
+    theta = {k: v for k, v in prb.extract_theta(scene).items()
+             if v is not None}
+    L, _, n_fwd, _ = prb._loop(scene, rng, ray, cfg, "primal")
+    _, _, n_bwd, grads = prb._loop(scene, rng, ray, cfg, "backward",
+                                   dL=Vec3.ones(n, scene.device), L_in=L,
+                                   theta=theta)
+    return n_fwd, n_bwd
+
+
+def _check_grads(tag, grads, nonzero):
+    """Every gradient finite (a tuple entry: each of its tensors); those
+    named in `nonzero` not all zero."""
+    import torch
+    flat = {f"{k}[{i}]" if isinstance(g, tuple) else k: t
+            for k, g in grads.items()
+            for i, t in enumerate(g if isinstance(g, tuple) else (g,))}
+    for k, g in flat.items():
+        _check(bool(torch.isfinite(g).all()), f"{tag}: {k} gradient has "
+               f"non-finite values")
+    for k in nonzero:
+        _check(bool((grads[k] != 0).any()), f"{tag}: {k} gradient is all "
+               f"zero")
+    print(f"# {tag}: gradients finite; |g| max " + ", ".join(
+        f"{k} {float(g.abs().max()):.4g}" for k, g in flat.items())
+        + "".join(f"; {k}: {len(g)} tensors" for k, g in grads.items()
+                  if isinstance(g, tuple)))
+
+
+def phase_cornell_prb(mi, card: str):
+    """bench.py's main path on the card: load_dict(cornell_box(512, 512,
+    max_depth=8)) with prb, one warm-up and one timed grad_step at 64 spp
+    (gradients of bsdf_params, em_radiance, textures and env_data),
+    Mrays/s counted as bench.py counts it, one profiled pass; then a 32^2
+    Cornell render on the card against the CPU."""
+    import torch
+
+    names = ("bsdf_params", "em_radiance", "textures", "env_data")
+    scene = mi.load_dict(_prb_dict(mi.cornell_box(512, 512, max_depth=8)))
+    _check(scene.accel is None and scene.faces.shape[0] == 40,
+           "the Cornell box does not load through the dense branch")
+    n_fwd, n_bwd = _bwd_ratio(scene)
+    _check(n_fwd == n_bwd, f"replay issued {n_bwd} rays, primal {n_fwd}")
+    bwd_ratio = n_bwd / max(n_fwd, 1)
+
+    _grad_step(scene, names, 0, CORNELL_SPP)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, rays, grads, n_passes = _grad_step(scene, names, 1, CORNELL_SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _check_grads("cornell prb", grads, ("bsdf_params", "em_radiance"))
+    # the Cornell box has no environment and loads no texture
+    _check(float(grads["env_data"].abs().max()) == 0.0
+           and grads["textures"] == (),
+           "cornell prb: env_data or textures gradient where none can be")
+    mrays = (1.0 + bwd_ratio) * rays / wall / 1e6
+    out = {"scene": "cornell 512x512 64spp max_depth 8, prb",
+           "forward_rays": rays, "bwd_ratio": bwd_ratio,
+           "ratio_rays_64x64": [n_fwd, n_bwd], "wall_s": wall,
+           "passes": n_passes, "mrays_per_s": mrays, "peak_bytes": peak,
+           "loss": loss, "textures": "none loaded (empty tuple)"}
+    print(f"# cornell fwd+PRB bwd 512x512 64spp: {rays} forward rays, "
+          f"bwd_ratio {bwd_ratio:.6f} ({n_bwd}/{n_fwd} on 64x64), step "
+          f"{wall:.3f} s in {n_passes} passes = {mrays:.3f} Mrays/s, peak "
+          f"memory {peak / 2**30:.2f} GiB, last pass loss {loss:.6g} "
+          f"[{card}]")
+    out.update(_profile(lambda: _grad_step(scene, names, 2, CORNELL_SPP,
+                                           passes=1), wall / n_passes, {}))
+    del scene, grads
+    torch.cuda.empty_cache()
+
+    # a 32^2 Cornell render (prb primal) on the card and on the CPU
+    d = _prb_dict(mi.cornell_box(32, 32, max_depth=8))
+    img_g = mi.render(mi.load_dict(d), seed=5, spp=16).cpu().numpy()
+    img_c = mi.render(mi.load_dict(d, device="cpu"), seed=5,
+                      spp=16).numpy()
+    close = float(np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean())
+    print(f"# agreement cornell (32x32, 16 spp): {close:.5f} of values "
+          f"close, means {img_g.mean():.6f} (card) vs {img_c.mean():.6f} "
+          f"(cpu)")
+    _check(np.isfinite(img_g).all() and img_g.shape == (32, 32, 3),
+           "cornell: card image not finite or misshaped")
+    _check(close > 0.995, f"cornell: only {close:.5f} of values agree")
+    _check(np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3),
+           "cornell: image means disagree")
+    out.update(agreement_close=close)
+    return out
+
+
+def phase_terrain_prb(mi, card: str):
+    """bench.py's terrain64k (512^2, 4 spp, max_depth 4) with prb through
+    cellserve: one warm-up, one timed and one profiled grad_step
+    (gradients of bsdf_params, env_data and de_params). K1 must launch,
+    closest and any-hit, in the primal and in the replay of every pass.
+    Then the small terrain's step on the card against the CPU."""
+    import torch
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    names = ("bsdf_params", "env_data", "de_params")
+    scene = mi.load_dict(_prb_dict(terrain64k_dict(mi.ScalarTransform4f)))
+    _check(isinstance(scene.accel, cellserve.CellServe),
+           "terrain64k does not load through cellserve")
+    counters, labels = _accel_kernels("cells")
+    n_fwd, n_bwd = _bwd_ratio(scene)
+    _check(n_fwd == n_bwd, f"terrain replay issued {n_bwd} rays, primal "
+           f"{n_fwd}")
+    bwd_ratio = n_bwd / max(n_fwd, 1)
+    _grad_step(scene, names, 0, TERRAIN_PRB_SPP)          # warm-up
+
+    per_stage = {"fwd": dict.fromkeys(counters, 0),
+                 "bwd": dict.fromkeys(counters, 0)}
+
+    def between(stage):
+        for k in counters:
+            per_stage[stage][k] += counters[k]
+            counters[k] = 0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        counters[k] = 0
+    t0 = time.perf_counter()
+    loss, rays, grads, n_passes = _grad_step(scene, names, 1,
+                                             TERRAIN_PRB_SPP,
+                                             between=between)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for stage in ("fwd", "bwd"):
+        _check(all(per_stage[stage][k] >= n_passes for k in counters),
+               f"terrain prb: K1 did not launch in every pass's "
+               f"{'primal' if stage == 'fwd' else 'replay'}: {per_stage}")
+    _check(per_stage["fwd"] == per_stage["bwd"],
+           f"terrain prb: the replay launched K1 otherwise than the primal: "
+           f"{per_stage}")
+    _check_grads("terrain64k prb", grads, names)
+    mrays = (1.0 + bwd_ratio) * rays / wall / 1e6
+    out = {"scene": "terrain64k 512x512 4spp max_depth 4, prb, cellserve",
+           "forward_rays": rays, "bwd_ratio": bwd_ratio, "wall_s": wall,
+           "passes": n_passes, "mrays_per_s": mrays, "peak_bytes": peak,
+           "loss": loss, "k1_launches": {"primal": per_stage["fwd"],
+                                         "replay": per_stage["bwd"]}}
+    print(f"# terrain64k fwd+PRB bwd 512x512 4spp: {rays} forward rays, "
+          f"bwd_ratio {bwd_ratio:.6f}, step {wall:.3f} s in {n_passes} "
+          f"passes = {mrays:.3f} Mrays/s, peak memory {peak / 2**30:.2f} "
+          f"GiB; K1 launches primal {per_stage['fwd']}, replay "
+          f"{per_stage['bwd']} [{card}]")
+    prof = _profile(lambda: _grad_step(scene, names, 2, TERRAIN_PRB_SPP,
+                                       passes=1), wall / n_passes, labels)
+    for label in labels:
+        _check(prof["profiled_kernels"][label]["launches"] > 0,
+               f"terrain prb: the profiled pass ran no {label}")
+    prof["k1_device_ms_per_step"] = {
+        label: prof["profiled_kernels"][label]["device_ms"] * n_passes
+        for label in labels}
+    out.update(prof)
+    del scene, grads
+    torch.cuda.empty_cache()
+
+    # the small terrain's PRB step on the card against the CPU
+    d = _prb_dict(small_terrain_dict(mi.ScalarTransform4f, width=16))
+    g_card = _grad_step(mi.load_dict(d), names, 5, 4)[2]
+    g_cpu = _grad_step(mi.load_dict(d, device="cpu"), names, 5, 4)[2]
+    for k in names:
+        a, b = g_card[k].cpu(), g_cpu[k]
+        tol = 1e-2 * float(b.abs().max())
+        err = float((a - b).abs().max())
+        print(f"# agreement terrain prb (16x16, 4 spp) {k}: max |card - "
+              f"cpu| {err:.4g}, tolerance {tol:.4g} (1e-2 of max |cpu|)")
+        _check(err <= tol, f"terrain prb: {k} gradients disagree")
+    return out
+
 
 
 def main():
@@ -1076,6 +1352,8 @@ def main():
         renders.append(render)
     for accel in ("cells", "serve", "tiled"):
         timed(f"agreement {accel}", phase_agreement, mi, accel)
+    prb_runs = [timed("cornell fwd+PRB bwd", phase_cornell_prb, mi, card),
+                timed("terrain64k PRB step", phase_terrain_prb, mi, card)]
     rows += timed("kernels K5-K8", phase_kernels_attic, card)
     attic_launches, queries = timed("attic queries", phase_attic_queries,
                                     card)
@@ -1093,6 +1371,7 @@ def main():
     print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"renders": renders, "card": card}))
     print(json.dumps({"attic_queries": queries, "card": card}))
+    print(json.dumps({"prb": prb_runs, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,21 +10,25 @@ public API follows the JAX package::
     img, n_rays = mi.render_with_stats(scene, seed=0, spp=4)
 
 ``load_dict(d, device="cpu")`` puts a scene on the CPU, where every kernel
-runs as its plain PyTorch version. The port carries the plugins of a
-mesh scene with a diffuse BSDF, a directional sun and a constant
-environment, rendered by the ``path`` integrator through the accel that
-``MI3T_ACCEL`` names (cellserve, bvh_serve or bvh_tiled); see
-``loader.py``.
+runs as its plain PyTorch version. The port carries the plugins of
+triangle scenes (meshes, rectangles, cubes) with diffuse BSDFs, area
+lights, a directional sun and a constant environment, such as
+``cornell_box()``, rendered by the ``path`` integrator or differentiated
+by ``prb`` (path replay backpropagation: gradients of the scene's tables
+through ``torch.autograd``); small scenes use the dense intersector,
+large ones the accel that ``MI3T_ACCEL`` names (cellserve, bvh_serve or
+bvh_tiled); see ``loader.py``.
 """
 
 __version__ = "0.1.0"
 
 from .core.transform import Transform4f
 from .loader import load_dict
+from .models import cornell_box
 from .render.integrator import render, render_with_stats
 from .render.scene import Scene
 
 ScalarTransform4f = Transform4f
 
-__all__ = ["Scene", "ScalarTransform4f", "Transform4f", "load_dict",
-           "render", "render_with_stats"]
+__all__ = ["Scene", "ScalarTransform4f", "Transform4f", "cornell_box",
+           "load_dict", "render", "render_with_stats"]

@@ -1,14 +1,17 @@
 """Carry a scene's state between the JAX package and the port.
 
 A renderer's "weights" are its scene tables. ``arrays_from_scene`` reads
-the leaves a scene of this slice needs (vertices, faces, the face tables,
-emitters, environment warp, BSDF rows, sensor, cellserve arrays) into a
-flat dict of numpy arrays plus a dict of static fields. It takes a JAX
-``Scene`` or a port ``Scene`` alike, by attribute names, and imports
-nothing of JAX. ``scene_from_arrays`` builds the port's ``Scene`` from
-them on a device.
+the leaves a scene of the port needs (vertices, faces, the face tables,
+area-emitter sampling tables, emitters, environment warp, BSDF rows,
+textures, sensor, accel arrays) into a flat dict of numpy arrays plus a
+dict of static fields. It takes a JAX ``Scene`` or a port ``Scene``
+alike, by attribute names, and imports nothing of JAX.
+``scene_from_arrays`` builds the port's ``Scene`` from them on a device.
+Sphere emitters' cone-sampling rows (the JAX ``em_sphere``) are not
+ported: a scene that has them is refused.
 
-The accel is one of cellserve (``MI3T_ACCEL`` auto or cells), bvh_serve
+The accel is None for the dense all-triangles test (kind ``"dense"``,
+no arrays), or one of cellserve (``MI3T_ACCEL`` auto or cells), bvh_serve
 (``serve``) or bvh_tiled (``tiled``); its kind is told by the fields it
 has, and ``meta["accel"]["kind"]`` carries it across. ``accel_arrays`` and
 ``accel_from_arrays`` do the same for an accel on its own, which may also
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from .core.distr2d import SlicedMarginal2D
+from .integrators import config_from_dict
 from .integrators.path import PathConfig
 from .ops.attic.bvh2 import BVH2
 from .ops.attic.bvh_pallas import BVHData
@@ -41,8 +45,8 @@ from .sensors import SensorConfig, SensorData
 
 SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
                 "face_emitter", "face_inv_total_area", "face_uv",
-                "face_normals", "em_radiance", "env_data", "env_scale",
-                "bsdf_params", "de_params")
+                "face_normals", "em_radiance", "ef_face", "ef_cdf",
+                "env_data", "env_scale", "bsdf_params", "de_params")
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
 SENSOR_ARRAYS = ("origin", "axis_x", "axis_y", "axis_z", "tan_half_x",
                  "tan_half_y")
@@ -91,16 +95,22 @@ def pack_occupancy(occ, n_groups: int) -> np.ndarray:
 def arrays_from_scene(scene):
     """(arrays, meta) of `scene`: arrays maps dotted leaf names to numpy
     arrays, meta holds the static fields."""
+    if getattr(scene, "em_sphere", None) is not None:
+        raise NotImplementedError(
+            "sphere emitters (em_sphere) are not ported to mitsuba3_tpu_torch")
     arrays = {}
     for name in SCENE_ARRAYS:
         value = getattr(scene, name)
         if value is not None:
             arrays[name] = _np(value)
+    for i, tex in enumerate(scene.textures):
+        arrays[f"textures.{i}"] = _np(tex)
     for name in WARP_ARRAYS:
         arrays[f"env_warp.{name}"] = _np(getattr(scene.env_warp, name))
     for name in SENSOR_ARRAYS:
         arrays[f"sensor.{name}"] = _np(getattr(scene.sensor, name))
-    acc_arrays, acc_meta = accel_arrays(scene.accel)
+    acc_arrays, acc_meta = ({}, {"kind": "dense"}) if scene.accel is None \
+        else accel_arrays(scene.accel)
     arrays.update({f"accel.{name}": a for name, a in acc_arrays.items()})
 
     meta = {name: getattr(scene, name) for name in SCENE_META}
@@ -165,14 +175,17 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
             f"accel; use accel_from_arrays")
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
     leaves.setdefault("de_params", None)
+    n_tex = sum(name.startswith("textures.") for name in arrays)
     acc = {name[len("accel."):]: a for name, a in arrays.items()
            if name.startswith("accel.")}
     return Scene(
         **leaves,
         env_warp=SlicedMarginal2D(**group("env_warp", WARP_ARRAYS)),
         sensor=SensorData(**group("sensor", SENSOR_ARRAYS)),
-        accel=accel_from_arrays(acc, meta["accel"], device),
+        accel=(None if meta["accel"]["kind"] == "dense"
+               else accel_from_arrays(acc, meta["accel"], device)),
+        textures=tuple(t(f"textures.{i}") for i in range(n_tex)),
         **{name: meta[name] for name in SCENE_META},
         film=FilmConfig(**meta["film"]),
         sensor_config=SensorConfig(**meta["sensor_config"]),
-        integrator=PathConfig(**meta["integrator"]))
+        integrator=config_from_dict(meta["integrator"]))

@@ -37,6 +37,19 @@ class Transform4f:
         inv = np.diag(np.concatenate([1.0 / v, [1.0]]))
         return self @ Transform4f(m, inv)
 
+    def rotate(self, axis, angle_deg) -> "Transform4f":
+        """Rotation about `axis` by `angle_deg` degrees (transform.h:rotate)."""
+        axis = np.asarray(axis, dtype=np.float64)
+        axis = axis / np.linalg.norm(axis)
+        theta = np.deg2rad(angle_deg)
+        s, c = np.sin(theta), np.cos(theta)
+        x, y, z = axis
+        k = np.array([[0, -z, y], [z, 0, -x], [-y, x, 0]])
+        r3 = c * np.eye(3) + s * k + (1 - c) * np.outer(axis, axis)
+        m = np.eye(4)
+        m[:3, :3] = r3
+        return self @ Transform4f(m, m.T)
+
     def look_at(self, origin, target, up) -> "Transform4f":
         """Camera-to-world: X=left=cross(up,dir), Y=cross(dir,left), Z=dir
         (transform.h:175-200)."""

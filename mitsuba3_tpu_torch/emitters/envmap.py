@@ -11,6 +11,7 @@ import torch
 
 from ..core import math as m
 from ..core.distr2d import SlicedMarginal2D
+from ..core.gather import take_rows
 from ..core.spectrum import LUMINANCE_WEIGHTS
 from ..core.vec import Vec2, Vec3
 
@@ -61,7 +62,7 @@ def eval_env(scene, d: Vec3) -> Vec3:
     flat = data.reshape(he * we, 3)
 
     def fetch(iy, ix):
-        r = flat[iy * we + ix]
+        r = take_rows(flat, iy * we + ix)
         return Vec3(r[:, 0], r[:, 1], r[:, 2])
 
     out = (fetch(y0, x0) * ((1 - fx) * (1 - fy))

@@ -1,27 +1,33 @@
 """Integrator registry — counterpart of ``mitsuba3_tpu/integrators/__init__.py``.
 
-The port carries the ``path`` integrator. Its module exposes
-``sample(scene, rng, ray, cfg)``; its frozen ``PathConfig`` rides in the
-scene's ``integrator`` field.
+The port carries the ``path`` integrator and ``prb`` (path replay
+backpropagation, ``ad/prb.py``). Each module exposes
+``sample(scene, rng, ray, cfg) -> (L, valid, n_rays)``; its frozen config
+rides in the scene's ``integrator`` field.
 """
 from __future__ import annotations
 
 from . import path as path_mod
 from .path import PathConfig
 
-_REGISTRY = {"path": path_mod}
-
 
 def get_integrator(cfg):
-    return _REGISTRY[cfg.type]
+    if cfg.type == "prb":
+        from ..ad import prb as prb_mod
+        return prb_mod
+    return path_mod
 
 
 def config_from_dict(spec: dict):
     itype = spec.get("type", "path")
-    if itype != "path":
+    if itype not in ("path", "prb"):
         raise NotImplementedError(f"integrator type {itype!r} is not ported")
-    return PathConfig(
-        type="path",
+    cls = PathConfig
+    if itype == "prb":
+        from ..ad.prb import PRBConfig
+        cls = PRBConfig
+    return cls(
+        type=itype,
         max_depth=int(spec.get("max_depth", 8)),
         rr_depth=int(spec.get("rr_depth", 5)),
         hide_emitters=bool(spec.get("hide_emitters", False)))

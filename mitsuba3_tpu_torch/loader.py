@@ -1,17 +1,20 @@
 """Scene-dict loader — counterpart of ``load_dict`` in ``mitsuba3_tpu/loader.py``,
 for the plugins the port carries:
 
-- a ``mesh`` given as ``vertices``/``faces`` arrays, with a ``diffuse`` BSDF
-  of constant reflectance;
+- ``mesh`` shapes given as ``vertices``/``faces`` arrays, ``rectangle`` and
+  ``cube``, each with a ``diffuse`` BSDF of constant reflectance (inline,
+  named at the top level, or a ``ref`` to a named one) and optionally an
+  ``area`` emitter of constant radiance;
 - a ``directional`` emitter and a ``constant`` environment;
 - a ``perspective`` sensor with an ``hdrfilm`` (default Gaussian rfilter)
   and the ``independent`` sampler;
-- the ``path`` integrator;
-- for scenes above 8192 faces, the accel that ``MI3T_ACCEL`` names, as the
-  JAX package reads it: ``auto`` (the default) and ``cells`` give cellserve
-  (``ops/cellserve.py``) on every device, ``serve`` gives ``bvh_serve`` and
-  ``tiled`` gives ``bvh_tiled``; ``xla``, ``grid`` and ``none`` are not
-  ported.
+- the ``path`` and ``prb`` integrators;
+- scenes of at most 8192 faces keep the dense all-triangles test
+  (``accel`` None, ``ops/intersect.py``); above that, the accel that
+  ``MI3T_ACCEL`` names, as the JAX package reads it: ``auto`` (the
+  default) and ``cells`` give cellserve (``ops/cellserve.py``) on every
+  device, ``serve`` gives ``bvh_serve`` and ``tiled`` gives ``bvh_tiled``;
+  ``xla``, ``grid`` and ``none`` are not ported.
 
 Any other plugin raises ``NotImplementedError`` naming it. The host-side
 table building is the JAX package's, so the scene's arrays equal its
@@ -29,6 +32,7 @@ from . import bsdfs as bsdfs_pkg
 from . import emitters as em_pkg
 from . import shapes as shapes_pkg
 from . import sensors as sensors_pkg
+from .core.transform import as_transform
 from .emitters import envmap as env_mod
 from .integrators import config_from_dict as integrator_from_dict
 from .integrators.path import PathConfig
@@ -41,7 +45,7 @@ ACCELS = {"auto": cellserve.build, "cells": cellserve.build,
           "serve": bvh_serve.build, "tiled": bvh_tiled.build}
 UNPORTED_ACCELS = ("xla", "grid", "none")
 
-_FILM_KEYS = ("type", "width", "height", "rfilter")
+_FILM_KEYS = ("type", "width", "height", "rfilter", "pixel_format")
 _SAMPLER_KEYS = ("type", "sample_count")
 _SENSOR_KEYS = ("type", "to_world", "fov", "fov_axis", "near_clip",
                 "far_clip", "film", "sampler")
@@ -107,6 +111,8 @@ def _film_config(film_spec: dict) -> FilmConfig:
     _check_keys(film_spec, _FILM_KEYS, "film")
     if film_spec.get("type", "hdrfilm") != "hdrfilm":
         raise _not_ported(f"film type {film_spec['type']!r}")
+    if film_spec.get("pixel_format", "rgb") != "rgb":
+        raise _not_ported(f"pixel_format {film_spec['pixel_format']!r}")
     rf = film_spec.get("rfilter") or {}
     if rf.get("type", "gaussian") != "gaussian" or set(rf) - {"type"}:
         raise _not_ported(f"rfilter {rf!r}")
@@ -120,7 +126,6 @@ def _directional_row(espec: dict) -> np.ndarray:
     row = np.zeros(em_pkg.DE_ROW, np.float32)
     tw = espec.get("to_world")
     if tw is not None:
-        from .core.transform import as_transform
         axis = np.asarray(as_transform(tw).transform_vector(
             np.array([0, 0, 1], np.float32)), np.float32)
     else:
@@ -138,6 +143,32 @@ def _accel_builder():
     if choice not in ACCELS:
         raise ValueError(f"MI3T_ACCEL: unknown accel {choice!r}")
     return ACCELS[choice]
+
+
+def _area_radiance(espec: dict) -> np.ndarray:
+    """The radiance row of a shape's ``area`` emitter."""
+    if espec.get("type") != "area":
+        raise _not_ported(f"shape emitter type {espec.get('type')!r}")
+    _check_keys(espec, ("type", "radiance"), "area emitter")
+    return _rgb(espec.get("radiance"), (1, 1, 1))
+
+
+def _emitter_sampling(em_faces, em_areas, n_faces: int, n_emitters: int):
+    """(face_inv_total_area [F], ef_face [FE], ef_cdf [FE]): per face
+    1/(its emitter's total area), and the global area-weighted CDF over
+    emissive faces, whose total is the area emitters' share n_area/E of
+    the emitter pick (the environment and delta emitters take the rest)."""
+    face_inv_total_area = np.zeros(n_faces, np.float32)
+    ef_face, ef_pmf = [], []
+    for fids, areas in zip(em_faces, em_areas):
+        total = float(areas.sum())
+        face_inv_total_area[fids] = 1.0 / total
+        ef_face.extend(fids)
+        ef_pmf.extend((areas / total / max(n_emitters, 1)).tolist())
+    ef_cdf = np.cumsum(np.asarray(ef_pmf, np.float64)).astype(np.float32)
+    if ef_cdf.size:
+        ef_cdf[-1] = len(em_faces) / max(n_emitters, 1)
+    return face_inv_total_area, np.asarray(ef_face, np.int32), ef_cdf
 
 
 def load_dict(d: dict, device=None) -> Scene:
@@ -171,7 +202,7 @@ def load_dict(d: dict, device=None) -> Scene:
         if key == "type" or not isinstance(val, dict):
             continue
         vtype = val.get("type")
-        if key == "integrator" or vtype == "path":
+        if key == "integrator" or vtype in ("path", "prb"):
             integrator_cfg = integrator_from_dict(val)
         elif vtype == "perspective":
             _check_keys(val, _SENSOR_KEYS, "perspective sensor")
@@ -184,7 +215,7 @@ def load_dict(d: dict, device=None) -> Scene:
             sensor_spec = val
         elif vtype == "diffuse":
             add_bsdf(val, name=key)
-        elif vtype == "mesh":
+        elif vtype in shapes_pkg.SHAPE_KEYS:
             shape_items.append(val)
         elif vtype == "constant":
             _check_keys(val, ("type", "radiance", "scale"),
@@ -199,36 +230,49 @@ def load_dict(d: dict, device=None) -> Scene:
         sensor_spec if sensor_spec is not None else {"fov": 45.0},
         film_cfg.width, film_cfg.height, dev)
 
-    # ---- lower shapes ----
-    all_verts, all_faces, face_shape, face_bsdf = [], [], [], []
-    v_off = 0
+    # ---- lower shapes; area emitters take the first emitter slots ----
+    all_verts, all_faces, face_uv = [], [], []
+    face_shape, face_bsdf, face_emitter = [], [], []
+    em_radiance, em_faces, em_areas = [], [], []
+    v_off = f_off = 0
     for s_idx, spec in enumerate(shape_items):
         bspec = spec.get("bsdf")
         b_idx = add_bsdf(bspec if bspec is not None else {"type": "diffuse"})
         mesh = shapes_pkg.build_shape(spec)
         nf = mesh.faces.shape[0]
+        e_idx = -1
+        if spec.get("emitter") is not None:
+            e_idx = len(em_radiance)
+            em_radiance.append(_area_radiance(spec["emitter"]))
+            em_faces.append(list(range(f_off, f_off + nf)))
+            em_areas.append(mesh.face_areas())
         all_verts.append(mesh.vertices)
         all_faces.append(mesh.faces + v_off)
+        face_uv.append(mesh.uvs[mesh.faces] if mesh.uvs is not None
+                       else np.zeros((nf, 3, 2)))
         face_shape.extend([s_idx] * nf)
         face_bsdf.extend([b_idx] * nf)
+        face_emitter.extend([e_idx] * nf)
         v_off += mesh.vertices.shape[0]
+        f_off += nf
     if not all_verts:
         raise ValueError("Scene contains no shapes")
 
     vertices = np.concatenate(all_verts, 0).astype(np.float32)
     faces = np.concatenate(all_faces, 0).astype(np.int32)
+    face_uv = np.concatenate(face_uv, 0).astype(np.float32)
     face_shape = np.asarray(face_shape, np.int32)
     face_bsdf = np.asarray(face_bsdf, np.int32)
+    face_emitter = np.asarray(face_emitter, np.int32)
     n_faces = faces.shape[0]
-    face_emitter = np.full(n_faces, -1, np.int32)
 
-    # emitter slots: [delta emitters][environment] (no area emitters)
+    # emitter slots: [area emitters][delta emitters][environment]
+    n_area = len(em_radiance)
     de_rows = [_directional_row(e) for e in delta_specs]
     n_delta = len(de_rows)
     has_env = env_spec is not None
-    env_index = n_delta if has_env else -1
-    n_emitters = n_delta + (1 if has_env else 0)
-    em_radiance = []
+    env_index = n_area + n_delta if has_env else -1
+    n_emitters = n_area + n_delta + (1 if has_env else 0)
     if has_env:
         rad = _rgb(env_spec.get("radiance"), (1.0, 1.0, 1.0))
         env_data = np.broadcast_to(rad, (4, 8, 3)).astype(np.float32)
@@ -239,8 +283,11 @@ def load_dict(d: dict, device=None) -> Scene:
         env_data = np.zeros((1, 1, 3), np.float32)
         env_scale = 1.0
     env_warp = env_mod.build_tables(env_data, dev)
+    face_inv_total_area, ef_face, ef_cdf = _emitter_sampling(
+        em_faces, em_areas, n_faces, n_emitters)
 
-    # pad faces with degenerate triangles (vertex 0 repeated)
+    # pad faces with degenerate triangles (vertex 0 repeated): to TRI_PAD
+    # for small scenes, to a TRI_CHUNK multiple for large ones
     grain = TRI_PAD if n_faces <= TRI_CHUNK else TRI_CHUNK
     pad = (-n_faces) % grain
     if pad:
@@ -249,15 +296,18 @@ def load_dict(d: dict, device=None) -> Scene:
         face_bsdf = np.concatenate([face_bsdf, np.zeros(pad, np.int32)])
         face_emitter = np.concatenate([face_emitter,
                                        np.full(pad, -1, np.int32)])
+        face_inv_total_area = np.concatenate(
+            [face_inv_total_area, np.zeros(pad, np.float32)])
+        face_uv = np.concatenate(
+            [face_uv, np.zeros((pad, 3, 2), np.float32)], 0)
     n_padded = faces.shape[0]
 
-    if n_padded <= ACCEL_MIN_FACES:
-        raise _not_ported(
-            f"the dense intersector for scenes of at most {ACCEL_MIN_FACES} "
-            f"faces (this one has {n_padded})")
-    p0w = vertices[faces[:, 0]]
-    accel = _accel_builder()(p0w, vertices[faces[:, 1]] - p0w,
-                             vertices[faces[:, 2]] - p0w, device=dev)
+    # small scenes keep the dense all-triangles test (accel None)
+    accel = None
+    if n_padded > ACCEL_MIN_FACES:
+        p0w = vertices[faces[:, 0]]
+        accel = _accel_builder()(p0w, vertices[faces[:, 1]] - p0w,
+                                 vertices[faces[:, 2]] - p0w, device=dev)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -268,11 +318,13 @@ def load_dict(d: dict, device=None) -> Scene:
         face_shape=t(face_shape),
         face_bsdf=t(face_bsdf),
         face_emitter=t(face_emitter),
-        face_inv_total_area=t(np.zeros(n_padded, np.float32)),
-        face_uv=t(np.zeros((n_padded, 3, 2), np.float32)),
+        face_inv_total_area=t(face_inv_total_area),
+        face_uv=t(face_uv),
         face_normals=t(np.zeros((n_padded, 3, 3), np.float32)),
         em_radiance=t(np.asarray(em_radiance, np.float32).reshape(-1, 3)
                       if em_radiance else np.zeros((1, 3), np.float32)),
+        ef_face=t(ef_face),
+        ef_cdf=t(ef_cdf),
         env_data=t(env_data),
         env_warp=env_warp,
         env_scale=torch.tensor(env_scale, dtype=torch.float32, device=dev),
@@ -281,7 +333,7 @@ def load_dict(d: dict, device=None) -> Scene:
         sensor=sensor_data,
         accel=accel,
         n_emitters=n_emitters,
-        n_area_emitters=0,
+        n_area_emitters=n_area,
         env_emitter=env_index,
         delta_emitter_types=(em_pkg.DIRECTIONAL,) * n_delta,
         bsdf_types=tuple(bsdf_types),

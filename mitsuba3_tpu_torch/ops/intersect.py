@@ -2,9 +2,11 @@
 ``mitsuba3_tpu/ops/intersect.py``.
 
 Every ray is tested against every triangle (Möller–Trumbore), the
-triangles in chunks of `chunk` and, unlike JAX, the rays in chunks of
-RAY_CHUNK too, so that 65,536 triangles against 32,768 rays stay within a
-card's memory ([chunk, RAY_CHUNK] intermediates). The rules are JAX's:
+triangles in chunks of `chunk` and, unlike JAX, the rays in steps too, so
+that the [chunk, rays] intermediates stay within a card's memory: a step
+takes STEP_ELEMS // chunk rays, at least RAY_CHUNK (65,536 for 256-face
+chunks; 419,430 for the Cornell box's one chunk of 40). The rules are
+JAX's:
 
 - a hit needs det != 0, u >= 0, v >= 0, u + v <= 1 and t in [0, maxt];
 - inside a chunk the smallest t wins, ties to the largest prim id;
@@ -25,7 +27,8 @@ import torch
 from ..core.vec import Vec2, Vec3
 
 BIG = 3.4e38
-RAY_CHUNK = 32768   # rays per step ([chunk, RAY_CHUNK] intermediates)
+RAY_CHUNK = 32768      # rays per step at least
+STEP_ELEMS = 1 << 24   # [chunk, rays] elements per step (64 MB in f32)
 
 
 def _mt_chunk(o, d, tri, mint, maxt):
@@ -79,6 +82,10 @@ def _chunking(t_total: int, chunk: int):
     return chunk, t_total // chunk
 
 
+def _ray_step(chunk: int) -> int:
+    return max(RAY_CHUNK, STEP_ELEMS // chunk)
+
+
 def _lanes(o: Vec3, maxt, active):
     n = o.x.shape[0]
     maxt = torch.as_tensor(maxt, dtype=torch.float32,
@@ -105,8 +112,9 @@ def intersect_naive(o: Vec3, d: Vec3, maxt, p0: Vec3, e1: Vec3, e2: Vec3,
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     uu = torch.empty(n, dtype=torch.float32, device=dev)
     vv = torch.empty(n, dtype=torch.float32, device=dev)
-    for r0 in range(0, n, RAY_CHUNK):
-        rs = slice(r0, r0 + RAY_CHUNK)
+    step = _ray_step(chunk)
+    for r0 in range(0, n, step):
+        rs = slice(r0, r0 + step)
         ro = (o.x[rs], o.y[rs], o.z[rs])
         rd = (d.x[rs], d.y[rs], d.z[rs])
         mint = torch.zeros_like(ro[0])
@@ -134,8 +142,9 @@ def occluded_naive(o: Vec3, d: Vec3, maxt, p0: Vec3, e1: Vec3, e2: Vec3,
     chunk, n_chunks = _chunking(p0.x.shape[0], chunk)
     tris = _tri_rows(p0, e1, e2)
     occ = torch.zeros(n, dtype=torch.bool, device=o.x.device)
-    for r0 in range(0, n, RAY_CHUNK):
-        rs = slice(r0, r0 + RAY_CHUNK)
+    step = _ray_step(chunk)
+    for r0 in range(0, n, step):
+        rs = slice(r0, r0 + step)
         ro = (o.x[rs], o.y[rs], o.z[rs])
         rd = (d.x[rs], d.y[rs], d.z[rs])
         mint = torch.zeros_like(ro[0])

@@ -41,17 +41,22 @@ def halo_rows(film: FilmConfig) -> int:
     return int(math.ceil(film.rfilter_radius))
 
 
-def _shift_add(acc, img, dy, dx):
-    """acc += img placed at static offset (dy, dx), clipped to acc bounds
-    (in place). acc: [Ha, W, ...], img: [Hi, W, ...] (widths equal)."""
-    ha, w = acc.shape[0], acc.shape[1]
-    hi = img.shape[0]
+def _shifted(img, ha: int, dy: int, dx: int):
+    """`img` [Hi, W, ...] placed at static offset (dy, dx) on a zero canvas
+    of `ha` rows, clipped to its bounds (out of place, so autograd follows
+    every tap)."""
+    hi, w = img.shape[0], img.shape[1]
     sy0, sy1 = max(0, -dy), min(hi, ha - dy)
     sx0, sx1 = max(0, -dx), min(w, w - dx)
     if sy0 >= sy1 or sx0 >= sx1:
-        return
+        return None
     ty0, tx0 = sy0 + dy, sx0 + dx
-    acc[ty0:ty0 + (sy1 - sy0), tx0:tx0 + (sx1 - sx0)] += img[sy0:sy1, sx0:sx1]
+    part = img[sy0:sy1, sx0:sx1]
+    # F.pad pads the last dimension first: (..., x before, x after, y
+    # before, y after) with the channel dimension, if any, left alone
+    chan = (0, 0) * (img.dim() - 2)
+    pads = chan + (tx0, w - tx0 - (sx1 - sx0), ty0, ha - ty0 - (sy1 - sy0))
+    return torch.nn.functional.pad(part, pads)
 
 
 def splat_ordered(film: FilmConfig, jitter, values, sppc: int, h_local: int,
@@ -62,18 +67,18 @@ def splat_ordered(film: FilmConfig, jitter, values, sppc: int, h_local: int,
     values: [N, C]; N = h_local * w * sppc, pixel-major.
     Returns (image [h_local + 2*halo, w, C], weight [h_local + 2*halo, w]).
     Horizontal spill is clipped (border discard, like the reference's
-    film border)."""
+    film border). Differentiable in `values`: each filter tap is a
+    per-pixel sum placed on the canvas by an out-of-place pad."""
     def per_pixel(x):
         return x.reshape(h_local, w, sppc, -1).sum(dim=2)
 
     nch = values.shape[-1]
     radius = film.rfilter_radius
     r_int = int(math.ceil(radius))
+    ha = h_local + 2 * r_int
     dev = values.device
-    image = torch.zeros((h_local + 2 * r_int, w, nch), dtype=torch.float32,
-                        device=dev)
-    weight = torch.zeros((h_local + 2 * r_int, w), dtype=torch.float32,
-                         device=dev)
+    image = torch.zeros((ha, w, nch), dtype=torch.float32, device=dev)
+    weight = torch.zeros((ha, w), dtype=torch.float32, device=dev)
     for dy in range(-r_int, r_int + 1):
         wy = rfilter_eval(film.rfilter, dy + 0.5 - jitter.y, radius,
                           film.rfilter_std)
@@ -81,8 +86,12 @@ def splat_ordered(film: FilmConfig, jitter, values, sppc: int, h_local: int,
             wx = rfilter_eval(film.rfilter, dx + 0.5 - jitter.x, radius,
                               film.rfilter_std)
             tw = wx * wy
-            _shift_add(image, per_pixel(tw[:, None] * values), dy + r_int, dx)
-            _shift_add(weight, per_pixel(tw[:, None])[..., 0], dy + r_int, dx)
+            tap = _shifted(per_pixel(tw[:, None] * values), ha,
+                           dy + r_int, dx)
+            if tap is not None:
+                image = image + tap
+                weight = weight + _shifted(per_pixel(tw[:, None])[..., 0],
+                                           ha, dy + r_int, dx)
     return image, weight
 
 

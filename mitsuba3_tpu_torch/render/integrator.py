@@ -5,7 +5,12 @@ seed -> camera rays -> path trace -> splat, then develop. The wavefront of
 a pass is capped at ``max_wavefront`` lanes, as in the JAX package, so
 both packages split a render into the same passes and draw the same
 random numbers. There is no compiled program and no host-level
-compaction: the path integrator drops finished lanes after each bounce.
+compaction: the integrators drop finished lanes after each bounce.
+
+Under the ``prb`` integrator the image is differentiable in the scene's
+parameter tables (``ad/prb.py``): each pass's samples come from a
+``torch.autograd.Function`` and the film's splat and ``develop`` are
+out-of-place ops that autograd follows.
 """
 from __future__ import annotations
 
@@ -81,7 +86,8 @@ def plan_passes(scene, spp=None, max_wavefront=1 << 19):
 
 def render_with_stats(scene, seed=0, spp=None, max_wavefront=1 << 19):
     """Forward render -> (image [H, W, 3] on the scene's device, total
-    ray-query count as an int)."""
+    ray-query count as an int). Under ``prb`` the image carries autograd
+    history to any parameter table of `scene` that requires grad."""
     sppc, n_passes = plan_passes(scene, spp, max_wavefront)
     w, h = scene.film.width, scene.film.height
     image = torch.zeros((h, w, 3), dtype=torch.float32, device=scene.device)
@@ -91,8 +97,8 @@ def render_with_stats(scene, seed=0, spp=None, max_wavefront=1 << 19):
         img_i, wgt_i, rays_i = render_pass(scene, pass_seed(seed, i), sppc,
                                            pass_idx=i,
                                            spp_total=sppc * n_passes)
-        image += img_i
-        weight += wgt_i
+        image = image + img_i
+        weight = weight + wgt_i
         rays += rays_i
     return film_mod.develop(image, weight), rays
 

@@ -1,6 +1,6 @@
 """Scene: flat SoA tables + dispatch hub — counterpart of
-``mitsuba3_tpu/render/scene.py`` (the parts a mesh scene with a diffuse
-BSDF, a directional sun and a constant environment reaches).
+``mitsuba3_tpu/render/scene.py`` (the parts a triangle scene with diffuse
+BSDFs, area lights, a directional sun and a constant environment reaches).
 
 The JAX Scene's static fields are plain fields here; the per-face
 attribute table is built once from the leaves when the Scene is made.
@@ -13,11 +13,14 @@ from typing import Any
 import torch
 
 from ..core import math as m
+from ..core.distr import pick
 from ..core.frame import Frame
+from ..core.gather import take_rows
 from ..core.struct import struct
 from ..core.vec import Vec2, Vec3
 from ..emitters import envmap as env_mod
 from ..ops import bvh_serve, bvh_tiled, cellserve
+from ..ops import intersect as ops_intersect
 from ..render.film import FilmConfig
 from ..sensors import SensorConfig, SensorData
 from .records import (DirectionSample, PreliminaryIntersection, Ray,
@@ -47,6 +50,8 @@ class Scene:
     face_normals: torch.Tensor        # [F, 3, 3]; zeros = flat shading
     # emitters
     em_radiance: torch.Tensor         # [E, 3]
+    ef_face: torch.Tensor             # [FE] i32 emissive face ids
+    ef_cdf: torch.Tensor              # [FE] global CDF, ends at n_area / E
     env_data: torch.Tensor            # [He, We, 3]
     env_warp: Any                     # SlicedMarginal2D (S = 1)
     env_scale: torch.Tensor           # scalar
@@ -54,7 +59,9 @@ class Scene:
     # BSDFs, sensor, accel
     bsdf_params: torch.Tensor         # [B, N_PARAMS]
     sensor: SensorData
-    accel: cellserve.CellServe | bvh_serve.BVHServe | bvh_tiled.BVHTiled
+    # None: the dense all-triangles test (scenes of at most 8192 faces)
+    accel: cellserve.CellServe | bvh_serve.BVHServe | bvh_tiled.BVHTiled | None
+    textures: tuple = ()              # [Hi, Wi, 3] each; none loaded yet
     # static configuration
     n_emitters: int = 0
     n_area_emitters: int = 0
@@ -107,14 +114,26 @@ class Scene:
     def gather_face_attrs(self, prim):
         """Per-lane face attributes as SoA rows [28, N] (one row take per
         lane)."""
-        return self.face_table[prim.long()].T
+        return take_rows(self.face_table, prim).T
 
     # ------------------------------------------------------------------
     # Intersection
     # ------------------------------------------------------------------
 
     def _queries(self):
-        """(closest, any-hit) query functions of the scene's accel."""
+        """(closest, any-hit) query functions of the scene's accel; the
+        dense test over every triangle, in TRI_CHUNK chunks, without one."""
+        if self.accel is None:
+            tris = self.triangle_soa()
+
+            def closest(_, o, d, maxt, active=None):
+                return ops_intersect.intersect_naive(
+                    o, d, maxt, *tris, active=active, chunk=TRI_CHUNK)
+
+            def anyhit(_, o, d, maxt, active=None):
+                return ops_intersect.occluded_naive(
+                    o, d, maxt, *tris, active=active, chunk=TRI_CHUNK)
+            return closest, anyhit
         if isinstance(self.accel, cellserve.CellServe):
             return cellserve.intersect_cells, cellserve.occluded_cells
         if isinstance(self.accel, bvh_serve.BVHServe):
@@ -179,10 +198,18 @@ class Scene:
     # Emitter sampling
     # ------------------------------------------------------------------
 
+    def gather_em_radiance(self, em_idx) -> Vec3:
+        """[N] emitter slots -> radiance Vec3 (one row take per lane). Slots
+        past the table (delta emitters hold no row) take its last row, where
+        JAX's one-hot gather gives 0; every caller replaces those lanes."""
+        last = self.em_radiance.shape[0] - 1
+        r = take_rows(self.em_radiance, torch.clamp(em_idx, max=last))
+        return Vec3(r[:, 0], r[:, 1], r[:, 2])
+
     def has_nee_emitters(self):
-        """True if NEE can select any emitter (delta or environment); the
-        port loads no area emitters."""
-        return bool(self.env_emitter >= 0 or (
+        """True if NEE can select any emitter (area, delta or
+        environment): the shadow-ray gate."""
+        return bool(self.ef_face.shape[0] or self.env_emitter >= 0 or (
             self.de_params is not None and self.de_params.shape[0]))
 
     def sample_emitter_direction(self, si: SurfaceInteraction, sample1,
@@ -200,52 +227,95 @@ class Scene:
         ds = ds.replace(pdf=torch.where(ok, ds.pdf, 0.0))
         return ds, weight.mask(ok)
 
+    def _sample_area(self, si, sample1, sample2: Vec2, e_total: int):
+        """An emissive triangle from the global area-weighted CDF, a
+        uniform point on it, and the solid-angle pdf from si.p. Returns
+        (d, p, ng, pdf_sa, radiance, em_idx, dist, uv, prim)."""
+        face = self.ef_face[pick(self.ef_cdf, sample1).long()]
+        a = self.gather_face_attrs(face)
+        fp0 = Vec3(a[A_P0], a[A_P0 + 1], a[A_P0 + 2])
+        fe1 = Vec3(a[A_E1], a[A_E1 + 1], a[A_E1 + 2])
+        fe2 = Vec3(a[A_E2], a[A_E2 + 1], a[A_E2 + 2])
+        # square_to_uniform_triangle (warp.h), componentwise
+        tsq = m.safe_sqrt(1.0 - sample2.x)
+        b1 = 1.0 - tsq
+        b2 = tsq * sample2.y
+        p = fp0 + fe1 * b1 + fe2 * b2
+        ng = fe1.cross(fe2).normalize()
+        d_un = p - si.p
+        dist2 = d_un.squared_norm()
+        d = d_un * torch.rsqrt(torch.clamp(dist2, min=1e-30))
+        cos_emitter = -ng.dot(d)
+        pdf_sa = m.safe_div(a[A_INV_AREA] / e_total * dist2, cos_emitter)
+        pdf_sa = torch.where(cos_emitter > 0.0, pdf_sa, 0.0)
+        em_idx = torch.round(a[A_EMITTER]).to(torch.int32)
+        return (d, p, ng, pdf_sa, self.gather_em_radiance(em_idx), em_idx,
+                m.safe_sqrt(dist2), Vec2(b1, b2), face)
+
     def _sample_emitter_core(self, si, sample1, sample2: Vec2):
-        """The unit interval of `sample1` is split into one 1/E slot per
+        """The unit interval of `sample1` is split into the area emitters'
+        mass (the global area-weighted CDF, n_area/E), one 1/E slot per
         delta emitter and a final 1/E environment slot (uniform emitter
-        selection, scene.cpp)."""
+        selection, scene.cpp). `si` needs only `.p` and `.t`."""
         n = si.t.shape[0]
         dev = si.t.device
+        n_area = self.ef_face.shape[0]
         n_delta = self.de_params.shape[0] if self.de_params is not None else 0
         zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+        none = torch.full((n,), -1, dtype=torch.int32, device=dev)
         if not self.has_nee_emitters():
             z3 = Vec3(zeros, zeros, zeros)
             ds = DirectionSample(
                 p=z3, n=z3, uv=Vec2(zeros, zeros), pdf=zeros,
                 delta=torch.zeros(n, dtype=torch.bool, device=dev), d=z3,
-                dist=zeros,
-                emitter_index=torch.full((n,), -1, dtype=torch.int32,
-                                         device=dev),
-                prim_index=torch.full((n,), -1, dtype=torch.int32,
-                                      device=dev))
+                dist=zeros, emitter_index=none, prim_index=none)
             return ds, z3
 
         e_total = max(self.n_emitters, 1)
-        area_prob = 0.0
+        area_prob = self.ef_cdf[-1] if n_area else 0.0
         delta_mass = n_delta / e_total
         is_delta_lane = torch.zeros(n, dtype=torch.bool, device=dev)
+        prim = none
         uv = sample2
+
+        if n_area:
+            (d, p, ng, pdf_sa, radiance, em_idx, dist, uv,
+             prim) = self._sample_area(si, sample1, sample2, e_total)
 
         if n_delta:
             pick_delta = (sample1 >= area_prob) & (
                 sample1 < area_prob + delta_mass)
             k = torch.clamp(((sample1 - area_prob) * e_total).to(torch.int32),
                             0, n_delta - 1)
-            d, p, ng, radiance, dist = self._eval_delta_emitter(si, k)
-            pdf_sa = torch.where(radiance.any_positive(), 1.0 / e_total, 0.0)
-            em_idx = torch.where(pick_delta, self.n_area_emitters + k, -1)
+            d_d, p_d, n_d, rad_d, dist_d = self._eval_delta_emitter(si, k)
+            pdf_d = torch.where(rad_d.any_positive(), 1.0 / e_total, 0.0)
+            em_d = self.n_area_emitters + k
+            if n_area:
+                d = Vec3.where(pick_delta, d_d, d)
+                p = Vec3.where(pick_delta, p_d, p)
+                ng = Vec3.where(pick_delta, n_d, ng)
+                pdf_sa = torch.where(pick_delta, pdf_d, pdf_sa)
+                radiance = Vec3.where(pick_delta, rad_d, radiance)
+                em_idx = torch.where(pick_delta, em_d, em_idx)
+                dist = torch.where(pick_delta, dist_d, dist)
+            else:
+                d, p, ng, pdf_sa, radiance, dist = (d_d, p_d, n_d, pdf_d,
+                                                    rad_d, dist_d)
+                em_idx = torch.where(pick_delta, em_d, -1)
             is_delta_lane = pick_delta
 
         if self.env_emitter >= 0:
             nonenv_mass = area_prob + delta_mass
-            s1_env = torch.clamp((sample1 - nonenv_mass)
-                                 / max(1.0 - nonenv_mass, 1e-8),
+            rest = 1.0 - nonenv_mass
+            rest = (torch.clamp(rest, min=1e-8)
+                    if isinstance(rest, torch.Tensor) else max(rest, 1e-8))
+            s1_env = torch.clamp((sample1 - nonenv_mass) / rest,
                                  0.0, 1.0 - 1e-7)
             d_env, pdf_env, rad_env = env_mod.sample_env_dir(self, s1_env,
                                                              sample2)
             pdf_env = pdf_env / e_total
             p_env = si.p + d_env * FAR
-            if n_delta:
+            if n_area or n_delta:
                 pick_env = sample1 >= nonenv_mass
                 d = Vec3.where(pick_env, d_env, d)
                 p = Vec3.where(pick_env, p_env, p)
@@ -262,21 +332,24 @@ class Scene:
                 em_idx = torch.full((n,), self.env_emitter, dtype=torch.int32,
                                     device=dev)
                 dist = torch.full((n,), FAR, dtype=torch.float32, device=dev)
+                uv = sample2
 
         ok = pdf_sa > 0.0
         inv_pdf = torch.where(ok, 1.0 / torch.clamp(pdf_sa, min=1e-20), 0.0)
         weight = radiance * inv_pdf
+        area_lane = (em_idx >= 0) & (em_idx < max(self.n_area_emitters,
+                                                  n_area and 1))
         ds = DirectionSample(
             p=p, n=ng, uv=uv, pdf=torch.where(ok, pdf_sa, 0.0),
             delta=is_delta_lane, d=d, dist=dist, emitter_index=em_idx,
-            prim_index=torch.full((n,), -1, dtype=torch.int32, device=dev))
+            prim_index=torch.where(area_lane, prim, -1))
         return ds, weight.mask(ok)
 
     def _eval_delta_emitter(self, si, k):
         """Direction toward delta emitter slot k — the directional branch
         (src/emitters/directional.cpp): the loader admits no other delta
         type. Returns (d, p, n, radiance, dist)."""
-        r = self.de_params[k.long()].T
+        r = take_rows(self.de_params, k).T
         axis = Vec3(r[6], r[7], r[8])
         d = -axis
         dist = torch.full_like(si.t, FAR)
@@ -311,8 +384,8 @@ class Scene:
         em_idx = attrs["emitter"]
         emissive = (em_idx >= 0) & si.is_valid()
         front = si.wi.z > 0.0
-        r = self.em_radiance[torch.clamp(em_idx, min=0).long()]
-        return Vec3(r[:, 0], r[:, 1], r[:, 2]).mask(emissive & front)
+        radiance = self.gather_em_radiance(torch.clamp(em_idx, min=0))
+        return radiance.mask(emissive & front)
 
     def eval_env(self, d: Vec3) -> Vec3:
         """Environment radiance for escaped rays."""
@@ -320,4 +393,4 @@ class Scene:
 
     def gather_bsdf_params(self, bsdf_idx):
         """[N] bsdf slots -> SoA param rows [N_PARAMS, N]."""
-        return self.bsdf_params[bsdf_idx.long()].T
+        return take_rows(self.bsdf_params, bsdf_idx).T

@@ -142,6 +142,7 @@ def test_naive_matches_jax(np_rng, monkeypatch, case):
     act = np.arange(1024) % 2 == 0 if case == "active" else None
     if case != "one_chunk":
         monkeypatch.setattr(t_is, "RAY_CHUNK", 300)
+        monkeypatch.setattr(t_is, "STEP_ELEMS", 0)   # steps of RAY_CHUNK
     jargs = (jvec(o), jvec(d), jnp.asarray(maxt), jvec(p0), jvec(e1),
              jvec(e2))
     targs = (tvec(o), tvec(d), torch.as_tensor(maxt), tvec(p0), tvec(e1),

@@ -5,7 +5,9 @@ bvh_serve_cull.cu``, ``csrc/bvh_serve_serve.cu``), K4
 ``csrc/bvh_queue_serve.cu``, ``csrc/bvh2_serve.cu``) against their plain
 PyTorch versions on the card, at test sizes, in each mode and topk; the
 queries of each accel (and the small terrain render of each loader accel)
-on the card against the CPU. Run on a machine with a CUDA device::
+on the card against the CPU; PRB on the card: the Cornell box's gradients
+against the CPU's, and K1 launched in the terrain replay as often as in
+the primal. Run on a machine with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -672,3 +674,56 @@ def test_attic_queries_on_card_match_cpu(cuda, np_rng, accel):
     assert torch.equal(vg, vc) and torch.equal(og, oc)
     assert (pg[vc] == pc[vc]).float().mean() > 0.999
     assert torch.allclose(tg[vc], tc[vc], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# PRB (ad/prb.py) on the card: the Cornell box (dense) and the small
+# terrain (cellserve, K1 in the primal and in the replay)
+# ---------------------------------------------------------------------------
+
+def _prb_grads(scene, names, spp, seed):
+    """d mean(render) / dθ through the prb integrator (gradients moved to
+    the CPU)."""
+    theta = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+             for k in names}
+    img = mt.render(scene.replace(**theta), spp=spp, seed=seed)
+    grads = torch.autograd.grad(img.mean(), [theta[k] for k in names])
+    return {k: g.cpu() for k, g in zip(names, grads)}
+
+
+def test_cornell_prb_grads_on_card_match_cpu(cuda):
+    """16^2 Cornell box, max_depth 3, 4 spp: the card's PRB gradients of
+    bsdf_params, em_radiance, env_data and vertices within 1e-3 of each
+    table's largest CPU gradient."""
+    d = chip_smoke._prb_dict(mt.cornell_box(16, 16, max_depth=3))
+    names = ("bsdf_params", "em_radiance", "env_data", "vertices")
+    g_card = _prb_grads(mt.load_dict(d, device=cuda), names, 4, 0)
+    g_cpu = _prb_grads(mt.load_dict(d, device="cpu"), names, 4, 0)
+    for k in names:
+        assert torch.isfinite(g_card[k]).all(), k
+        scale = float(g_cpu[k].abs().max())
+        assert torch.allclose(g_card[k], g_cpu[k], rtol=0,
+                              atol=1e-3 * scale + 1e-12), k
+    assert float(g_card["em_radiance"].abs().max()) > 0
+
+
+def test_terrain_prb_replay_launches_k1(cuda, monkeypatch):
+    """The small terrain under prb on the card: K1 launches, closest and
+    any-hit, in the primal; the backward replay launches it again, as
+    often; the gradients are finite and nonzero."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+    d = chip_smoke._prb_dict(chip_smoke.small_terrain_dict(
+        mt.ScalarTransform4f, width=16))
+    scene = mt.load_dict(d, device=cuda)
+    names = ("bsdf_params", "env_data", "de_params")
+    theta = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+             for k in names}
+    cs.LAUNCHES.update(closest=0, anyhit=0)
+    img = mt.render(scene.replace(**theta), spp=4, seed=5)
+    primal = dict(cs.LAUNCHES)
+    assert primal["closest"] > 0 and primal["anyhit"] > 0, primal
+    grads = torch.autograd.grad(img.mean(), [theta[k] for k in names])
+    replay = {k: cs.LAUNCHES[k] - primal[k] for k in primal}
+    assert replay == primal, (primal, replay)
+    for k, g in zip(names, grads):
+        assert torch.isfinite(g).all() and bool((g != 0).any()), k

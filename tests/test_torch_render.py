@@ -2,7 +2,8 @@
 accel) rendered by the JAX package and by the port on the CPU at the same
 seed agrees per pixel and in its ray count. Also the loader's device rule,
 its refusal of plugins the port does not carry, and chip_smoke's copy of
-the benchmark terrain."""
+the benchmark terrain. (The Cornell box, the dense path, is in
+``test_torch_cornell.py``.)"""
 import os
 import sys
 
@@ -106,9 +107,10 @@ UNPORTED = {
                 "'stratified'"),
     "texture": (_with(BASE, terrain=dict(BASE["terrain"], bsdf={
         "type": "diffuse", "reflectance": {"type": "bitmap"}})), "'bitmap'"),
-    "dense_intersector": (_with(BASE, terrain=dict(
-        BASE["terrain"], faces=BASE["terrain"]["faces"][:100])),
-        "dense intersector"),
+    "disk_shape": (_with(BASE, lid={"type": "disk"}), "'disk'"),
+    "area_emitter_type": (_with(BASE, panel={
+        "type": "rectangle", "emitter": {"type": "directionalarea"}}),
+        "'directionalarea'"),
 }
 
 
