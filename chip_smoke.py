@@ -40,7 +40,25 @@ Phases:
    any-hit must launch in the primal and, as often, in the replay; K1's
    device ms per step; the small terrain's step on the card against the
    CPU;
-8. kernels K5-K8 (the attic intersectors), each against its plain version
+8. interior120k, bench.py:192-252: K1 against its plain version on one
+   full-width round of the interior's primary rays; ``load_dict`` of the
+   120,000-triangle room lit by one point light (cellserve), a warm-up
+   and three timed 256^2, 4 spp renders (Mrays/s as bench.py counts it;
+   K1's launches, device ms and bound and the straggler rounds per query
+   from CUDA events around each launch), a profiled render, the image
+   mean held within 1 % of a ``MI3T_ACCEL=tiled`` render;
+9. the inverse-rendering loop of ``examples/02_inverse_rendering.py`` at
+   bench.py's Cornell width (512^2, max_depth 8, prb): a 64 spp target,
+   the albedo offset by +0.25, three Adam steps at 16 spp through
+   ``traverse`` and ``update()``; the albedo error and a fixed-seed loss
+   must fall;
+10. a vertex loop on terrain64k (prb, 4 spp, cellserve): heights lifted
+   by a bump, three Adam steps on LargeSteps coordinates, each ending in
+   ``update()``'s host rebuild of the accel, held array by array against
+   a fresh ``load_dict`` of the edited mesh; vertex gradients finite and
+   nonzero; K1 launched as often in each replay as in its primal; per
+   step the rebuild's seconds, CG iterations and K1's device ms;
+11. kernels K5-K8 (the attic intersectors), each against its plain version
    at full width on the terrain queries of ``benchmarks/bench_bvh.py``
    (65,522 triangles, 2^19 primary rays): K5 as bvh_pallas packs the rays
    (closest and any-hit), K6 as the first bvh_queue cull, K7 as its first
@@ -48,12 +66,13 @@ Phases:
    serve on the 2^19 bounce rays; K5 (unsorted and sorted) and K7 also
    on the bounce rays, each in its own row; closest hits bit-equal in t,
    prim, u and v;
-9. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
+12. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
    closest and any-hit on 2^19 primary and 2^19 bounce rays, timed after
    a warm-up, held to the dense oracle (``ops/intersect.py``) on the first
    32,768 rays with ``bench_bvh.verify``'s checks and to bvh_tiled at full
    width, and checked to launch every kernel of its module;
-10. JSON lines of render, query, PRB and per-kernel numbers.
+13. JSON lines of render, query, PRB, interior, loop and per-kernel
+   numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -175,6 +194,59 @@ def make_rays(n: int, seed: int, kind: str):
     return o.astype(np.float32), d.astype(np.float32)
 
 
+def make_interior(n_tris_target: int, seed: int = 0):
+    """A closed 20 x 20 x 6 room filled with randomly placed, rotated,
+    tessellated boxes and spheres until about `n_tris_target` triangles
+    -> (p0, e1, e2); the interior of benchmarks/bench_bvh.py."""
+    rng = np.random.default_rng(seed)
+    tris = []
+
+    def add_box(center, half, rot):
+        c = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                      [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]],
+                     np.float32) * half
+        c = c @ rot.T + center
+        faces = [(0, 1, 2), (0, 2, 3), (4, 6, 5), (4, 7, 6),
+                 (0, 4, 5), (0, 5, 1), (3, 2, 6), (3, 6, 7),
+                 (0, 3, 7), (0, 7, 4), (1, 5, 6), (1, 6, 2)]
+        for a, b, d in faces:
+            tris.append((c[a], c[b], c[d]))
+
+    def add_sphere(center, radius, res):
+        th = np.linspace(0, np.pi, res + 1)
+        ph = np.linspace(0, 2 * np.pi, 2 * res + 1)
+        P = np.stack([np.outer(np.sin(th), np.cos(ph)),
+                      np.outer(np.sin(th), np.sin(ph)),
+                      np.outer(np.cos(th), np.ones_like(ph))],
+                     -1) * radius + center
+        for i in range(res):
+            for j in range(2 * res):
+                a, b = P[i, j], P[i + 1, j]
+                c2, d = P[i + 1, j + 1], P[i, j + 1]
+                tris.append((a, b, c2))
+                tris.append((a, c2, d))
+
+    # room shell (12 tris) 20 x 20 x 6
+    add_box(np.array([0, 0, 3.0]), np.array([10, 10, 3.0]), np.eye(3))
+    # clutter until the budget is reached
+    while len(tris) < n_tris_target - 400:
+        kind = rng.random()
+        pos = np.array([rng.uniform(-9, 9), rng.uniform(-9, 9),
+                        rng.uniform(0.2, 2.5)])
+        if kind < 0.5:
+            ang = rng.uniform(0, np.pi)
+            ca, sa = np.cos(ang), np.sin(ang)
+            rot = np.array([[ca, -sa, 0], [sa, ca, 0], [0, 0, 1]],
+                           np.float32)
+            add_box(pos, rng.uniform(0.15, 0.9, 3), rot)
+        else:
+            add_sphere(pos, rng.uniform(0.2, 0.7),
+                       int(rng.integers(6, 14)))
+    t = np.asarray(tris, np.float32)
+    p0 = t[:, 0]
+    return p0, t[:, 1] - p0, t[:, 2] - p0
+
+
 def _lights():
     return {
         "sun": {"type": "directional",
@@ -205,6 +277,30 @@ def terrain64k_dict(transform):
         "terrain": {"type": "mesh", "vertices": v, "faces": f,
                     "bsdf": {"type": "diffuse"}},
         **_lights(),
+    }
+
+
+def interior_dict(transform, n_tris: int = 120000, width: int = 256):
+    """The interior120k scene of bench.py:192-252: make_interior(n_tris)
+    as a triangle soup, one point light at (0, 0, 5) of intensity 60, path
+    tracer at max_depth 4, width^2 at 4 spp."""
+    p0n, e1n, e2n = make_interior(n_tris)
+    v = np.concatenate([p0n, p0n + e1n, p0n + e2n], 0)
+    f = np.arange(len(p0n) * 3).reshape(3, -1).T
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 4},
+        "sensor": {"type": "perspective", "fov": 60.0,
+                   "to_world": transform().look_at(
+                       origin=[0, -8.5, 1.7], target=[0, 2, 1.5],
+                       up=[0, 0, 1]),
+                   "film": {"width": width, "height": width},
+                   "sampler": {"type": "independent",
+                               "sample_count": 4}},
+        "room": {"type": "mesh", "vertices": v, "faces": f,
+                 "bsdf": {"type": "diffuse"}},
+        "lamp": {"type": "point", "position": [0, 0, 5.0],
+                 "intensity": {"type": "rgb", "value": [60, 60, 60]}},
     }
 
 
@@ -327,13 +423,34 @@ def _primary_rays(scene):
     return ri._gen_camera_rays(scene, ri.pass_seed(0, 0), sppc, 0, 4)[1]
 
 
-def phase_kernels(mi, card: str):
-    """K1 against its plain version on one full-width round of the
-    terrain64k main path."""
+def _k1_tests(tris, r0, nr, n_pairs: int):
+    """Ray-triangle tests one K1 launch needs, as a device scalar: every
+    real pair of a sub-block tests every real triangle (id >= 0) of the
+    rows of its window; the padding pairs, all in the last sub-block, need
+    none."""
+    import torch
+    real = torch.cat([torch.zeros(1, dtype=torch.int64, device=nr.device),
+                      (tris[:, 9] >= 0).sum(dim=1).cumsum(0)])
+    win = real[(r0 + nr).long()] - real[r0.long()]
+    return K * win.sum() - (r0.shape[0] * K - n_pairs) * win[-1]
+
+
+def _k1_bytes(tris, n_pad: int, n_sub: int, want_uv: bool):
+    """Bytes one K1 launch must move: the slab table, the pairs' rays in,
+    t (and prim, u, v) out, and the windows."""
+    return tris.numel() * 4 + n_pad * (24 + (16 if want_uv else 4)) \
+        + n_sub * 8
+
+
+def phase_kernels(mi, card: str, make_dict=None, tag: str = ""):
+    """K1 against its plain version on one full-width round (the primary
+    rays of one pass) of a main path through cellserve: terrain64k by
+    default, or the scene `make_dict` makes (its rows' names end in
+    `tag`)."""
     import torch
     from mitsuba3_tpu_torch.ops import cellserve as cs
 
-    scene = mi.load_dict(terrain64k_dict(mi.ScalarTransform4f))
+    scene = mi.load_dict((make_dict or terrain64k_dict)(mi.ScalarTransform4f))
     acc = scene.accel
     ray = _primary_rays(scene)
     n = ray.o.x.shape[0]
@@ -342,18 +459,12 @@ def phase_kernels(mi, card: str):
     active = t_in <= t_out
     slots, _, _ = cs._pairgen(acc, og, dg, inv, t_in, t_out, active,
                               torch.zeros_like(t_in))
-    _, rays, r0, nr = cs.sort_pairs(acc, slots, ray.o, ray.d)
-    n_pairs = int((slots < acc.res ** 3).sum())
+    pair, rays, r0, nr = cs.sort_pairs(acc, slots, ray.o, ray.d)
+    n_pairs = pair.shape[0]
     n_sub = r0.shape[0]
     sum_nr = int(nr.sum())
-    # every real pair of a sub-block tests every real triangle (id >= 0) of
-    # the rows of its window; the padding pairs, all in the last sub-block,
-    # need none
-    real = torch.cat([torch.zeros(1, dtype=torch.int64, device=nr.device),
-                      (acc.tris[:, 9] >= 0).sum(dim=1).cumsum(0)])
-    win = real[(r0 + nr).long()] - real[r0.long()]
-    tests = K * int(win.sum()) - (n_sub * K - n_pairs) * int(win[-1])
-    print(f"# kernels: {n} lanes, {n_pairs} pairs, {n_sub} sub-blocks, "
+    tests = int(_k1_tests(acc.tris, r0, nr, n_pairs))
+    print(f"# kernels{tag}: {n} lanes, {n_pairs} pairs, {n_sub} sub-blocks, "
           f"sum(nr) = {sum_nr} rows, slab table {acc.tris.shape[0]} rows "
           f"({acc.tris.numel() * 4 / 1e6:.1f} MB), res {acc.res}")
 
@@ -361,30 +472,96 @@ def phase_kernels(mi, card: str):
     for want_uv, mode in ((True, "closest"), (False, "anyhit")):
         kout = cs.serve_blocks(acc.tris, rays, r0, nr, want_uv)
         pout = cs.serve_blocks_plain(acc.tris, rays, r0, nr, want_uv)
-        torch.cuda.synchronize()
+        # the comparison call above is the plain version's warm-up
+        p_ms = _cuda_ms(lambda: cs.serve_blocks_plain(acc.tris, rays, r0,
+                                                      nr, want_uv), 2,
+                        warm=False)
         (kt, kp, _, _), (pt, pp, _, _) = kout, pout
         big_k, big_p = kt >= cs.BIG, pt >= cs.BIG
         _check(bool((big_k == big_p).all()),
-               f"K1 {mode}: BIG (no hit) differs on "
+               f"K1 {mode}{tag}: BIG (no hit) differs on "
                f"{int((big_k != big_p).sum())} pairs")
-        err, _ = _hold_t(f"K1 {mode}", kt, pt, ~big_p,
+        err, _ = _hold_t(f"K1 {mode}{tag}", kt, pt, ~big_p,
                          *((kp, pp) if want_uv else ()))
-        _hold_equal(f"K1 {mode}", kout, pout,
+        _hold_equal(f"K1 {mode}{tag}", kout, pout,
                     ("t", "prim", "u", "v") if want_uv else ("t",))
         k_ms = _cuda_ms(lambda: cs.serve_blocks(acc.tris, rays, r0, nr,
                                                 want_uv), 20)
-        p_ms = _cuda_ms(lambda: cs.serve_blocks_plain(acc.tris, rays, r0,
-                                                      nr, want_uv), 2)
-        out_b = 16 if want_uv else 4
         rows.append(_row(
-            f"cellserve_serve.{mode}", "K1", "cellserve_serve.cu",
+            f"cellserve_serve.{mode}{tag}", "K1", "cellserve_serve.cu",
             "mitsuba3_tpu/ops/cellserve.py:348", mode, err, k_ms, p_ms,
             tests * OPS_PER_TEST,
-            acc.tris.numel() * 4 + rays.shape[1] * (24 + out_b) + n_sub * 8,
-            card, accel="cells", sum_nr=sum_nr, pairs=n_pairs, tests=tests))
+            _k1_bytes(acc.tris, rays.shape[1], n_sub, want_uv), card,
+            accel="cells" + tag, sum_nr=sum_nr, pairs=n_pairs, tests=tests))
     del scene
     torch.cuda.empty_cache()
     return rows
+
+
+class _K1Meter:
+    """Inside ``with``, every K1 launch of the cellserve queries is timed
+    by CUDA events around ``serve_blocks`` and its ray-triangle tests are
+    counted (``_k1_tests``, on the device; read after the run), and each
+    query (``_trace``) records how many rounds, K1 launches, it took.
+    ``summary()`` gives per mode the launches, device ms and bound ms,
+    and the queries' rounds."""
+
+    def __enter__(self):
+        import torch
+        from mitsuba3_tpu_torch.ops import cellserve as cs
+        self.cs, self.launches, self.queries = cs, [], []
+        self.saved = (cs.sort_pairs, cs.serve_blocks, cs._trace)
+        real_sort, real_serve, real_trace = self.saved
+        last = {}
+
+        def sort_pairs(acc, slots, o, d):
+            out = real_sort(acc, slots, o, d)
+            last["pairs"] = out[0].shape[0]
+            return out
+
+        def serve_blocks(tris, rays, r0, nr, want_uv):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real_serve(tris, rays, r0, nr, want_uv)
+            ev[1].record()
+            self.launches.append((
+                "closest" if want_uv else "anyhit", ev,
+                _k1_tests(tris, r0, nr, last["pairs"]),
+                _k1_bytes(tris, rays.shape[1], r0.shape[0], want_uv)))
+            return out
+
+        def trace(acc, o, d, maxt, active, closest):
+            before = len(self.launches)
+            out = real_trace(acc, o, d, maxt, active, closest)
+            self.queries.append(("closest" if closest else "anyhit",
+                                 len(self.launches) - before))
+            return out
+
+        cs.sort_pairs, cs.serve_blocks, cs._trace = (sort_pairs,
+                                                     serve_blocks, trace)
+        return self
+
+    def __exit__(self, *exc):
+        self.cs.sort_pairs, self.cs.serve_blocks, self.cs._trace = self.saved
+
+    def summary(self):
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for mode in ("closest", "anyhit"):
+            runs = [r for r in self.launches if r[0] == mode]
+            rounds = [k for m, k in self.queries if m == mode]
+            tests = sum(int(r[2]) for r in runs)
+            out[mode] = {
+                "launches": len(runs),
+                "device_ms": sum(r[1][0].elapsed_time(r[1][1])
+                                 for r in runs),
+                "bound_ms": sum(_bound(int(r[2]) * OPS_PER_TEST, r[3])[0]
+                                for r in runs),
+                "tests": tests, "queries": len(rounds),
+                "rounds_per_query": len(runs) / max(len(rounds), 1),
+                "max_rounds": max(rounds, default=0)}
+        return out
 
 
 @contextlib.contextmanager
@@ -1241,12 +1418,14 @@ def phase_terrain_prb(mi, card: str):
     torch.cuda.reset_peak_memory_stats()
     for k in counters:
         counters[k] = 0
-    t0 = time.perf_counter()
-    loss, rays, grads, n_passes = _grad_step(scene, names, 1,
-                                             TERRAIN_PRB_SPP,
-                                             between=between)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _K1Meter() as meter:
+        t0 = time.perf_counter()
+        loss, rays, grads, n_passes = _grad_step(scene, names, 1,
+                                                 TERRAIN_PRB_SPP,
+                                                 between=between)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k1 = meter.summary()
     peak = torch.cuda.max_memory_allocated()
     for stage in ("fwd", "bwd"):
         _check(all(per_stage[stage][k] >= n_passes for k in counters),
@@ -1261,12 +1440,17 @@ def phase_terrain_prb(mi, card: str):
            "forward_rays": rays, "bwd_ratio": bwd_ratio, "wall_s": wall,
            "passes": n_passes, "mrays_per_s": mrays, "peak_bytes": peak,
            "loss": loss, "k1_launches": {"primal": per_stage["fwd"],
-                                         "replay": per_stage["bwd"]}}
+                                         "replay": per_stage["bwd"]},
+           "k1": k1}
     print(f"# terrain64k fwd+PRB bwd 512x512 4spp: {rays} forward rays, "
           f"bwd_ratio {bwd_ratio:.6f}, step {wall:.3f} s in {n_passes} "
           f"passes = {mrays:.3f} Mrays/s, peak memory {peak / 2**30:.2f} "
           f"GiB; K1 launches primal {per_stage['fwd']}, replay "
-          f"{per_stage['bwd']} [{card}]")
+          f"{per_stage['bwd']}; K1 per step (CUDA events) closest "
+          f"{k1['closest']['device_ms']:.2f} ms, bound "
+          f"{k1['closest']['bound_ms']:.2f} ms, any-hit "
+          f"{k1['anyhit']['device_ms']:.2f} ms, bound "
+          f"{k1['anyhit']['bound_ms']:.2f} ms [{card}]")
     prof = _profile(lambda: _grad_step(scene, names, 2, TERRAIN_PRB_SPP,
                                        passes=1), wall / n_passes, labels)
     for label in labels:
@@ -1292,6 +1476,260 @@ def phase_terrain_prb(mi, card: str):
         _check(err <= tol, f"terrain prb: {k} gradients disagree")
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# interior120k (bench.py's third scene) and the inverse-rendering loops
+# ---------------------------------------------------------------------------
+
+INTERIOR_TRIS = 120000
+LOOP_STEPS = 3
+CORNELL_TARGET_SPP = 64
+CORNELL_LOOP_SPP = 16
+TERRAIN_LOOP_LR = 0.02
+
+
+def phase_interior(mi, card: str):
+    """bench.py:192-252 on the card: load_dict of the interior120k scene
+    (cellserve), one warm-up render and three timed ones (seeds 1-3) at
+    256^2, 4 spp, Mrays/s as bench.py counts it, K1's launches, device ms
+    and bound and the straggler rounds per query over the timed renders,
+    one profiled render; the image held against a MI3T_ACCEL=tiled render
+    of the same seed (both accels are exact)."""
+    import torch
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    d = interior_dict(mi.ScalarTransform4f, INTERIOR_TRIS)
+    t0 = time.perf_counter()
+    scene = mi.load_dict(d)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _check(isinstance(scene.accel, cellserve.CellServe)
+           and scene.delta_emitter_types == (0,),
+           "interior120k does not load as cellserve with one point light")
+    n_faces = int((scene.face_shape >= 0).sum())
+    mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    rays = 0
+    with _K1Meter() as meter:
+        t0 = time.perf_counter()
+        for seed in (1, 2, 3):
+            img, r = mi.render_with_stats(scene, seed=seed, spp=4,
+                                          max_wavefront=1 << 20)
+            rays += r
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(cellserve.LAUNCHES)
+    k1 = meter.summary()
+    peak = torch.cuda.max_memory_allocated()
+    _check(all(v > 0 for v in launches.values()),
+           f"interior: the renders did not launch K1 in both modes: "
+           f"{launches}")
+    _check(all(k1[m]["launches"] == launches[m] for m in launches),
+           f"interior: K1 meter {k1} disagrees with the counts {launches}")
+    w = d["sensor"]["film"]["width"]
+    _check(tuple(img.shape) == (w, w, 3)
+           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           "interior: image misshaped, not finite or black")
+    with _accel("tiled"):
+        ref = mi.render(mi.load_dict(d), seed=3, spp=4,
+                        max_wavefront=1 << 20)
+    rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
+    _check(rel <= 0.01, f"interior: image mean {float(img.mean())} not "
+           f"within 1 % of the bvh_tiled render's {float(ref.mean())}")
+    mrays = rays / wall / 1e6
+    out = {"scene": "interior120k 256x256 4spp max_depth 4, point light, "
+                    "cellserve", "faces": n_faces, "rays": rays,
+           "wall_s": wall, "renders": 3, "mrays_per_s": mrays,
+           "scene_build_s": build_s, "peak_bytes": peak,
+           "mean": float(img.mean()), "mean_rel_to_tiled": rel,
+           "k1": k1, "k1_launches": launches}
+    print(f"# render interior120k ({n_faces} faces) 256x256 4spp, 3 renders:"
+          f" {rays} rays in {wall:.3f} s = {mrays:.3f} Mrays/s, scene build "
+          f"{build_s:.2f} s, peak memory {peak / 2**30:.2f} GiB, mean "
+          f"{float(img.mean()):.6f} (tiled {float(ref.mean()):.6f}, rel "
+          f"{rel:.2e}) [{card}]")
+    for mode, v in k1.items():
+        print(f"# interior K1 {mode}: {v['launches']} launches for "
+              f"{v['queries']} queries ({v['rounds_per_query']:.2f} rounds "
+              f"per query, at most {v['max_rounds']}), {v['device_ms']:.2f} "
+              f"device ms, bound {v['bound_ms']:.2f} ms [{card}]")
+    _, labels = _accel_kernels("cells")
+    out.update(_profile(lambda: mi.render_with_stats(
+        scene, seed=4, spp=4, max_wavefront=1 << 20), wall / 3, labels))
+    del scene
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_cornell_loop(mi, card: str):
+    """examples/02_inverse_rendering.py at bench.py's Cornell width: a
+    64 spp target of cornell_box(512, 512, max_depth=8) under prb, the
+    albedo (bsdf_params[:, 0:3]) offset by +0.25 and clipped to
+    [0.05, 0.95], three Adam steps (lr 0.05) at 16 spp through traverse
+    and update(). The albedo error and the loss at a fixed seed must
+    fall."""
+    import torch
+
+    scene = mi.load_dict(_prb_dict(mi.cornell_box(512, 512, max_depth=8)))
+    t0 = time.perf_counter()
+    target = mi.render(scene, seed=7, spp=CORNELL_TARGET_SPP)
+    torch.cuda.synchronize()
+    target_s = time.perf_counter() - t0
+    params = mi.traverse(scene)
+    rows = params["bsdf_params"]
+    true_albedo = rows[:, 0:3].clone()
+    x0 = torch.clamp(true_albedo + 0.25, 0.05, 0.95)
+
+    def loss_of(albedo, seed):
+        params["bsdf_params"] = torch.cat([albedo, rows[:, 3:]], dim=1)
+        img = mi.render(params.update(), seed=seed, spp=CORNELL_LOOP_SPP)
+        return torch.mean((img - target) ** 2)
+
+    with torch.no_grad():
+        loss0 = float(loss_of(x0, 999))
+    opt = mi.ad.Adam(lr=0.05, params={"albedo": x0})
+    steps = []
+    for it in range(LOOP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = opt["albedo"].clone().requires_grad_(True)
+        loss = loss_of(x, it)
+        (g,) = torch.autograd.grad(loss, [x])
+        opt.step({"albedo": g})
+        torch.cuda.synchronize()
+        steps.append({"step_s": time.perf_counter() - t0,
+                      "loss": float(loss.detach())})
+        _check(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+               f"cornell loop: step {it} albedo gradient not finite or zero")
+    with torch.no_grad():
+        loss1 = float(loss_of(opt["albedo"], 999))
+    err0 = float((x0 - true_albedo).abs().mean())
+    err1 = float((opt["albedo"] - true_albedo).abs().mean())
+    print(f"# cornell loop 512x512 prb: {CORNELL_TARGET_SPP} spp target "
+          f"{target_s:.3f} s; 3 Adam steps at {CORNELL_LOOP_SPP} "
+          f"spp: seconds per step "
+          f"{', '.join(f'{st['step_s']:.3f}' for st in steps)}; albedo "
+          f"error {err0:.4f} -> {err1:.4f}; loss at seed 999 {loss0:.6g} ->"
+          f" {loss1:.6g} [{card}]")
+    _check(err1 < err0, f"cornell loop: albedo error {err0} -> {err1}")
+    _check(loss1 < loss0, f"cornell loop: loss {loss0} -> {loss1}")
+    del scene, params
+    torch.cuda.empty_cache()
+    return {"scene": "cornell 512x512 max_depth 8, prb, Adam lr 0.05",
+            "target_spp": CORNELL_TARGET_SPP, "target_s": target_s,
+            "spp": CORNELL_LOOP_SPP,
+            "steps": steps, "albedo_err": [err0, err1],
+            "loss_seed999": [loss0, loss1]}
+
+
+def _bump(v):
+    """Heights lifted by a smooth bump of 0.5 at the terrain's centre."""
+    v = v.copy()
+    v[:, 2] += (0.5 * np.exp(-(v[:, 0] ** 2 + v[:, 1] ** 2) / 8.0)).astype(
+        np.float32)
+    return v
+
+
+def phase_terrain_loop(mi, card: str):
+    """A vertex-optimisation loop on bench.py's terrain64k (prb, 512^2,
+    4 spp, 2 passes of 524,288 lanes, cellserve): the target rendered
+    from the mesh as built, the heights lifted by a smooth bump, then
+    three Adam steps on LargeSteps differential coordinates (lambda 19,
+    uniform), each ending in params["vertices"] = ls.from_differential(u)
+    and update(), which rebuilds the accel on the host. Each rebuild must
+    equal a fresh load_dict of the edited mesh array by array, the
+    vertices' gradients be finite and nonzero, and K1 launch as often in
+    each replay as in its primal."""
+    import torch
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    d = _prb_dict(terrain64k_dict(mi.ScalarTransform4f))
+    scene = mi.load_dict(d)
+    target = mi.render(scene, seed=9, spp=TERRAIN_PRB_SPP)
+    faces = d["terrain"]["faces"]
+    params = mi.traverse(scene)
+    lifted = torch.as_tensor(_bump(scene.vertices.cpu().numpy()),
+                             device=scene.device)
+    ls = mi.ad.LargeSteps(lifted, faces, lambda_=19.0, method="uniform")
+    opt = mi.ad.Adam(lr=TERRAIN_LOOP_LR,
+                     params={"u": ls.to_differential(lifted)})
+
+    def set_vertices():
+        """params["vertices"] = ls.from_differential(u), then update();
+        returns (scene, the leaf u, CG iterations, rebuild s)."""
+        u = opt["u"].clone().requires_grad_(True)
+        params["vertices"] = ls.from_differential(u)
+        iters = ls.cg_iterations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = params.update()
+        torch.cuda.synchronize()
+        return new, u, iters, time.perf_counter() - t0
+
+    def hold_rebuild(new, tag):
+        fresh_d = dict(d, terrain=dict(
+            d["terrain"], vertices=new.vertices.detach().cpu().numpy()))
+        fresh = mi.load_dict(fresh_d).accel
+        for name in ("tris", "start", "occ", "lo", "inv_cell"):
+            _check(torch.equal(getattr(new.accel, name),
+                               getattr(fresh, name)),
+                   f"terrain loop {tag}: rebuilt accel's {name} differs "
+                   f"from a fresh load_dict's")
+        for name in ("res", "n_tris", "pair_slots", "max_steps"):
+            _check(getattr(new.accel, name) == getattr(fresh, name),
+                   f"terrain loop {tag}: rebuilt accel's {name} differs")
+
+    scene, u, iters, rebuild_s = set_vertices()
+    hold_rebuild(scene, "start")
+    steps = []
+    for it in range(LOOP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _K1Meter() as meter:
+            for k in cellserve.LAUNCHES:
+                cellserve.LAUNCHES[k] = 0
+            img = mi.render(scene, seed=it, spp=TERRAIN_PRB_SPP)
+            primal = dict(cellserve.LAUNCHES)
+            loss = torch.mean((img - target) ** 2)
+            g_u, g_v = torch.autograd.grad(loss, [u, scene.vertices])
+            replay = {k: cellserve.LAUNCHES[k] - primal[k] for k in primal}
+        cg_bwd = ls.cg_iterations
+        opt.step({"u": g_u})
+        scene, u, cg_fwd, rebuild_s = set_vertices()
+        step_s = time.perf_counter() - t0
+        k1 = meter.summary()
+        _check(all(v > 0 for v in primal.values()) and replay == primal,
+               f"terrain loop step {it}: K1 launches primal {primal}, "
+               f"replay {replay}")
+        _check(bool(torch.isfinite(g_v).all()) and bool((g_v != 0).any()),
+               f"terrain loop step {it}: vertex gradient not finite or zero")
+        hold_rebuild(scene, f"step {it}")
+        steps.append({"step_s": step_s, "rebuild_s": rebuild_s,
+                      "cg_iterations": {"forward": cg_fwd,
+                                        "backward": cg_bwd},
+                      "loss": float(loss.detach()),
+                      "k1_launches": {"primal": primal, "replay": replay},
+                      "k1": k1, "grad_vertices_max": float(
+                          g_v.abs().max())})
+        print(f"# terrain loop step {it}: {step_s:.3f} s (rebuild "
+              f"{rebuild_s:.3f} s on the host), CG iterations forward "
+              f"{cg_fwd} / backward {cg_bwd}, loss {steps[-1]['loss']:.6g}, "
+              f"|dL/dv| max {float(g_v.abs().max()):.4g}; K1 primal "
+              f"{primal}, replay {replay}, device ms closest "
+              f"{k1['closest']['device_ms']:.2f} (bound "
+              f"{k1['closest']['bound_ms']:.2f}), any-hit "
+              f"{k1['anyhit']['device_ms']:.2f} (bound "
+              f"{k1['anyhit']['bound_ms']:.2f}) [{card}]")
+    del scene, params
+    torch.cuda.empty_cache()
+    return {"scene": "terrain64k 512x512 4spp max_depth 4, prb, cellserve, "
+                     f"Adam lr {TERRAIN_LOOP_LR} on LargeSteps (lambda 19, "
+                     "uniform)",
+            "vertices": int(ls.n), "steps": steps}
 
 
 def main():
@@ -1354,6 +1792,13 @@ def main():
         timed(f"agreement {accel}", phase_agreement, mi, accel)
     prb_runs = [timed("cornell fwd+PRB bwd", phase_cornell_prb, mi, card),
                 timed("terrain64k PRB step", phase_terrain_prb, mi, card)]
+    rows += timed("kernels K1 interior120k", phase_kernels, mi, card,
+                  interior_dict, ".interior120k")
+    launches["cells.interior120k"], interior = timed(
+        "render interior120k", phase_interior, mi, card)
+    loops = [timed("cornell inverse-rendering loop", phase_cornell_loop, mi,
+                   card),
+             timed("terrain64k vertex loop", phase_terrain_loop, mi, card)]
     rows += timed("kernels K5-K8", phase_kernels_attic, card)
     attic_launches, queries = timed("attic queries", phase_attic_queries,
                                     card)
@@ -1372,6 +1817,8 @@ def main():
     print(json.dumps({"renders": renders, "card": card}))
     print(json.dumps({"attic_queries": queries, "card": card}))
     print(json.dumps({"prb": prb_runs, "card": card}))
+    print(json.dumps({"interior": interior, "card": card}))
+    print(json.dumps({"loops": loops, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

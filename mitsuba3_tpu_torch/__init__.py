@@ -12,23 +12,39 @@ public API follows the JAX package::
 ``load_dict(d, device="cpu")`` puts a scene on the CPU, where every kernel
 runs as its plain PyTorch version. The port carries the plugins of
 triangle scenes (meshes, rectangles, cubes) with diffuse BSDFs, area
-lights, a directional sun and a constant environment, such as
-``cornell_box()``, rendered by the ``path`` integrator or differentiated
-by ``prb`` (path replay backpropagation: gradients of the scene's tables
-through ``torch.autograd``); small scenes use the dense intersector,
-large ones the accel that ``MI3T_ACCEL`` names (cellserve, bvh_serve or
-bvh_tiled); see ``loader.py``.
+lights, point, spot and directional lights and a constant environment,
+such as ``cornell_box()``, rendered by the ``path`` integrator or
+differentiated by ``prb`` (path replay backpropagation: gradients of the
+scene's tables through ``torch.autograd``); small scenes use the dense
+intersector, large ones the accel that ``MI3T_ACCEL`` names (cellserve,
+bvh_serve or bvh_tiled); see ``loader.py``.
+
+The inverse-rendering loop is ported too: ``traverse(scene)`` gives the
+scene's parameters under the JAX package's keys, and its ``update()``
+rebuilds what an edit invalidates (the accel after a vertex edit);
+``ad.Adam``, ``ad.SGD`` and ``ad.RMSProp`` step them with optax's rules,
+and ``ad.LargeSteps`` reparametrises vertices::
+
+    params = mi.traverse(scene)
+    opt = mi.ad.Adam(lr=0.05, params={"bsdf_params": params["bsdf_params"]})
+    ...                                   # render, loss, backward
+    opt.step(grads)
+    params["bsdf_params"] = opt["bsdf_params"]
+    scene = params.update()
 """
 
 __version__ = "0.1.0"
 
+from . import ad
 from .core.transform import Transform4f
 from .loader import load_dict
 from .models import cornell_box
 from .render.integrator import render, render_with_stats
 from .render.scene import Scene
+from .utils.params import SceneParameters, traverse
 
 ScalarTransform4f = Transform4f
 
-__all__ = ["Scene", "ScalarTransform4f", "Transform4f", "cornell_box",
-           "load_dict", "render", "render_with_stats"]
+__all__ = ["Scene", "SceneParameters", "ScalarTransform4f", "Transform4f",
+           "ad", "cornell_box", "load_dict", "render", "render_with_stats",
+           "traverse"]

@@ -64,10 +64,8 @@ def substitute_theta(scene, theta):
 
 @struct
 class _RefPoint:
-    """Reference point of a delta-emitter evaluation (``p``; ``t`` only
-    shapes the lanes)."""
+    """Reference point of a delta-emitter evaluation."""
     p: Vec3
-    t: torch.Tensor
 
 
 def _attached_em_weight(scene_t, ds) -> Vec3:
@@ -88,8 +86,7 @@ def _attached_em_weight(scene_t, ds) -> Vec3:
                     & (ds.emitter_index < n_area + n_delta))
         k = torch.clamp(ds.emitter_index - n_area, 0, n_delta - 1)
         ref_p = ds.p - ds.d * ds.dist
-        rad_d = scene_t._eval_delta_emitter(_RefPoint(p=ref_p, t=ds.dist),
-                                            k)[3]
+        rad_d = scene_t._eval_delta_emitter(_RefPoint(p=ref_p), k)[3]
         radiance = Vec3.where(is_delta, rad_d, radiance)
     return radiance * inv_pdf.detach()
 

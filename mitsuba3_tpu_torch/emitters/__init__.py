@@ -2,7 +2,8 @@
 
 The environment emitter is the scene-level constant map
 (``emitters/envmap.py``); delta emitters are rows of ``scene.de_params``.
-The port carries the directional emitter only.
+The port carries point, spot and directional emitters; the projector
+is not ported.
 """
 
 # delta emitter type ids (static `delta_emitter_types` entries)

@@ -5,7 +5,8 @@ for the plugins the port carries:
   ``cube``, each with a ``diffuse`` BSDF of constant reflectance (inline,
   named at the top level, or a ``ref`` to a named one) and optionally an
   ``area`` emitter of constant radiance;
-- a ``directional`` emitter and a ``constant`` environment;
+- ``point``, ``spot`` and ``directional`` emitters and a ``constant``
+  environment;
 - a ``perspective`` sensor with an ``hdrfilm`` (default Gaussian rfilter)
   and the ``independent`` sampler;
 - the ``path`` and ``prb`` integrators;
@@ -49,6 +50,12 @@ _FILM_KEYS = ("type", "width", "height", "rfilter", "pixel_format")
 _SAMPLER_KEYS = ("type", "sample_count")
 _SENSOR_KEYS = ("type", "to_world", "fov", "fov_axis", "near_clip",
                 "far_clip", "film", "sampler")
+DELTA_KEYS = {
+    "point": ("type", "position", "intensity", "to_world"),
+    "spot": ("type", "position", "direction", "intensity", "to_world",
+             "cutoff_angle", "beam_width"),
+    "directional": ("type", "direction", "irradiance", "to_world"),
+}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -120,19 +127,47 @@ def _film_config(film_spec: dict) -> FilmConfig:
                       height=int(film_spec.get("height", 256)))
 
 
-def _directional_row(espec: dict) -> np.ndarray:
-    _check_keys(espec, ("type", "direction", "irradiance", "to_world"),
-                "directional emitter")
+def _delta_row(espec: dict):
+    """Lower a point, spot or directional emitter -> (type id, de_params
+    row), as the JAX loader does. A ``to_world`` places a point or spot
+    light at its image of the origin (``position`` is then ignored) and
+    gives a spot or directional emitter its +z axis."""
+    etype = espec["type"]
+    _check_keys(espec, DELTA_KEYS[etype], f"{etype} emitter")
     row = np.zeros(em_pkg.DE_ROW, np.float32)
     tw = espec.get("to_world")
+    tw = as_transform(tw) if tw is not None else None
+    if etype == "point":
+        pos = np.asarray(espec.get("position", (0, 0, 0)), np.float32)
+        if tw is not None:
+            pos = np.asarray(tw.transform_point(np.zeros(3, np.float32)),
+                             np.float32)
+        row[0:3] = pos
+        row[3:6] = _rgb(espec.get("intensity"), (1, 1, 1))
+        return em_pkg.POINT, row
     if tw is not None:
-        axis = np.asarray(as_transform(tw).transform_vector(
+        if etype == "spot":
+            row[0:3] = np.asarray(tw.transform_point(
+                np.zeros(3, np.float32)), np.float32)
+        axis = np.asarray(tw.transform_vector(
             np.array([0, 0, 1], np.float32)), np.float32)
     else:
+        if etype == "spot":
+            row[0:3] = np.asarray(espec.get("position", (0, 0, 0)),
+                                  np.float32)
         axis = np.asarray(espec.get("direction", (0, 0, 1)), np.float32)
     row[6:9] = axis / max(np.linalg.norm(axis), 1e-12)
-    row[3:6] = _rgb(espec.get("irradiance"), (1, 1, 1))
-    return row
+    if etype == "directional":
+        row[3:6] = _rgb(espec.get("irradiance"), (1, 1, 1))
+        return em_pkg.DIRECTIONAL, row
+    row[3:6] = _rgb(espec.get("intensity"), (1, 1, 1))
+    cutoff_deg = float(espec.get("cutoff_angle", 20.0))
+    cutoff = cutoff_deg * np.pi / 180.0
+    beam = float(espec.get("beam_width", cutoff_deg * 0.75)) * np.pi / 180.0
+    row[9] = np.cos(cutoff)
+    row[10] = cutoff
+    row[11] = 1.0 / max(cutoff - beam, 1e-6)
+    return em_pkg.SPOT, row
 
 
 def _accel_builder():
@@ -221,7 +256,7 @@ def load_dict(d: dict, device=None) -> Scene:
             _check_keys(val, ("type", "radiance", "scale"),
                         "constant emitter")
             env_spec = val
-        elif vtype == "directional":
+        elif vtype in DELTA_KEYS:
             delta_specs.append(val)
         else:
             raise _not_ported(f"plugin type {vtype!r} (scene key {key!r})")
@@ -268,7 +303,9 @@ def load_dict(d: dict, device=None) -> Scene:
 
     # emitter slots: [area emitters][delta emitters][environment]
     n_area = len(em_radiance)
-    de_rows = [_directional_row(e) for e in delta_specs]
+    lowered = [_delta_row(e) for e in delta_specs]
+    de_types = tuple(tid for tid, _ in lowered)
+    de_rows = [row for _, row in lowered]
     n_delta = len(de_rows)
     has_env = env_spec is not None
     env_index = n_area + n_delta if has_env else -1
@@ -335,7 +372,7 @@ def load_dict(d: dict, device=None) -> Scene:
         n_emitters=n_emitters,
         n_area_emitters=n_area,
         env_emitter=env_index,
-        delta_emitter_types=(em_pkg.DIRECTIONAL,) * n_delta,
+        delta_emitter_types=de_types,
         bsdf_types=tuple(bsdf_types),
         bsdf_flags=_slot_flags(bsdf_types, bsdf_params),
         film=film_cfg,

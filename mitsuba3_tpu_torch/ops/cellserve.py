@@ -21,6 +21,7 @@ unresolved rays (JAX runs fixed widths because XLA compiles per shape).
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -32,7 +33,6 @@ from . import native
 BIG = 3.4e38       # "no hit" distance
 K = 128            # triangles per CSR row slab = pairs per serve sub-block
 MINT = 1e-6
-PAD_MIN = 64       # cells with at least this many triangles start K-aligned
 PLAIN_CHUNK = 512  # sub-blocks per step of serve_blocks_plain ([512,128,128])
 
 # Kernel launches of `serve_blocks` by mode. Only the wrapper adds to these,
@@ -105,17 +105,19 @@ def build(p0, e1, e2, res: int | None = None, pair_slots: int = 8, *,
     cell_sorted = cell_ids[order]
     tri_sorted = tri_ids[order]
 
-    # cell-aligned CSR: cells with >= PAD_MIN triangles get a K-aligned
-    # start and a K-multiple length, so a sub-block whose pairs sit inside
-    # one popular cell reads exactly that cell's rows. Small cells stay
-    # packed. Gaps hold degenerate id=-1 slots (never hit).
+    # cell-aligned CSR: cells with at least MI3T_CELLS_PAD_MIN triangles
+    # (default 64, read at each build as the JAX package reads it) get a
+    # K-aligned start and a K-multiple length, so a sub-block whose pairs
+    # sit inside one popular cell reads exactly that cell's rows. Small
+    # cells stay packed. Gaps hold degenerate id=-1 slots (never hit).
+    pad_min = int(os.environ.get("MI3T_CELLS_PAD_MIN", "64"))
     counts_c = np.bincount(cell_sorted, minlength=C).astype(np.int64)
     start64 = np.zeros(C + 2, np.int64)
     off = 0
     for c in np.nonzero(counts_c)[0]:
         start64[c] = off
         n_c = int(counts_c[c])
-        if n_c >= PAD_MIN:
+        if n_c >= pad_min:
             off = -(-off // K) * K
             start64[c] = off
             off += -(-n_c // K) * K

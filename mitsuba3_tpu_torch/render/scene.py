@@ -1,6 +1,7 @@
 """Scene: flat SoA tables + dispatch hub — counterpart of
 ``mitsuba3_tpu/render/scene.py`` (the parts a triangle scene with diffuse
-BSDFs, area lights, a directional sun and a constant environment reaches).
+BSDFs, area lights, point, spot and directional lights and a constant
+environment reaches).
 
 The JAX Scene's static fields are plain fields here; the per-face
 attribute table is built once from the leaves when the Scene is made.
@@ -12,6 +13,7 @@ from typing import Any
 
 import torch
 
+from .. import emitters as em_pkg
 from ..core import math as m
 from ..core.distr import pick
 from ..core.frame import Frame
@@ -346,14 +348,33 @@ class Scene:
         return ds, weight.mask(ok)
 
     def _eval_delta_emitter(self, si, k):
-        """Direction toward delta emitter slot k — the directional branch
-        (src/emitters/directional.cpp): the loader admits no other delta
-        type. Returns (d, p, n, radiance, dist)."""
+        """Direction toward delta emitter slot k (src/emitters/{point,
+        spot,directional}.cpp), each lane by its slot's type. Returns
+        (d, p, n, radiance, dist); the radiance folds in a point or spot
+        light's 1/dist² falloff, so the NEE weight is radiance / pick pmf."""
+        types = self.delta_emitter_types
         r = take_rows(self.de_params, k).T
+        pos = Vec3(r[0], r[1], r[2])
+        intensity = Vec3(r[3], r[4], r[5])
         axis = Vec3(r[6], r[7], r[8])
-        d = -axis
-        dist = torch.full_like(si.t, FAR)
-        return d, si.p + d * FAR, -d, Vec3(r[3], r[4], r[5]), dist
+        t =torch.as_tensor(types, dtype=torch.int32, device=k.device)[
+            torch.clamp(k, 0, len(types) - 1).long()]
+        is_dir = t == em_pkg.DIRECTIONAL
+        d_un = pos - si.p
+        dist2 = torch.clamp(d_un.squared_norm(), min=1e-12)
+        d = Vec3.where(is_dir, -axis, d_un * torch.rsqrt(dist2))
+        dist = torch.where(is_dir, FAR, torch.sqrt(dist2))
+        p = Vec3.where(is_dir, si.p + d * FAR, pos)
+        rad = Vec3.where(is_dir, intensity, intensity * (1.0 / dist2))
+        if em_pkg.SPOT in types:
+            # spot.cpp:143-150: linear-in-angle falloff past the beam width
+            cos_theta = (-d).dot(axis)
+            beam = torch.clamp((r[10] - torch.arccos(
+                torch.clamp(cos_theta, -1.0, 1.0))) * r[11], max=1.0)
+            falloff = torch.where(cos_theta > r[9],
+                                  torch.clamp(beam, min=0.0), 0.0)
+            rad = Vec3.where(t == em_pkg.SPOT, rad * falloff, rad)
+        return d, p, -d, rad, dist
 
     def pdf_emitter_direction_hit(self, prev_p: Vec3, si: SurfaceInteraction,
                                   attrs):

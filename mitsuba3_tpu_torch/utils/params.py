@@ -1,0 +1,157 @@
+"""SceneParameters / traverse — counterpart of ``mitsuba3_tpu/utils/params.py``
+(mi.traverse / SceneParameters, src/python/python/util.py:10-272).
+
+A dict-like view of a Scene's differentiable tables under the JAX
+package's keys, with ``set_dirty`` batching. ``update()`` applies the
+pending writes, rebuilds the state derived from them (the environment's
+sampling tables after an ``env_data`` edit; the area-emitter tables and
+the accel after a ``vertices`` edit, as Scene::parameters_changed does)
+and returns a new Scene; the Scene it started from is left as it was.
+
+The accel is geometry, not a parameter: it is rebuilt on the host from
+the vertices' values (``.detach().cpu()``), while gradients still reach
+``vertices`` through the render (``ad/prb.py`` re-attaches hits to θ).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..emitters import envmap as env_mod
+from ..ops import bvh_serve, bvh_tiled, cellserve
+
+
+class SceneParameters:
+    """Mutable view; ``.scene()`` (or ``.update()``) makes the Scene."""
+
+    def __init__(self, scene):
+        self._scene = scene
+        self._dirty = set()
+        self._values = {
+            "vertices": scene.vertices,
+            "em_radiance": scene.em_radiance,
+            "bsdf_params": scene.bsdf_params,
+            "env_data": scene.env_data,
+            "env_scale": scene.env_scale,
+            "sensor.to_world.origin": scene.sensor.origin,
+        }
+        if scene.de_params is not None:
+            self._values["de_params"] = scene.de_params
+        for i, tex in enumerate(scene.textures):
+            self._values[f"texture{i}.data"] = tex
+
+    # -- mapping protocol -------------------------------------------------
+    def keys(self):
+        return self._values.keys()
+
+    def items(self):
+        return self._values.items()
+
+    def __contains__(self, k):
+        return k in self._values
+
+    def __getitem__(self, k):
+        return self._values[k]
+
+    def __setitem__(self, k, v):
+        """Write a value (kept on the table's device and dtype; a tensor
+        keeps its autograd history) and mark the key dirty."""
+        if k not in self._values:
+            raise KeyError(k)
+        old = self._values[k]
+        self._values[k] = torch.as_tensor(v, dtype=old.dtype,
+                                          device=old.device)
+        self._dirty.add(k)
+
+    def set_dirty(self, k):
+        self._dirty.add(k)
+
+    def update(self, values=None):
+        """Apply pending writes and refresh derived state
+        (parameters_changed() analog). Returns the new Scene."""
+        if values:
+            for k, v in values.items():
+                self[k] = v
+        s = self._scene
+        tex = list(s.textures)
+        for k in self._dirty:
+            v = self._values[k]
+            if k == "vertices":
+                s = _rebuild_geometry_derived(s.replace(vertices=v))
+            elif k == "env_data":
+                s = _rebuild_env_tables(s.replace(env_data=v))
+            elif k == "sensor.to_world.origin":
+                s = s.replace(sensor=s.sensor.replace(origin=v))
+            elif k.startswith("texture"):
+                tex[int(k[len("texture"):].split(".")[0])] = v
+                s = s.replace(textures=tuple(tex))
+            else:   # em_radiance, bsdf_params, env_scale, de_params
+                s = s.replace(**{k: v})
+        self._dirty.clear()
+        self._scene = s
+        return s
+
+    def scene(self):
+        return self.update()
+
+
+def _rebuild_env_tables(scene):
+    """Refresh the environment's importance-sampling tables after radiance
+    edits (envmap.cpp parameters_changed)."""
+    if scene.env_emitter < 0:
+        return scene
+    return scene.replace(env_warp=env_mod.build_tables(
+        scene.env_data.detach().cpu().numpy(), scene.device))
+
+
+def _rebuild_geometry_derived(scene):
+    """Refresh the area-emitter tables and the accel after vertex edits
+    (Scene::parameters_changed's accel rebuild, scene.cpp:503-563), with
+    the JAX package's host arithmetic, so the tables and the accel equal
+    its own bit for bit."""
+    dev = scene.device
+    v = scene.vertices.detach().cpu().numpy()
+    f = scene.faces.cpu().numpy()
+    p = v[f]
+    areas = 0.5 * np.linalg.norm(
+        np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]), axis=-1)
+    fe = scene.face_emitter.cpu().numpy()
+    inv_total = np.zeros_like(areas, dtype=np.float32)
+    ef_face = scene.ef_face.cpu().numpy()
+    updates = {}
+    if ef_face.size:
+        e_total = max(scene.n_emitters, 1)
+        pmfs = np.zeros(ef_face.shape[0], np.float64)
+        for e in np.unique(fe[fe >= 0]):
+            mask = fe == e
+            total = float(areas[mask].sum())
+            inv_total[mask] = 1.0 / max(total, 1e-30)
+            sel = np.isin(ef_face, np.where(mask)[0])
+            pmfs[sel] = areas[ef_face[sel]] / max(total, 1e-30) / e_total
+        updates["ef_cdf"] = torch.as_tensor(
+            np.cumsum(pmfs).astype(np.float32), device=dev)
+    updates["face_inv_total_area"] = torch.as_tensor(inv_total, device=dev)
+    acc = scene.accel
+    if acc is not None:
+        # the loader's accel type again: scene queries dispatch on it
+        p0 = p[:, 0]
+        e1 = p[:, 1] - p0
+        e2 = p[:, 2] - p0
+        if isinstance(acc, cellserve.CellServe):
+            acc = cellserve.build(p0, e1, e2, pair_slots=acc.pair_slots,
+                                  device=dev)
+        elif isinstance(acc, bvh_serve.BVHServe):
+            acc = bvh_serve.build(p0, e1, e2, device=dev)
+        elif isinstance(acc, bvh_tiled.BVHTiled):
+            acc = bvh_tiled.build(p0, e1, e2, device=dev)
+        else:
+            raise NotImplementedError(
+                f"rebuilding a {type(acc).__name__} accel is not ported to "
+                f"mitsuba3_tpu_torch")
+        updates["accel"] = acc
+    return scene.replace(**updates)
+
+
+def traverse(scene) -> SceneParameters:
+    """mi.traverse analog."""
+    return SceneParameters(scene)

@@ -83,6 +83,20 @@ def test_build_bit_equal_terrain64k():
     assert t_acc.res == 16 and tuple(t_acc.tris.shape) == (1318, 16, 128)
 
 
+@pytest.mark.parametrize("pad_min", ["64", "16"])
+def test_build_bit_equal_pad_min(monkeypatch, pad_min):
+    """MI3T_CELLS_PAD_MIN, read by both builds: the small interior (8,624
+    faces, res 8) has cells above and below 16 and 64 triangles, and the
+    aligned CSR equals JAX's at either threshold."""
+    monkeypatch.setenv("MI3T_CELLS_PAD_MIN", pad_min)
+    p0, e1, e2 = chip_smoke.make_interior(9000)
+    t_acc = t_cs.build(p0, e1, e2, device="cpu")
+    assert_build_equal(j_cs.build(p0, e1, e2), t_acc)
+    counts = np.diff(t_acc.start.numpy()[:-1])
+    assert (counts >= int(pad_min)).any() and (
+        (counts > 0) & (counts < int(pad_min))).any()
+
+
 @pytest.mark.parametrize("pair_slots", [8, 2])
 def test_queries_match_jax(np_rng, pair_slots):
     """intersect_cells / occluded_cells against JAX's on the CPU, with the

@@ -4,10 +4,12 @@ bvh_serve_cull.cu``, ``csrc/bvh_serve_serve.cu``), K4
 (``csrc/bvh_pallas_traverse.cu``, K2's kernel with 8 keys,
 ``csrc/bvh_queue_serve.cu``, ``csrc/bvh2_serve.cu``) against their plain
 PyTorch versions on the card, at test sizes, in each mode and topk; the
-queries of each accel (and the small terrain render of each loader accel)
-on the card against the CPU; PRB on the card: the Cornell box's gradients
-against the CPU's, and K1 launched in the terrain replay as often as in
-the primal. Run on a machine with a CUDA device::
+queries of each accel (and the small terrain render of each loader accel,
+and a small interior lit by a point light) on the card against the CPU;
+PRB on the card: the Cornell box's gradients against the CPU's, and K1
+launched in the terrain replay as often as in the primal; the optimizers,
+LargeSteps and one ``update()`` rebuild on the card against the CPU. Run
+on a machine with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -727,3 +729,89 @@ def test_terrain_prb_replay_launches_k1(cuda, monkeypatch):
     assert replay == primal, (primal, replay)
     for k, g in zip(names, grads):
         assert torch.isfinite(g).all() and bool((g != 0).any()), k
+
+
+# ---------------------------------------------------------------------------
+# Point lights, the parameter view and the optimisation tools on the card
+# ---------------------------------------------------------------------------
+
+def test_interior_render_on_card_matches_cpu(cuda, monkeypatch):
+    """bench.py's interior at 9,000 triangles (cellserve, a point light),
+    24^2, 4 spp, max_depth 4: the card's image against the CPU's."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+    d = chip_smoke.interior_dict(mt.ScalarTransform4f, 9000, width=24)
+    cs.LAUNCHES.update(closest=0, anyhit=0)
+    img_g = mt.render(mt.load_dict(d, device=cuda), seed=5, spp=4)
+    assert cs.LAUNCHES["closest"] > 0 and cs.LAUNCHES["anyhit"] > 0
+    img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=4)
+    img_g, img_c = img_g.cpu().numpy(), img_c.numpy()
+    assert np.isfinite(img_g).all() and img_g.mean() > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["Adam", "SGD", "RMSProp"])
+def test_optimizers_on_card_match_cpu(cuda, np_rng, name):
+    params = {"a": np_rng.normal(size=(64, 3)).astype(np.float32)}
+    grads = [np_rng.normal(size=(64, 3)).astype(np.float32)
+             for _ in range(5)]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        opt = getattr(mt.ad, name)(lr=0.05, params={
+            "a": torch.as_tensor(params["a"], device=dev)})
+        for g in grads:
+            opt.step({"a": torch.as_tensor(g, device=dev)})
+        assert opt["a"].device.type == dev.type
+        runs.append(opt["a"].cpu())
+    torch.testing.assert_close(runs[0], runs[1], rtol=1e-5, atol=1e-6)
+
+
+def test_largesteps_on_card_matches_cpu(cuda, np_rng):
+    """The block CG solve and its gradient on the card (index_add_ sums in
+    another order) against the CPU."""
+    side = 16
+    xs = np.linspace(-1, 1, side, dtype=np.float32)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    verts = np.stack([X, Y, 0.2 * np_rng.normal(size=X.shape)], -1).reshape(
+        -1, 3).astype(np.float32)
+    idx = np.arange(side * side).reshape(side, side)
+    a, b = idx[:-1, :-1].ravel(), idx[1:, :-1].ravel()
+    c, d = idx[:-1, 1:].ravel(), idx[1:, 1:].ravel()
+    faces = np.concatenate([np.stack([a, b, c], -1),
+                            np.stack([b, d, c], -1)], 0)
+    u = np_rng.normal(size=verts.shape).astype(np.float32)
+    w = np_rng.normal(size=verts.shape).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ls = mt.ad.LargeSteps(torch.as_tensor(verts, device=dev), faces,
+                              lambda_=19.0, method="cotan")
+        x = torch.as_tensor(u, device=dev).requires_grad_(True)
+        v = ls.from_differential(x)
+        (v * torch.as_tensor(w, device=dev)).sum().backward()
+        out.append((v.detach().cpu(), x.grad.cpu(), ls.cg_iterations))
+    (vg, gg, _), (vc, gc, _) = out
+    scale = float(vc.abs().max())
+    torch.testing.assert_close(vg, vc, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(gg, gc, rtol=0,
+                               atol=1e-5 * float(gc.abs().max()))
+
+
+def test_vertex_update_on_card_equals_cpu(cuda, monkeypatch):
+    """One update() after a vertex edit on the small terrain: the card's
+    rebuilt cellserve and area tables equal the CPU's bit for bit."""
+    from mitsuba3_tpu_torch.convert import arrays_from_scene
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+    d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f)
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        params = mt.traverse(mt.load_dict(d, device=dev))
+        v = params["vertices"].cpu().numpy().copy()
+        v[:, 2] += 0.3 * np.exp(-(v[:, 0] ** 2 + v[:, 1] ** 2))
+        params["vertices"] = v
+        scene = params.update()
+        assert scene.accel.tris.device.type == dev.type
+        results.append(arrays_from_scene(scene))
+    (ag, mg), (ac, mc) = results
+    assert mg == mc and sorted(ag) == sorted(ac)
+    for k in ac:
+        np.testing.assert_array_equal(ag[k], ac[k], err_msg=k)

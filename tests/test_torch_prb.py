@@ -4,7 +4,8 @@ match ``jax.grad`` through the JAX ``prb`` on a small Cornell box (dense
 intersector, area light) and on the small terrain (cellserve, whose
 queries the replay re-issues; the port's plain K1 against JAX's
 reference serve); the replay issues the primal's rays; and the backward
-is one autograd.Function node that keeps no graph across bounces."""
+is one autograd.Function node that keeps no graph across bounces. Also
+the delta lights' rows (point and spot) against ``jax.grad``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,6 +135,51 @@ def test_prb_terrain_grads_match_jax(monkeypatch):
     _assert_grads_close(gj, gt, TERRAIN_THETA, 1e-4)
     for k in TERRAIN_THETA:
         assert float(gt[k].abs().max()) > 0, k
+
+
+def point_light_dict(transform, light):
+    """tests/test_ad.py's point-light scene: a floor rectangle under one
+    delta light, prb at max_depth 3, 6^2."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "prb", "max_depth": 3},
+        "sensor": {"type": "perspective", "fov": 40.0,
+                   "to_world": transform().look_at(
+                       origin=[0, 1, -3], target=[0, 0, 0], up=[0, 1, 0]),
+                   "film": {"width": 6, "height": 6}},
+        "floor": {"type": "rectangle",
+                  "to_world": transform().rotate([1, 0, 0], -90).scale(2.0),
+                  "bsdf": {"type": "diffuse"}},
+        "lamp": light,
+    }
+
+
+DELTA_LIGHTS = {
+    "point": {"type": "point", "position": [0, 1.5, 0],
+              "intensity": {"type": "rgb", "value": [2, 2, 2]}},
+    "spot": {"type": "spot", "position": [0.2, 1.5, -0.3],
+             "direction": [0, -1, 0.1], "cutoff_angle": 40.0,
+             "intensity": {"type": "rgb", "value": [3, 2, 1]}},
+}
+
+
+@pytest.mark.parametrize("light", sorted(DELTA_LIGHTS))
+def test_prb_delta_light_grads_match_jax(light):
+    """Gradients of de_params (the light's position, intensity and, for
+    the spot, axis and cone rows) under a point or spot light
+    (tests/test_ad.py::test_prb_point_light_intensity_gradient_vs_fd's
+    scene) within 1e-4 of the largest JAX gradient; position and
+    intensity move the image."""
+    sj = mj.load_dict(point_light_dict(mj.ScalarTransform4f,
+                                       DELTA_LIGHTS[light]))
+    st = mt.load_dict(point_light_dict(mt.ScalarTransform4f,
+                                       DELTA_LIGHTS[light]), device="cpu")
+    names = ("de_params",)
+    gj = _grads_jax(sj, names, 16, 0)
+    gt = _grads_port(st, names, 16, 0)
+    _assert_grads_close(gj, gt, names, 1e-4)
+    g = gt["de_params"].numpy()
+    assert (np.abs(g[0, 0:3]) > 0).all() and (g[0, 3:6] > 0).all()
 
 
 def _wavefront(scene, side):

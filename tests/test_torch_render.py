@@ -1,9 +1,10 @@
 """Port parity, end to end: the small terrain (8,978 faces, cellserve
-accel) rendered by the JAX package and by the port on the CPU at the same
-seed agrees per pixel and in its ray count. Also the loader's device rule,
-its refusal of plugins the port does not carry, and chip_smoke's copy of
-the benchmark terrain. (The Cornell box, the dense path, is in
-``test_torch_cornell.py``.)"""
+accel, a directional sun) and a small interior (8,624 faces, cellserve, a
+point light) rendered by the JAX package and by the port on the CPU at
+the same seed agree per pixel and in their ray counts. Also the loader's
+device rule, its refusal of plugins the port does not carry, and
+chip_smoke's copies of the benchmark terrain and interior. (The Cornell
+box, the dense path, is in ``test_torch_cornell.py``.)"""
 import os
 import sys
 
@@ -56,6 +57,86 @@ def test_render_from_jax_leaves_matches_jax(renders):
     assert abs(rays_t - rays_j) <= 1e-3 * rays_j
 
 
+SMALL_INTERIOR = 9000     # make_interior's budget: 8,624 faces, above 8192
+
+
+def _small_interiors(monkeypatch, max_depth):
+    """(JAX scene, port scene) of bench.py's interior at 16^2 and 9,000
+    triangles, cellserve pinned on both sides."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+
+    def make(transform):
+        d = chip_smoke.interior_dict(transform, SMALL_INTERIOR, width=16)
+        d["integrator"]["max_depth"] = max_depth
+        return d
+    scene = mt.load_dict(make(mt.ScalarTransform4f), device="cpu")
+    assert scene.delta_emitter_types == (0,)          # one point light
+    return mj.load_dict(make(mj.ScalarTransform4f)), scene
+
+
+def _render_both(j_scene, t_scene):
+    img_j, rays_j = mj.render_with_stats(j_scene, seed=SEED, spp=SPP)
+    img_t, rays_t = mt.render_with_stats(t_scene, seed=SEED, spp=SPP)
+    img_j, img_t = np.asarray(img_j), img_t.numpy()
+    assert img_t.shape == img_j.shape == (16, 16, 3)
+    assert np.isfinite(img_t).all() and img_t.mean() > 0
+    assert np.allclose(img_t.mean(), img_j.mean(), rtol=1e-3)
+    assert abs(rays_t - float(rays_j)) <= 1e-3 * float(rays_j)
+    return img_j, img_t
+
+
+def test_small_interior_render_matches_jax(monkeypatch):
+    """bench.py's interior scene (a closed room: cellserve's straggler
+    rounds through the port's plain K1) lit by its point light, at 16^2,
+    4 spp, 9,000 triangles and max_depth 2 (the point light's NEE at the
+    first hit and the shadow test), per pixel against JAX's render."""
+    img_j, img_t = _render_both(*_small_interiors(monkeypatch, 2))
+    assert np.isclose(img_t, img_j, rtol=1e-3, atol=1e-3).mean() > 0.995
+
+
+def test_small_interior_depth4_matches_jax(monkeypatch):
+    """The same at bench.py's max_depth 4: image mean and ray count
+    within 1e-3 of JAX's, and per pixel on 98 % of the values (99.2 % at
+    seed 5). The renders part on a few paths, for the cause that
+    ``test_vertical_wall_normals_match_exact_arithmetic`` shows: on a
+    vertical wall JAX's jitted normal has a z of about 1e-8 where the
+    port's is 0, so the shading frame's handedness flips and the same
+    cosine sample leaves in another, equally valid, direction (max_depth
+    2 above agrees on every pixel)."""
+    img_j, img_t = _render_both(*_small_interiors(monkeypatch, 4))
+    assert np.isclose(img_t, img_j, rtol=1e-3, atol=1e-3).mean() > 0.98
+
+
+def test_vertical_wall_normals_match_exact_arithmetic():
+    """The cause of the depth-4 differences above. On the vertical faces
+    of the small interior (those, not degenerate, whose normal's z,
+    e1.x e2.y - e1.y e2.x, is 0 in float32 arithmetic) the port's geometric normal has z exactly
+    0, as eager JAX does; JAX's jitted cross product (CPU compiler, as
+    inside its render) gives some of them a z of up to ~1e-7, because it
+    contracts a multiply and a subtract into one fused operation."""
+    import jax
+    from mitsuba3_tpu.core.vec import Vec3 as JVec3
+    from mitsuba3_tpu_torch.core.vec import Vec3 as TVec3
+
+    _, e1, e2 = chip_smoke.make_interior(SMALL_INTERIOR)
+    area2 = np.linalg.norm(np.cross(e1.astype(np.float64), e2), axis=1)
+    vertical = ((e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]) == 0) \
+        & (area2 > 1e-4)
+    a, b = torch.from_numpy(e1), torch.from_numpy(e2)
+    z_t = TVec3(a[:, 0], a[:, 1], a[:, 2]).cross(
+        TVec3(b[:, 0], b[:, 1], b[:, 2])).normalize().z.numpy()
+
+    def z_j(u, v):
+        return JVec3(u[:, 0], u[:, 1], u[:, 2]).cross(
+            JVec3(v[:, 0], v[:, 1], v[:, 2])).normalize().z
+    z_eager = np.asarray(z_j(e1, e2))
+    z_jit = np.asarray(jax.jit(z_j)(e1, e2))
+    assert vertical.sum() > 500
+    assert (z_t[vertical] == 0).all() and (z_eager[vertical] == 0).all()
+    assert (z_jit[vertical] != 0).sum() > 0
+    assert np.abs(z_jit[vertical]).max() < 1e-7
+
+
 def test_pass_split_render_is_deterministic():
     """Capping the wavefront splits the render into passes; each pass
     seeds its own streams, so the split render is reproducible and
@@ -99,7 +180,7 @@ UNPORTED = {
     "shape": (_with(BASE, ball={"type": "sphere"}), "'sphere'"),
     "bsdf": (_with(BASE, terrain=dict(BASE["terrain"], bsdf={
         "type": "roughconductor"})), "'roughconductor'"),
-    "emitter": (_with(BASE, lamp={"type": "point"}), "'point'"),
+    "emitter": (_with(BASE, lamp={"type": "projector"}), "'projector'"),
     "integrator": (_with(BASE, integrator={"type": "direct"}), "'direct'"),
     "rfilter": (_sensor(BASE, film={"width": 8, "height": 8,
                                     "rfilter": {"type": "box"}}), "box"),
@@ -131,4 +212,17 @@ def test_chip_smoke_terrain_equals_benchmark(side):
         sys.path.pop(0)
     for a, b in zip(chip_smoke.make_terrain(side),
                     bench_bvh.make_terrain(side)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_tris", [SMALL_INTERIOR, 120000])
+def test_chip_smoke_interior_equals_benchmark(n_tris):
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))), "benchmarks"))
+    try:
+        import bench_bvh
+    finally:
+        sys.path.pop(0)
+    for a, b in zip(chip_smoke.make_interior(n_tris),
+                    bench_bvh.make_interior(n_tris)):
         np.testing.assert_array_equal(a, b)

@@ -1,7 +1,8 @@
 """Port parity, scene: the port's ``load_dict`` gives the JAX package's
-leaves (for the small terrain and the full terrain64k dict),
-``scene_from_arrays`` carries a scene across and round-trips, and the
-scene's shading functions agree with JAX's on random inputs."""
+leaves (for the small terrain and the full terrain64k dict, and the rows
+of point, spot and directional emitters), ``scene_from_arrays`` carries a
+scene across and round-trips, and the scene's shading functions
+(delta-emitter evaluation included) agree with JAX's on random inputs."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ from mitsuba3_tpu.render import records as j_records
 import chip_smoke
 import mitsuba3_tpu_torch as mt
 from mitsuba3_tpu_torch import bsdfs as t_bsdfs
+from mitsuba3_tpu_torch.ad import prb
 from mitsuba3_tpu_torch.convert import arrays_from_scene, scene_from_arrays
 from mitsuba3_tpu_torch.core.vec import Vec2 as TVec2
 from mitsuba3_tpu_torch.core.vec import Vec3 as TVec3
@@ -212,3 +214,107 @@ def test_flip_for_twosided_matches_jax(shading, np_rng):
     close(t_sgn, j_sgn)
     close(t_sf.wi, j_sf.wi)
     assert (t_sgn.numpy() < 0).any() and (t_sgn.numpy() > 0).any()
+
+
+# ---------------------------------------------------------------------------
+# Point and spot delta emitters
+# ---------------------------------------------------------------------------
+
+def delta_scene_dict(transform, **lights):
+    """A floor rectangle under the given delta emitters (dense path)."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": 3},
+        "sensor": {"type": "perspective", "fov": 40.0,
+                   "to_world": transform().look_at(
+                       origin=[0, 1, -3], target=[0, 0, 0], up=[0, 1, 0]),
+                   "film": {"width": 8, "height": 8}},
+        "floor": {"type": "rectangle",
+                  "to_world": transform().rotate([1, 0, 0], -90).scale(2.0),
+                  "bsdf": {"type": "diffuse"}},
+        **lights,
+    }
+
+
+DELTA_LIGHTS = {
+    "point": lambda T: {"type": "point", "position": [0.2, 1.5, -0.1],
+                        "intensity": {"type": "rgb", "value": [2, 3, 4]}},
+    # to_world places the light; the position is ignored
+    "point_to_world": lambda T: {
+        "type": "point", "position": [9, 9, 9],
+        "to_world": T().translate([0.3, 1.2, 0.4]), "intensity": 5.0},
+    "spot": lambda T: {"type": "spot", "position": [0, 2, 0],
+                       "direction": [0.1, -1, 0.2], "cutoff_angle": 35.0,
+                       "intensity": {"type": "rgb", "value": [7, 6, 5]}},
+    "spot_to_world": lambda T: {
+        "type": "spot", "to_world": T().look_at(
+            origin=[1, 2, -1], target=[0, 0, 0], up=[0, 1, 0]),
+        "cutoff_angle": 25.0, "beam_width": 10.0, "intensity": 3.0},
+    "directional": lambda T: {"type": "directional",
+                              "direction": [0.3, -1, 0.2],
+                              "irradiance": 2.0},
+}
+
+
+@pytest.mark.parametrize("light", sorted(DELTA_LIGHTS))
+def test_delta_emitter_rows_equal_jax(light):
+    """Each delta emitter's de_params row, beside a point light, and the
+    scene's delta_emitter_types bit-equal to the JAX loader's."""
+    def make(T):
+        return delta_scene_dict(T, lamp=DELTA_LIGHTS[light](T),
+                                bulb=DELTA_LIGHTS["point"](T))
+    j_scene = mj.load_dict(make(mj.ScalarTransform4f))
+    t_scene = mt.load_dict(make(mt.ScalarTransform4f), device="cpu")
+    np.testing.assert_array_equal(t_scene.de_params.numpy(),
+                                  np.asarray(j_scene.de_params))
+    assert t_scene.delta_emitter_types == tuple(j_scene.delta_emitter_types)
+    assert t_scene.n_emitters == j_scene.n_emitters == 2
+
+
+def test_eval_delta_emitter_matches_jax(np_rng):
+    """Direction, position, normal, radiance (1/dist² and the spot's
+    falloff folded in) and distance toward point, spot and directional
+    slots from random surface points, rtol 1e-6. The one exception is a
+    spot's radiance inside its transition band (0 < falloff < 1): there
+    the falloff is (cutoff - acos(cos θ)) / (cutoff - beam), which turns
+    the one-ulp difference of the two packages' rsqrt (they agree on
+    ~64 % of float32 inputs) into up to ~20 ulp, so those lanes are held
+    at rtol 1e-4."""
+    from mitsuba3_tpu.render.scene import _RefPoint
+
+    lights = {name: DELTA_LIGHTS[name] for name in
+              ("point", "spot", "spot_to_world", "directional")}
+
+    def make(T):
+        return delta_scene_dict(T, **{k: f(T) for k, f in lights.items()})
+    j_scene = mj.load_dict(make(mj.ScalarTransform4f))
+    t_scene = mt.load_dict(make(mt.ScalarTransform4f), device="cpu")
+    p = np_rng.uniform(-2, 2, (N, 3)).astype(np.float32)
+    p[:, 1] = np_rng.uniform(-0.5, 0.5, N)
+    k = np_rng.integers(0, len(lights), N).astype(np.int32)
+    t = np.ones(N, np.float32)
+    j_out = j_scene._eval_delta_emitter(
+        _RefPoint(p=JVec3(*(jnp.asarray(p[:, i]) for i in range(3))),
+                  t=jnp.asarray(t)), jnp.asarray(k))
+    t_out = t_scene._eval_delta_emitter(
+        prb._RefPoint(p=TVec3(*(torch.as_tensor(np.ascontiguousarray(
+            p[:, i])) for i in range(3)))), torch.as_tensor(k))
+    for tv, jv in zip(t_out[:3] + t_out[4:], j_out[:3] + j_out[4:]):
+        close(tv, jv, FLOAT_TOL)
+    # the spot lanes' falloff, recomputed from the port's own outputs
+    de = t_scene.de_params.numpy()[k]
+    d = np.stack([t_out[0].x, t_out[0].y, t_out[0].z], 1)
+    cos_t = -(d * de[:, 6:9]).sum(1)
+    band = (np.isin(k, [1, 2]) & (cos_t > de[:, 9])
+            & ((de[:, 10] - np.arccos(np.clip(cos_t, -1, 1))) * de[:, 11]
+               < 1.0))
+    for c in "xyz":
+        tv = getattr(t_out[3], c).numpy()
+        jv = np.asarray(getattr(j_out[3], c))
+        np.testing.assert_allclose(tv[~band], jv[~band], **FLOAT_TOL)
+        np.testing.assert_allclose(tv[band], jv[band], rtol=1e-4, atol=0)
+    rad = t_out[3].x.numpy()
+    spot_lanes = np.isin(k, [1, 2])
+    # spot lanes outside the cone, in the band and in the full beam
+    assert (rad[spot_lanes] == 0).any() and band.sum() >= 8
+    assert (rad[spot_lanes & ~band] > 0).any()
