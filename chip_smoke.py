@@ -9,8 +9,8 @@ Phases:
 1. the card's name and power limit (exits nonzero without a CUDA device);
 2. build every kernel and the SAH builder from ``mitsuba3_tpu_torch/csrc``
    into ``build/kernels/`` (nvcc or g++, one process per source, all at
-   once), with ptxas' registers and spills per kernel (K1-K4 and K6 must
-   not spill);
+   once), with ptxas' registers and spills per kernel (K1-K7 must not
+   spill);
 3. kernels: one full-width round of the terrain64k main path (primary
    rays of the 512^2, 4 spp camera) through each kernel and its plain
    PyTorch version, compared and timed: K1 after pairgen and the pair sort
@@ -65,7 +65,9 @@ Phases:
    serve after the sort and the schedule, K8 as the first bvh2 round's
    serve on the 2^19 bounce rays; K5 (unsorted and sorted) and K7 also
    on the bounce rays, each in its own row; closest hits bit-equal in t,
-   prim, u and v;
+   prim, u and v; per K5 row the spread of the tests over the tiles and
+   (printed, not in the row) their work makespan over the resident CTAs
+   modelled at the peak, in launch order and with the heaviest first;
 12. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
    closest and any-hit on 2^19 primary and 2^19 bounce rays, timed after
    a warm-up, held to the dense oracle (``ops/intersect.py``) on the first
@@ -81,6 +83,7 @@ terrain and ray functions below are numpy copies of the benchmarks'.
 from __future__ import annotations
 
 import contextlib
+import heapq
 import json
 import os
 import subprocess
@@ -121,10 +124,11 @@ BVH_SIDE = 182
 BVH_RAYS = 1 << 19
 HOLD_RAYS = 32768
 LIBRARY_NOTE = ("none: no single PyTorch call computes this function")
-# sources whose kernels must build without register spills (K1-K4, K6;
+# sources whose kernels must build without register spills (K1-K7;
 # their launch bounds leave ptxas the registers they need)
 SPILL_FREE = ("cellserve_serve.cu", "bvh_tiled_mt.cu", "bvh_serve_cull.cu",
-              "bvh_serve_serve.cu")
+              "bvh_serve_serve.cu", "bvh_pallas_traverse.cu",
+              "bvh_queue_serve.cu")
 # the late cull of the K2 phase: the first cull after the round loop has
 # left at most this share of the width live
 LATE_LIVE = 0.6
@@ -778,23 +782,89 @@ def _hold_hits(tag, kt, ks, pt, ps, closest: bool):
     return 0.0
 
 
-def phase_kernels_attic(card: str):
+def _makespan(tile_ops, slots: int) -> float:
+    """The largest work of one of `slots` resident CTAs when the tiles, in
+    launch order, each go to the CTA slot that frees first."""
+    load = [0.0] * slots
+    heapq.heapify(load)
+    for ops in tile_ops:
+        heapq.heappush(load, heapq.heappop(load) + ops)
+    return max(load)
+
+
+def _tile_spread(tag, work, ctas_per_sm: int):
+    """Replaces K5's per-tile counts in `work` by the most and the mean
+    tests of a tile, and prints them with the tiles' work makespan over
+    the resident CTAs: a model, not a measurement, of the time the launch
+    needs at the card's peak when each of SMs x `ctas_per_sm` slots issues
+    1 / slots of it and the tiles go, in launch order or the heaviest
+    first, to the slot that frees first."""
+    import torch
+    from mitsuba3_tpu_torch.ops.attic import bvh_pallas as bp
+    tests = work.pop("tile_tests")
+    nodes = work.pop("tile_nodes")
+    top, mean = max(tests), sum(tests) / len(tests)
+    work.update(tile_tests_max=top, tile_tests_mean=mean)
+    slots = torch.cuda.get_device_properties(0).multi_processor_count \
+        * ctas_per_sm
+    ops = [n * bp.TILE * OPS_PER_NODE + t * OPS_PER_TEST
+           for n, t in zip(nodes, tests)]
+    rate = PEAK_FP32_OPS / slots / 1e3
+    span = _makespan(ops, slots) / rate
+    lpt = _makespan(sorted(ops, reverse=True), slots) / rate
+    print(f"# {tag}: per-tile ray-triangle tests max {top}, mean {mean:.0f} "
+          f"({top / mean:.2f}x the mean); {ctas_per_sm} CTAs per SM, "
+          f"{slots} resident: modelled work makespan {span:.4f} ms at the "
+          f"peak ({lpt:.4f} ms with the heaviest tiles first)")
+
+
+def _k5_ctas_per_sm(closest: bool) -> int:
+    """CTAs per SM of the loaded K5 build's kernel in this mode."""
+    from mitsuba3_tpu_torch.ops import native
+    n = native.load("bvh_pallas_traverse").bvh_pallas_traverse_ctas_per_sm(
+        int(closest))
+    _check(n > 0, f"K5: occupancy query failed (cudaError_t {-n})")
+    return n
+
+
+def phase_kernels_attic(card: str, kernels=("K5", "K6", "K7", "K8"),
+                        plain: dict | None = None):
     """K5-K8 against their plain versions at full width on bench_bvh's
     terrain queries: K5 as intersect_bvh and occluded_bvh pack the primary
     and the bounce rays, and as the sorted queries pack the bounce rays;
     K6 as the first cull of a bvh_queue query on the primary rays, K7 as
     its first serve after the sort and the schedule on either kind, K8 as
     the first round's serve of a bvh2 query on the bounce rays. A row that
-    names `queries` counts its launches over those timed queries only."""
+    names `queries` counts its launches over those timed queries only.
+    `kernels` picks the rows; a dict `plain` keeps K5's and K7's plain
+    outputs, their work and times by row, and is read before computing
+    them again (tools/kernel_variants.py holds several builds to one)."""
     import torch
     from mitsuba3_tpu_torch.ops import bvh_serve as bs
-    from mitsuba3_tpu_torch.ops.attic import bvh2 as b2
     from mitsuba3_tpu_torch.ops.attic import bvh_pallas as bp
     from mitsuba3_tpu_torch.ops.attic import bvh_queue as bq
 
     tris = make_terrain(BVH_SIDE)
     o, d, maxt = _bvh_rays("primary")
     rows = []
+    plain = {} if plain is None else plain
+
+    def held(tag, run):
+        """(plain outputs, work, plain ms) of a row, from `plain` or run;
+        K5's per-tile counts become their spread (_tile_spread) once, with
+        the occupancy of the build loaded then (the shipped one: the tool
+        holds it first)."""
+        if tag not in plain:
+            work = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(work)
+            torch.cuda.synchronize()
+            plain[tag] = (out, work, (time.perf_counter() - t0) * 1e3)
+            if "tile_tests" in work:
+                _tile_spread(tag, work,
+                             _k5_ctas_per_sm(tag.startswith("K5 closest")))
+        return plain[tag]
 
     # K5: the packet walk, closest and any-hit; on the primary rays as
     # intersect_bvh and occluded_bvh pack them, on the bounce rays also
@@ -802,25 +872,24 @@ def phase_kernels_attic(card: str):
     acc = bp.build(*tris, device="cuda")
     print(f"# kernels (bvh_pallas): {acc.node_bounds.shape[0]} nodes, "
           f"{acc.n_leaves} leaves")
-    packs = [("", ("pallas", "pallas_sorted"), "primary",
-              bp.pack_rays(o, d, torch.clamp(maxt, max=3e38)))]
-    ob, db, maxt_b = _bvh_rays("bounce")
-    mt_b = torch.clamp(maxt_b, max=3e38)
-    packs.append((".bounce", ("pallas",), "bounce",
-                  bp.pack_rays(ob, db, mt_b)))
-    packs.append((".bounce_sorted", ("pallas_sorted",), "bounce",
-                  bp.pack_rays(*bp._sorted(acc, ob, db, mt_b)[:3])))
+    if "K5" not in kernels:
+        packs = []
+    else:
+        packs = [("", ("pallas", "pallas_sorted"), "primary",
+                  bp.pack_rays(o, d, torch.clamp(maxt, max=3e38)))]
+        ob, db, maxt_b = _bvh_rays("bounce")
+        mt_b = torch.clamp(maxt_b, max=3e38)
+        packs.append((".bounce", ("pallas",), "bounce",
+                      bp.pack_rays(ob, db, mt_b)))
+        packs.append((".bounce_sorted", ("pallas_sorted",), "bounce",
+                      bp.pack_rays(*bp._sorted(acc, ob, db, mt_b)[:3])))
     for suffix, accels, kind, (o3, d3, mt) in packs:
         npad = mt.shape[0]
         for closest, mode in ((True, "closest"), (False, "anyhit")):
             tag = f"K5 {mode}{suffix.replace('.', ' ')}"
             kout = bp.traverse(acc, o3, d3, mt, closest)
-            work = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pout = bp.traverse_plain(acc, o3, d3, mt, closest, stats=work)
-            torch.cuda.synchronize()
-            p_ms = (time.perf_counter() - t0) * 1e3
+            pout, work, p_ms = held(tag, lambda w: bp.traverse_plain(
+                acc, o3, d3, mt, closest, stats=w))
             if closest:
                 err = _hold_closest(tag, kout, pout)
             else:
@@ -846,32 +915,34 @@ def phase_kernels_attic(card: str):
 
     # K6: the first cull of a bvh_queue query
     acc = bq.build(*tris, device="cuda")
-    f, i = bq.initial_state(o, d, maxt)
-    npad = f.shape[1]
-    lk = (i[bs.LK] & bq.MASK31).contiguous()
-    kq = bq.cull_topk(acc, f, lk)
-    work = {}
-    pq = bq.cull_topk_plain(acc, f, lk, stats=work)
-    torch.cuda.synchronize()
-    _check(torch.equal(kq, pq), f"K6: keys differ on "
-           f"{int((kq != pq).sum())} of {kq.numel()}")
-    print(f"# K6: keys bit-equal, {int((pq[0] != bs.NONE).sum())} rays queue "
-          f"a leaf, {int((pq[-1] != bs.NONE).sum())} fill all {bq.KQ}; "
-          f"{work['chunks_taken']} (block, chunk) pairs taken; "
-          f"{work['sup_tests']} chunk-box and {work['box_tests']} leaf-box "
-          f"tests needed")
-    k_ms = _cuda_ms(lambda: bq.cull_topk(acc, f, lk), 20)
-    p_ms = _cuda_ms(lambda: bq.cull_topk_plain(acc, f, lk), 2)
-    rows.append(_row(
-        "bvh_queue_cull", "K6", "bvh_serve_cull.cu",
-        "mitsuba3_tpu/ops/attic/bvh_queue.py:60", "cull", 0.0, k_ms, p_ms,
-        work["sup_tests"] * OPS_PER_SUP + work["box_tests"] * OPS_PER_BOX,
-        (acc.bounds.numel() + acc.sup.numel()) * 4 + npad * (32 + 4 * bq.KQ),
-        card, accel="queue", **work))
+    if "K6" in kernels:
+        f, i = bq.initial_state(o, d, maxt)
+        npad = f.shape[1]
+        lk = (i[bs.LK] & bq.MASK31).contiguous()
+        kq = bq.cull_topk(acc, f, lk)
+        work = {}
+        pq = bq.cull_topk_plain(acc, f, lk, stats=work)
+        torch.cuda.synchronize()
+        _check(torch.equal(kq, pq), f"K6: keys differ on "
+               f"{int((kq != pq).sum())} of {kq.numel()}")
+        print(f"# K6: keys bit-equal, {int((pq[0] != bs.NONE).sum())} rays "
+              f"queue a leaf, {int((pq[-1] != bs.NONE).sum())} fill all "
+              f"{bq.KQ}; {work['chunks_taken']} (block, chunk) pairs taken; "
+              f"{work['sup_tests']} chunk-box and {work['box_tests']} "
+              f"leaf-box tests needed")
+        k_ms = _cuda_ms(lambda: bq.cull_topk(acc, f, lk), 20)
+        p_ms = _cuda_ms(lambda: bq.cull_topk_plain(acc, f, lk), 2)
+        rows.append(_row(
+            "bvh_queue_cull", "K6", "bvh_serve_cull.cu",
+            "mitsuba3_tpu/ops/attic/bvh_queue.py:60", "cull", 0.0, k_ms,
+            p_ms, work["sup_tests"] * OPS_PER_SUP
+            + work["box_tests"] * OPS_PER_BOX,
+            (acc.bounds.numel() + acc.sup.numel()) * 4
+            + npad * (32 + 4 * bq.KQ), card, accel="queue", **work))
 
     # K7: the first serve, after the sort by queue head and the schedule,
     # on the primary and on the bounce rays
-    for kind in ("primary", "bounce"):
+    for kind in ("primary", "bounce") if "K7" in kernels else ():
         ok, dk, mk = (o, d, maxt) if kind == "primary" else _bvh_rays(kind)
         f, i = bq.initial_state(ok, dk, mk)
         npad = f.shape[1]
@@ -879,9 +950,8 @@ def phase_kernels_attic(card: str):
         lids = bq.simulate(is_[bq.Q0:], fs[bs.TB])[0]
         tag = "K7" if kind == "primary" else "K7 bounce"
         kout = bq.serve_multi(acc, lids, fs)
-        work = {}
-        pout = bq.serve_multi_plain(acc, lids, fs, stats=work)
-        torch.cuda.synchronize()
+        pout, work, _ = held(tag, lambda w: bq.serve_multi_plain(
+            acc, lids, fs, stats=w))
         err = _hold_closest(tag, kout, pout)
         print(f"# {tag}: {work['slots']} of {lids.numel()} (block, slot) "
               f"pairs taken, {work['tests']} ray-triangle tests needed")
@@ -900,6 +970,16 @@ def phase_kernels_attic(card: str):
     # K8: the first round's serve of a bvh2 query on the bounce rays (on the
     # primary rays every lane of that round wants a padding supernode of the
     # cull, so the kernel would test nothing)
+    if "K8" in kernels:
+        rows.append(_k8_row(tris, card))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _k8_row(tris, card: str):
+    """K8's row: the first bvh2 round's serve on the bounce rays."""
+    import torch
+    from mitsuba3_tpu_torch.ops.attic import bvh2 as b2
     acc = b2.build(*tris, device="cuda")
     o, d, maxt = _bvh_rays("bounce")
     ids, rays, want = b2.first_round(acc, o, d, maxt)
@@ -921,14 +1001,11 @@ def phase_kernels_attic(card: str):
     nbytes = (n_ids * 10 * b2.LEAF * 4
               + (ids.numel() + rays.numel() + want.numel()) * 4
               + want.numel() * 16)
-    rows.append(_row(
+    return _row(
         "bvh2_serve", "K8", "bvh2_serve.cu",
         "mitsuba3_tpu/ops/attic/bvh2.py:207", "serve", err, k_ms, p_ms,
         work["tests"] * (OPS_PER_TEST + 1), nbytes, card, accel="bvh2",
-        rays="bounce", **work))
-    del acc
-    torch.cuda.empty_cache()
-    return rows
+        rays="bounce", **work)
 
 
 # attic accel -> its query variants (suffix, closest hit, any hit)

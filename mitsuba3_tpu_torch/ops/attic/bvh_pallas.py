@@ -122,6 +122,14 @@ def _add(stats, key, n):
         stats[key] = stats.get(key, 0) + int(n)
 
 
+def _add_tiles(stats, key, per_tile):
+    """Add a per-tile count (a tensor [n_tiles]) to the list stats[key]."""
+    old = stats.get(key)
+    counts = per_tile.tolist()
+    stats[key] = counts if old is None else [a + b for a, b in
+                                             zip(old, counts)]
+
+
 def traverse_plain(acc: BVHData, o3, d3, mt, closest: bool,
                    stats: dict | None = None):
     """Plain PyTorch version of K5: o3, d3 [3, T * TILE], mt [T * TILE] ->
@@ -135,7 +143,8 @@ def traverse_plain(acc: BVHData, o3, d3, mt, closest: bool,
     tested to stats["leaves"] and the ray-triangle tests this data needs
     to stats["tests"]: in each tested leaf, every ray whose best t is >= 0
     tests the leaf's triangles, in any-hit mode only those up to its first
-    hit."""
+    hit. It also adds each tile's node visits and tests to the lists
+    stats["tile_nodes"] and stats["tile_tests"] (one entry per tile)."""
     npad = o3.shape[1]
     n_tiles = npad // TILE
     dev = o3.device
@@ -147,6 +156,9 @@ def traverse_plain(acc: BVHData, o3, d3, mt, closest: bool,
     u = torch.zeros((n_tiles, TILE), dtype=torch.float32, device=dev)
     v = torch.zeros_like(u)
     col = torch.arange(K, dtype=torch.int64, device=dev)
+    if stats is not None:
+        tile_nodes = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+        tile_tests = torch.zeros_like(tile_nodes)
     for c0 in range(0, n_tiles, PLAIN_TILES):
         w = min(PLAIN_TILES, n_tiles - c0)
         stack = torch.zeros((w, STACK), dtype=torch.int64, device=dev)
@@ -162,6 +174,8 @@ def traverse_plain(acc: BVHData, o3, d3, mt, closest: bool,
                            t[tiles])
             _add(stats, "nodes", live.numel())
             _add(stats, "box_tests", live.numel() * TILE)
+            if stats is not None:
+                tile_nodes[tiles] += 1
             meta = acc.node_meta[node].to(torch.int64)
             push = enter & (meta[:, 0] >= 0)
             rows = live[push]
@@ -183,8 +197,10 @@ def traverse_plain(acc: BVHData, o3, d3, mt, closest: bool,
                 if not closest:
                     n = torch.where(hit.any(dim=1),
                                     hit.to(torch.int8).argmax(dim=1) + 1, n)
+                per_tile = torch.where(best >= 0.0, n, 0).sum(dim=1)
                 _add(stats, "leaves", lrows.numel())
-                _add(stats, "tests", n[best >= 0.0].sum())
+                _add(stats, "tests", per_tile.sum())
+                tile_tests[lrows] += per_tile
             if closest:
                 t_m = torch.where(hit, tt, BIG)
                 tmin = t_m.amin(dim=1)
@@ -204,6 +220,9 @@ def traverse_plain(acc: BVHData, o3, d3, mt, closest: bool,
                 occ = hit.any(dim=1)
                 slot[lrows] = torch.where(occ, 1, slot[lrows])
                 t[lrows] = torch.where(occ, -1.0, best)
+    if stats is not None:
+        _add_tiles(stats, "tile_nodes", tile_nodes)
+        _add_tiles(stats, "tile_tests", tile_tests)
     return t.reshape(-1), slot.reshape(-1), u.reshape(-1), v.reshape(-1)
 
 

@@ -1,14 +1,16 @@
 """Build and load the native code of ``mitsuba3_tpu_torch/csrc``.
 
 Each ``csrc/<name>.cu`` is a hand-written CUDA kernel with a plain
-``extern "C"`` interface, compiled with ``nvcc``; each ``csrc/<name>.cpp``
-is host code (the SAH builder), compiled with ``g++``. Both go into
-``build/kernels/lib<name>-<digest>.so`` at the repository root on first
-use and are loaded with ``ctypes``; the digest covers the source, the
-flags and, for host code, what ``-march=native`` means on this machine,
-so an edited source or another CPU gets its own build. Nothing is built
-when the package is imported, and a failed build raises. ``check`` and
-``launch`` are what every kernel wrapper does around its launch.
+``extern "C"`` interface, compiled with ``nvcc`` with ``csrc/`` on the
+include path (for the ``.cuh`` headers kernels share); each
+``csrc/<name>.cpp`` is host code (the SAH builder), compiled with ``g++``.
+Both go into ``build/kernels/lib<name>-<digest>.so`` at the repository
+root on first use and are loaded with ``ctypes``; the digest covers the
+source, the flags and, for CUDA, every ``csrc/*.cuh``, for host code what
+``-march=native`` means on this machine, so an edited source or header or
+another CPU gets its own build. Nothing is built when the package is
+imported, and a failed build raises. ``check`` and ``launch`` are what
+every kernel wrapper does around its launch.
 """
 from __future__ import annotations
 
@@ -78,14 +80,16 @@ def _source(name: str) -> Path:
 
 def _command(src: Path, out: Path) -> list[str]:
     if src.suffix == ".cu":
-        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+        return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
+                str(src)]
     return [_gxx(), *GXX_FLAGS, str(src), "-o", str(out)]
 
 
 def library_path(name: str) -> Path:
     src = _source(name)
     if src.suffix == ".cu":
-        tag = " ".join(NVCC_FLAGS).encode()
+        tag = " ".join(NVCC_FLAGS).encode() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     else:
         tag = " ".join(GXX_FLAGS).encode() + _native_target()
     digest = hashlib.sha256(src.read_bytes() + tag).hexdigest()

@@ -1,25 +1,42 @@
-"""Time drop-in variants of a hand-written kernel on the terrain64k render.
+"""Time drop-in variants of a hand-written kernel on its main path.
 
     python3 -m mitsuba3_tpu_torch.tools.kernel_variants KERNEL NAME=FILE ...
 
 Run from the repository root on a machine with a card. KERNEL is
 ``cellserve_serve`` (K1, the cellserve render), ``bvh_serve_cull`` or
-``bvh_serve_serve`` (K2 or K3, ``MI3T_ACCEL=serve``) or ``bvh_tiled_mt``
-(K4, ``MI3T_ACCEL=tiled``); each FILE is a ``.cu`` that exports the same
-``extern "C"`` launcher as ``csrc/KERNEL.cu``, whose own build runs as the
-variant ``shipped``. Every variant is built with the shipped flags (ptxas'
-registers and spills are printed) and swapped into the loader in place of
-the shipped library. Per variant the tool prints the device ms and launches
-of each mode of the kernel over one 512x512 4 spp terrain64k render, after
-a warm-up render, with the image held bit-equal to the shipped kernel's;
+``bvh_serve_serve`` (K2 or K3, ``MI3T_ACCEL=serve``), ``bvh_tiled_mt``
+(K4, ``MI3T_ACCEL=tiled``), ``bvh_pallas_traverse`` (K5, the bvh_pallas
+queries) or ``bvh_queue_serve`` (K7, the bvh_queue queries); each FILE is
+a ``.cu`` that exports the same ``extern "C"`` launcher as
+``csrc/KERNEL.cu``, whose own build runs as the variant ``shipped``. Every
+variant is built with the shipped flags (ptxas' registers and spills are
+printed) and swapped into the loader in place of the shipped library.
+
+For K1-K4, per variant the tool prints the device ms and launches of each
+mode of the kernel over one 512x512 4 spp terrain64k render, after a
+warm-up render, with the image held bit-equal to the shipped kernel's;
 then it runs ``chip_smoke.py``'s kernel phase for KERNEL, which holds one
-full-width round to the plain version and times it. The variants run in
-the order given, then again in reverse, so that a drift of the card shows.
+full-width round to the plain version and times it. For K5 and K7 the
+render is one timed bench_bvh query of each kind (``chip_smoke._bvh_rays``,
+2^19 primary and 2^19 bounce rays, each query of the accel's module, after
+a warm-up, by ``chip_smoke._timed_query``) with its wall, launches and the
+kernel's device ms from one more, profiled call, every result held
+bit-equal to the shipped kernel's; then ``chip_smoke.phase_kernels_attic``'s
+rows for the kernel (the plain versions, and K5's per-tile spread, run
+once with the shipped build loaded and are kept for the other variants).
+The variants run in the order given, then again in reverse, so that a
+drift of the card shows; e.g. the parent commit's K5 against the shipped
+one::
+
+    git archive HEAD~1 mitsuba3_tpu_torch | tar -x -C build/parent
+    python3 -m mitsuba3_tpu_torch.tools.kernel_variants bvh_pallas_traverse \
+        parent=build/parent/mitsuba3_tpu_torch/csrc/bvh_pallas_traverse.cu
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import os
 import subprocess
 import sys
@@ -30,6 +47,16 @@ KERNELS = {"cellserve_serve": ("cells", "phase_kernels"),
            "bvh_serve_cull": ("serve", "phase_kernels_serve"),
            "bvh_serve_serve": ("serve", "phase_kernels_serve"),
            "bvh_tiled_mt": ("tiled", "phase_kernels_tiled")}
+# attic kernel -> (its module in ops/attic, the queries timed, a name that
+# only the kernel's device functions carry, its rows in
+# chip_smoke.phase_kernels_attic)
+ATTIC = {"bvh_pallas_traverse": (
+             "bvh_pallas", ("intersect_bvh", "occluded_bvh",
+                            "intersect_bvh_sorted", "occluded_bvh_sorted"),
+             "traverse_", "K5"),
+         "bvh_queue_serve": (
+             "bvh_queue", ("intersect_bvh", "occluded_bvh"),
+             "serve_multi_kernel", "K7")}
 OUT = Path("build") / "variants"
 
 
@@ -57,7 +84,7 @@ def _build(kernel: str, sources: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("kernel", choices=sorted({**KERNELS, **ATTIC}))
     ap.add_argument("variants", nargs="+", metavar="NAME=FILE")
     args = ap.parse_args(argv)
     sources = dict(v.split("=", 1) for v in args.variants)
@@ -76,9 +103,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    accel, phase = KERNELS[args.kernel]
     libs = {"shipped": native.load(args.kernel),
             **_build(args.kernel, sources)}
+    if args.kernel in ATTIC:
+        return _attic(args.kernel, libs, card)
+    accel, phase = KERNELS[args.kernel]
     _, labels = smoke._accel_kernels(accel)
     with smoke._accel(accel):
         scene = mi.load_dict(smoke.terrain64k_dict(mi.ScalarTransform4f))
@@ -116,6 +145,66 @@ def main(argv=None) -> int:
               f"full-width round:", flush=True)
         getattr(smoke, phase)(mi, card)
     native._loaded[args.kernel] = libs["shipped"]
+    return 0
+
+
+def _flat(out):
+    """The tensors of a query's result, in order."""
+    if hasattr(out, "x"):
+        return [out.x, out.y]
+    if isinstance(out, (tuple, list)):
+        return [t for x in out for t in _flat(x)]
+    return [out]
+
+
+def _attic(kernel: str, libs: dict, card: str) -> int:
+    """K5 or K7: per variant, the timed bench_bvh queries, then the
+    kernel's rows of chip_smoke's attic phase."""
+    import torch
+    import chip_smoke as smoke
+    from mitsuba3_tpu_torch.ops import native
+    modname, queries, label, rows = ATTIC[kernel]
+    mod = importlib.import_module(f"mitsuba3_tpu_torch.ops.attic.{modname}")
+    acc = mod.build(*smoke.make_terrain(smoke.BVH_SIDE), device="cuda")
+    rays = {kind: smoke._bvh_rays(kind) for kind in ("primary", "bounce")}
+    order = list(libs) + list(libs)[::-1]
+    ref, equal = {}, True
+    for i, name in enumerate(order):
+        native._loaded[kernel] = libs[name]
+        for kind, (o, d, maxt) in rays.items():
+            for q in queries:
+                fn = getattr(mod, q)
+                out, wall, n = smoke._timed_query(mod.LAUNCHES, fn, acc, o,
+                                                  d, maxt)
+                got = ref.setdefault((kind, q), _flat(out))
+                same = all(torch.equal(a, b)
+                           for a, b in zip(_flat(out), got))
+                equal &= same
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    fn(acc, o, d, maxt)
+                    torch.cuda.synchronize()
+                dev_ms = sum(e.device_time_total for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA
+                             and label in e.key) / 1e3
+                print(f"# {kernel} {name} (pass {i // len(libs)}), {kind} "
+                      f"{q}: {wall * 1e3:.3f} ms, "
+                      f"{smoke.BVH_RAYS / wall / 1e6:.3f} Mrays/s, launches "
+                      f"{n}, kernel device ms {dev_ms:.3f}; results equal "
+                      f"to shipped's: {same} [{card}]", flush=True)
+    del acc
+    torch.cuda.empty_cache()
+    plain = {}
+    for i, name in enumerate(order):
+        native._loaded[kernel] = libs[name]
+        print(f"# {kernel} {name} (pass {i // len(libs)}), full-width "
+              f"rows:", flush=True)
+        smoke.phase_kernels_attic(card, kernels=(rows,), plain=plain)
+    native._loaded[kernel] = libs["shipped"]
+    if not equal:
+        print("kernel_variants: a variant's results differ from the shipped "
+              "kernel's", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -217,6 +217,48 @@ def test_traverse_plain_tiles_walk_alone(np_rng, monkeypatch, closest):
     assert wa["box_tests"] == wa["nodes"] * t_bp.TILE
 
 
+@pytest.mark.parametrize("closest", [True, False], ids=["closest", "anyhit"])
+def test_traverse_plain_tile_work(np_rng, closest):
+    """traverse_plain's per-tile node visits and tests sum to its totals,
+    and each tile's entries are what that tile counts walking alone."""
+    tris = rand_tris(np_rng, 2000)
+    acc = t_bp.build(*tris, device="cpu")
+    o, d = rand_rays(np_rng, 3 * t_bp.TILE)
+    # the tiles differ: tile 1's rays start far off, half the lanes of
+    # tile 2 are inactive
+    o[t_bp.TILE:2 * t_bp.TILE] += 50.0
+    maxt = np.repeat(np.float32([3.0, 3e38, 3e38]), t_bp.TILE)
+    maxt[::5] = -1.0
+    maxt[2 * t_bp.TILE::2] = -1.0
+    o3, d3, mt = t_bp.pack_rays(tvec(o), tvec(d), torch.as_tensor(maxt))
+    work = {}
+    t_bp.traverse_plain(acc, o3, d3, mt, closest, stats=work)
+    assert len(work["tile_tests"]) == len(work["tile_nodes"]) == 3
+    assert sum(work["tile_tests"]) == work["tests"] > 0
+    assert sum(work["tile_nodes"]) == work["nodes"]
+    assert len(set(work["tile_tests"])) == 3
+    for k in range(3):
+        lanes = slice(k * t_bp.TILE, (k + 1) * t_bp.TILE)
+        alone = {}
+        t_bp.traverse_plain(acc, o3[:, lanes], d3[:, lanes], mt[lanes],
+                            closest, stats=alone)
+        assert alone["tile_tests"] == [work["tile_tests"][k]]
+        assert alone["tile_nodes"] == [work["tile_nodes"][k]]
+        assert alone["tile_nodes"] == [alone["nodes"]]
+
+
+@pytest.mark.parametrize("tiles, slots, want", [
+    ([1.0, 1.0, 4.0], 2, 5.0),            # launch order: 4 waits for a 1
+    ([4.0, 1.0, 1.0], 2, 4.0),            # heaviest first
+    ([3.0, 3.0, 2.0, 2.0, 2.0], 2, 7.0),
+    ([2.0, 5.0], 4, 5.0),                 # more slots than tiles
+])
+def test_chip_smoke_makespan(tiles, slots, want):
+    """chip_smoke.py's tile makespan: each tile, in order, goes to the slot
+    that frees first."""
+    assert chip_smoke._makespan(tiles, slots) == want
+
+
 def _serve_accels(np_rng, leaf_size=t_bs.K):
     tris = rand_tris(np_rng, 2000)
     return (j_bq.build(*tris, leaf_size=leaf_size),

@@ -555,15 +555,7 @@ def test_traverse_kernel_matches_plain(cuda, np_rng, closest):
     pt, ps, pu, pv = bp.traverse_plain(acc, o3, d3, mt, closest)
     hit = ps >= 0
     assert hit.any() and not hit[:8192:7].any()
-    assert torch.equal(ks >= 0, hit)
-    if closest:
-        assert torch.allclose(kt, pt, rtol=1e-5, atol=0)
-        same = ks[hit] == ps[hit]
-        assert same.float().mean() >= 0.999
-        assert torch.allclose(ku[hit][same], pu[hit][same], atol=1e-5)
-        assert torch.allclose(kv[hit][same], pv[hit][same], atol=1e-5)
-    else:
-        assert torch.equal(kt, pt) and torch.equal(ks, ps)
+    _assert_equal((kt, ks, ku, kv), (pt, ps, pu, pv), "t slot u v")
 
 
 def test_queue_cull_kernel_matches_plain(cuda, np_rng):
@@ -599,15 +591,129 @@ def test_queue_serve_kernel_matches_plain(cuda, np_rng):
     torch.cuda.synchronize()
     assert bq.LAUNCHES["serve"] == before + 1
     pt, pp, pu, pv = bq.serve_multi_plain(acc, lids, f)
-    hit = pp >= 0
-    assert hit.any()
-    assert torch.equal(kp >= 0, hit)
-    assert torch.equal(kt[~hit], pt[~hit])
-    assert torch.allclose(kt[hit], pt[hit], rtol=1e-5, atol=0)
-    same = kp[hit] == pp[hit]
-    assert same.float().mean() >= 0.999
-    assert torch.allclose(ku[hit][same], pu[hit][same], atol=1e-5)
-    assert torch.allclose(kv[hit][same], pv[hit][same], atol=1e-5)
+    assert (pp >= 0).any()
+    _assert_equal((kt, kp, ku, kv), (pt, pp, pu, pv))
+
+
+# K5's edge tree: node -> children, or leaf id; node 5's box lies far off,
+# so its subtree is never visited. The walk visits the leaves 3, 2, 1, 0,
+# with 128, 33, 31 and 1 real triangles (whole and cut four-column groups
+# of K5 any-hit, around a warp's width); leaf 4 is never reached.
+K5_EDGE_TREE = {0: (1, 2), 1: (3, 4), 2: (5, 6), 3: 0, 4: 1, 5: (7, 8),
+                6: (9, 10), 7: 4, 8: 5, 9: 2, 10: 3}
+K5_EDGE_COUNTS = (1, 31, 33, 128, 128, 5)
+
+
+def _k5_edge_case(np_rng, dev, case):
+    """(BVHData, o3, d3, mt) of K5_EDGE_TREE over two tiles of rays under
+    the edge slabs, with every seventh lane inactive (maxt -1) and some
+    unbounded (maxt inf). "ties": one large, nearest triangle in leaf 3
+    (column 100), twice in leaf 1 (columns 5 and 20) and in leaf 2
+    (column 32); "occluded": a triangle under every ray in leaf 3, the
+    first visited."""
+    n_nodes = len(K5_EDGE_TREE)
+    nb = np.zeros((n_nodes, 8), np.float32)
+    nb[:, :3], nb[:, 3:6] = -10.0, 10.0
+    nb[5, :3], nb[5, 3:6] = 100.0, 101.0
+    nm = np.array([kid if isinstance(kid, tuple)
+                   else (-kid - 1, K5_EDGE_COUNTS[kid])
+                   for kid in K5_EDGE_TREE.values()], np.int32)
+    tris = _edge_slabs(np_rng, [c - 1 for c in K5_EDGE_COUNTS])
+    big = ([-1.0, -1.0, 0.1], [2.0, 0.0, 0.0], [0.0, 2.0, 0.0])
+    if case == "ties":
+        for leaf, col in ((3, 100), (1, 5), (1, 20), (2, 32)):
+            tris[leaf, 0:9, col] = np.concatenate(big)
+    if case == "occluded":
+        tris[3, 0:9, 0] = [-50.0, -50.0, 0.05, 200.0, 0.0, 0.0, 0.0, 200.0,
+                           0.0]
+    acc = bp.BVHData(
+        node_bounds=torch.as_tensor(nb, device=dev),
+        node_meta=torch.as_tensor(nm, device=dev),
+        tris=torch.as_tensor(tris, device=dev),
+        prim_order=torch.zeros(tris.shape[0] * bp.K, dtype=torch.int32,
+                               device=dev),
+        n_leaves=tris.shape[0])
+    o, d = _edge_rays(np_rng, 2 * bp.TILE)
+    mt = np.full(2 * bp.TILE, 3e38 if case == "ties" else 2.5, np.float32)
+    mt[3::7] = -1.0
+    mt[5::11] = np.inf    # no hit beyond 3.4e38 counts in closest mode
+    o3, d3 = (torch.as_tensor(a, device=dev) for a in (o, d))
+    return acc, o3, d3, torch.as_tensor(mt, device=dev)
+
+
+@pytest.mark.parametrize("case,closest", [("edges", True), ("edges", False),
+                                          ("ties", True),
+                                          ("occluded", False)])
+def test_traverse_kernel_edges_equal_plain(cuda, np_rng, case, closest):
+    """K5 on a hand-made tree: leaves of 1, 31, 33 and 128 real triangles,
+    a subtree never visited, inactive lanes in every warp; equal ts in
+    three leaves and twice in one (closest: the later leaf, then the
+    larger column wins); a tile occluded in its first leaf (any-hit)."""
+    acc, o3, d3, mt = _k5_edge_case(np_rng, cuda, case)
+    mode = "closest" if closest else "anyhit"
+    before = bp.LAUNCHES[mode]
+    got = bp.traverse(acc, o3, d3, mt, closest)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES[mode] == before + 1
+    want = bp.traverse_plain(acc, o3, d3, mt, closest)
+    _assert_equal(got, want, "t slot u v")
+    slot, active = want[1], mt >= 0
+    assert not (slot[~active] >= 0).any()
+    if case == "edges":
+        assert (slot >= 0).any() and (slot[active] < 0).any()
+    if case == "ties":
+        assert (slot == 1 * bp.K + 20).sum() > 100
+        assert not ((slot == 3 * bp.K + 100) | (slot == 2 * bp.K + 32)
+                    | (slot == 1 * bp.K + 5)).any()
+    if case == "occluded":
+        assert (slot[active] == 1).all()
+
+
+def test_queue_serve_kernel_edges_equal_plain(cuda, np_rng):
+    """K7 on schedules edited from a query's first one: taken slots with -1
+    between them, all 16 slots taken, each leaf in two consecutive slots,
+    and slots of a padding slab (no real column) among real ones; rays
+    with a short or negative bound."""
+    tris, o, d = _soup(np_rng, n_ray=16384)
+    acc = bq.build(*tris, device=cuda)
+    f, i = bq.initial_state(_vec(o, cuda), _vec(d, cuda),
+                            torch.full((o.shape[0],), 1e30, device=cuda))
+    f, i = bq.sort_by_head(acc, f, bq.fresh_cull(acc, f, i))
+    lids = bq.simulate(i[bq.Q0:], f[bs.TB])[0].cpu().numpy()
+    pad = acc.tris.shape[0]
+    slab = torch.zeros((1, 16, bq.K), device=cuda)
+    slab[:, 9] = -1.0
+    acc = acc.replace(tris=torch.cat([acc.tris, slab]).contiguous())
+    rows = [b for b in range(lids.shape[0]) if (lids[b] >= 0).sum() >= 3]
+    assert len(rows) >= 8
+    for k, b in enumerate(rows[:8]):
+        taken = lids[b][lids[b] >= 0]
+        new = np.full(bq.T, -1, np.int32)
+        if k % 4 == 0:    # -1 between taken slots
+            new[1::2][:taken.size] = taken[:bq.T // 2]
+        elif k % 4 == 1:  # every slot taken
+            new[:] = np.resize(np.concatenate([taken, lids[rows[k + 1]][
+                lids[rows[k + 1]] >= 0]]), bq.T)
+        elif k % 4 == 2:  # each leaf twice in a row
+            new[:2 * taken.size] = np.repeat(taken, 2)[:bq.T]
+        else:             # the padding slab among real slabs
+            new[:3] = (taken[0], pad, taken[1])
+            new[4:6] = (pad, taken[2])
+        lids[b] = new
+    lids = torch.as_tensor(lids, device=cuda)
+    f = f.clone()
+    lane = torch.arange(f.shape[1], device=cuda)
+    f[bs.TB] = torch.where(lane % 5 == 1, 1.5, f[bs.TB])
+    f[bs.TB] = torch.where(lane % 11 == 2, -1.0, f[bs.TB])
+    f[bs.TB] = torch.where(lane % 13 == 4, float("inf"), f[bs.TB])
+    before = bq.LAUNCHES["serve"]
+    got = bq.serve_multi(acc, lids, f)
+    torch.cuda.synchronize()
+    assert bq.LAUNCHES["serve"] == before + 1
+    want = bq.serve_multi_plain(acc, lids, f)
+    _assert_equal(got, want)
+    prim = want[1].reshape(-1, bs.BLK)
+    assert all(bool((prim[b] >= 0).any()) for b in rows[:8])
 
 
 def test_bvh2_serve_kernel_matches_plain(cuda, np_rng):
