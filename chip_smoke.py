@@ -9,7 +9,7 @@ Phases:
 1. the card's name and power limit (exits nonzero without a CUDA device);
 2. build every kernel and the SAH builder from ``mitsuba3_tpu_torch/csrc``
    into ``build/kernels/`` (nvcc or g++, one process per source, all at
-   once), with ptxas' registers and spills per kernel (K1-K7 must not
+   once), with ptxas' registers and spills per kernel (K1-K8 must not
    spill);
 3. kernels: one full-width round of the terrain64k main path (primary
    rays of the 512^2, 4 spp camera) through each kernel and its plain
@@ -68,11 +68,17 @@ Phases:
    prim, u and v; per K5 row the spread of the tests over the tiles and
    (printed, not in the row) their work makespan over the resident CTAs
    modelled at the peak, in launch order and with the heaviest first;
+   K8's row timed by the profiler's device time (``kernel_ms``) and by
+   the CUDA-event span of the wrapper's calls (``issue_ms``), its device
+   times taken by a process of their own (``chip_smoke.py
+   --k8-device-ms``, see phase_k8_device);
 12. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
    closest and any-hit on 2^19 primary and 2^19 bounce rays, timed after
    a warm-up, held to the dense oracle (``ops/intersect.py``) on the first
    32,768 rays with ``bench_bvh.verify``'s checks and to bvh_tiled at full
-   width, and checked to launch every kernel of its module;
+   width, and checked to launch every kernel of its module; per bvh2
+   query K8's device ms (its launches recorded and replayed in that
+   process);
 13. JSON lines of render, query, PRB, interior, loop and per-kernel
    numbers.
 
@@ -124,11 +130,13 @@ BVH_SIDE = 182
 BVH_RAYS = 1 << 19
 HOLD_RAYS = 32768
 LIBRARY_NOTE = ("none: no single PyTorch call computes this function")
-# sources whose kernels must build without register spills (K1-K7;
+# the name of K8's kernel function, which the profiler's tables carry
+K8_KERNEL = "bvh2_serve_kernel"
+# sources whose kernels must build without register spills (K1-K8;
 # their launch bounds leave ptxas the registers they need)
 SPILL_FREE = ("cellserve_serve.cu", "bvh_tiled_mt.cu", "bvh_serve_cull.cu",
               "bvh_serve_serve.cu", "bvh_pallas_traverse.cu",
-              "bvh_queue_serve.cu")
+              "bvh_queue_serve.cu", "bvh2_serve.cu")
 # the late cull of the K2 phase: the first cull after the round loop has
 # left at most this share of the width live
 LATE_LIVE = 0.6
@@ -362,6 +370,26 @@ def _cuda_ms(fn, reps: int, warm: bool = True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, key: str, reps: int = 1, warm: bool = True):
+    """(device ms, launches) of the CUDA kernels whose name holds `key`
+    over `reps` calls of fn() under torch.profiler (CUDA activity only),
+    after one warm-up call unless `warm` is False."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and key in e.key]
+    return (sum(e.device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
 
 
 def _bound(ops: float, nbytes: float):
@@ -828,7 +856,7 @@ def _k5_ctas_per_sm(closest: bool) -> int:
 
 
 def phase_kernels_attic(card: str, kernels=("K5", "K6", "K7", "K8"),
-                        plain: dict | None = None):
+                        plain: dict | None = None, k8_device=None):
     """K5-K8 against their plain versions at full width on bench_bvh's
     terrain queries: K5 as intersect_bvh and occluded_bvh pack the primary
     and the bounce rays, and as the sorted queries pack the bounce rays;
@@ -838,7 +866,9 @@ def phase_kernels_attic(card: str, kernels=("K5", "K6", "K7", "K8"),
     names `queries` counts its launches over those timed queries only.
     `kernels` picks the rows; a dict `plain` keeps K5's and K7's plain
     outputs, their work and times by row, and is read before computing
-    them again (tools/kernel_variants.py holds several builds to one)."""
+    them again (tools/kernel_variants.py holds several builds to one).
+    K8's row takes its device time from `k8_device` (phase_k8_device's
+    result)."""
     import torch
     from mitsuba3_tpu_torch.ops import bvh_serve as bs
     from mitsuba3_tpu_torch.ops.attic import bvh_pallas as bp
@@ -869,12 +899,11 @@ def phase_kernels_attic(card: str, kernels=("K5", "K6", "K7", "K8"),
     # K5: the packet walk, closest and any-hit; on the primary rays as
     # intersect_bvh and occluded_bvh pack them, on the bounce rays also
     # as the sorted queries pack them
-    acc = bp.build(*tris, device="cuda")
-    print(f"# kernels (bvh_pallas): {acc.node_bounds.shape[0]} nodes, "
-          f"{acc.n_leaves} leaves")
-    if "K5" not in kernels:
-        packs = []
-    else:
+    packs = []
+    if "K5" in kernels:
+        acc = bp.build(*tris, device="cuda")
+        print(f"# kernels (bvh_pallas): {acc.node_bounds.shape[0]} nodes, "
+              f"{acc.n_leaves} leaves")
         packs = [("", ("pallas", "pallas_sorted"), "primary",
                   bp.pack_rays(o, d, torch.clamp(maxt, max=3e38)))]
         ob, db, maxt_b = _bvh_rays("bounce")
@@ -911,10 +940,11 @@ def phase_kernels_attic(card: str, kernels=("K5", "K6", "K7", "K8"),
                 p_ms, work["box_tests"] * OPS_PER_NODE
                 + work["tests"] * OPS_PER_TEST, nbytes, card, accel="pallas",
                 rays=kind, queries=[[a, kind] for a in accels], **work))
-    del acc
+    packs = acc = None
 
     # K6: the first cull of a bvh_queue query
-    acc = bq.build(*tris, device="cuda")
+    if {"K6", "K7"} & set(kernels):
+        acc = bq.build(*tris, device="cuda")
     if "K6" in kernels:
         f, i = bq.initial_state(o, d, maxt)
         npad = f.shape[1]
@@ -971,13 +1001,15 @@ def phase_kernels_attic(card: str, kernels=("K5", "K6", "K7", "K8"),
     # primary rays every lane of that round wants a padding supernode of the
     # cull, so the kernel would test nothing)
     if "K8" in kernels:
-        rows.append(_k8_row(tris, card))
+        rows.append(_k8_row(tris, card, k8_device["bounce row"]))
     torch.cuda.empty_cache()
     return rows
 
 
-def _k8_row(tris, card: str):
-    """K8's row: the first bvh2 round's serve on the bounce rays."""
+def _k8_row(tris, card: str, device):
+    """K8's row: the first bvh2 round's serve on the bounce rays. `device`
+    is (device ms, launches) of 20 launches of it, measured where the
+    profiler misses none (phase_k8_device)."""
     import torch
     from mitsuba3_tpu_torch.ops.attic import bvh2 as b2
     acc = b2.build(*tris, device="cuda")
@@ -996,8 +1028,18 @@ def _k8_row(tris, card: str):
           f"{int(((ids != b2.NONE_ID) & (ids >= acc.n_nodes)).sum())} "
           f"padding ids; {work['lanes']} lanes served, {work['tests']} "
           f"ray-triangle tests needed")
-    k_ms = _cuda_ms(lambda: b2.serve(acc, ids, rays, want), 20)
+    # 20 launches timed two ways: the CUDA-event span of the wrapper's calls
+    # (its host work included, which the card waits on when a launch is
+    # this short) and, in `device`, the kernel's device time
+    issue_ms = _cuda_ms(lambda: b2.serve(acc, ids, rays, want), 20)
+    dev_ms, n = device
+    _check(n == 20, f"K8: the profiler saw {n} of 20 launches of "
+           f"{K8_KERNEL}")
+    k_ms = dev_ms / n
     p_ms = _cuda_ms(lambda: b2.serve_plain(acc, ids, rays, want), 2)
+    print(f"# K8 bounce: kernel {k_ms:.4f} ms a launch by device time, "
+          f"{issue_ms:.4f} ms a call by the CUDA-event span of 20 calls "
+          f"[{card}]")
     nbytes = (n_ids * 10 * b2.LEAF * 4
               + (ids.numel() + rays.numel() + want.numel()) * 4
               + want.numel() * 16)
@@ -1005,7 +1047,57 @@ def _k8_row(tris, card: str):
         "bvh2_serve", "K8", "bvh2_serve.cu",
         "mitsuba3_tpu/ops/attic/bvh2.py:207", "serve", err, k_ms, p_ms,
         work["tests"] * (OPS_PER_TEST + 1), nbytes, card, accel="bvh2",
-        rays="bounce", **work)
+        rays="bounce", issue_ms=issue_ms, **work)
+
+
+def k8_device_main():
+    """``chip_smoke.py --k8-device-ms``: K8's device times on bench_bvh's
+    terrain in a process whose first profiler session comes after all its
+    other work: 20 launches on the first bvh2 round of the bounce rays,
+    and each bvh2 query's launches (closest and any-hit, primary and
+    bounce rays) recorded and replayed. Prints one JSON line, {"bounce
+    row": [ms, launches], "<rays> <query>": [ms, launches], ...}."""
+    sys.path.insert(0, ROOT)
+    from mitsuba3_tpu_torch.ops.attic import bvh2
+    acc = bvh2.build(*make_terrain(BVH_SIDE), device="cuda")
+    recorded = {}
+    for kind in ("primary", "bounce"):
+        o, d, maxt = _bvh_rays(kind)
+        if kind == "bounce":
+            row = bvh2.first_round(acc, o, d, maxt)
+        for q, fn in (("closest", bvh2.intersect_bvh),
+                      ("anyhit", bvh2.occluded_bvh)):
+            recorded[f"{kind} {q}"] = _k8_recorded(fn, acc, o, d, maxt)[1]
+    out = {"bounce row": _device_ms(lambda: bvh2.serve(acc, *row),
+                                    K8_KERNEL, 20)}
+    for key, launched in recorded.items():
+        out[key] = _k8_replay_ms(acc, launched)
+        _check(out[key][1] == len(launched), f"K8 {key}: the profiler saw "
+               f"{out[key][1]} of {len(launched)} launches")
+    print(json.dumps(out))
+    return 0
+
+
+def phase_k8_device(card: str) -> dict:
+    """K8's device times (k8_device_main) from a process of their own. On
+    the H100, torch.profiler kept fewer of K8's launches in each session
+    that followed another session and a large unprofiled workload in the
+    same process (34 of 34, then 32, 30, ..., 16, then 2 of 20), so this
+    script, whose renders are profiled first, leaves them to a fresh
+    process. Returns {name: (device ms, launches)}."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--k8-device-ms"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    _check(run.returncode == 0, f"K8 device times: exit {run.returncode}:"
+           f"\n{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    dev = json.loads(run.stdout.strip().splitlines()[-1])
+    for key, (ms, n) in dev.items():
+        print(f"# K8 device time, {key}: {ms:.4f} ms in {n} launches "
+              f"[{card}]")
+    print(f"# K8 device times: {time.perf_counter() - t0:.1f} s in a "
+          f"process of their own")
+    return dev
 
 
 # attic accel -> its query variants (suffix, closest hit, any hit)
@@ -1017,13 +1109,17 @@ ATTIC_QUERIES = {
 }
 
 
-def _timed_query(counters, fn, *args):
+def _timed_query(counters, fn, *args, record=None):
     """(result, wall s, launches) of one call after one warm-up call: the
     host clock around the call, ending in torch.cuda.synchronize();
     `counters` (a module's LAUNCHES) are set to 0 just before the call and
-    read just after it."""
+    read just after it. A list `record` gets the arguments of K8's
+    launches in the warm-up call (_k8_recorded)."""
     import torch
-    fn(*args)
+    if record is None:
+        fn(*args)
+    else:
+        record.extend(_k8_recorded(fn, *args)[1])
     torch.cuda.synchronize()
     for k in counters:
         counters[k] = 0
@@ -1031,6 +1127,34 @@ def _timed_query(counters, fn, *args):
     out = fn(*args)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, dict(counters)
+
+
+def _k8_recorded(fn, *args):
+    """(fn(*args), [(ids, rays, want)] of each K8 launch in the call,
+    cloned): bvh2's rounds call `bvh2.serve` through the module, so the
+    recorder stands in for it during the call."""
+    from mitsuba3_tpu_torch.ops.attic import bvh2
+    launched = []
+    serve = bvh2.serve
+
+    def recording(acc, ids, rays, want):
+        launched.append((ids.clone(), rays.clone(), want.clone()))
+        return serve(acc, ids, rays, want)
+
+    bvh2.serve = recording
+    try:
+        return fn(*args), launched
+    finally:
+        bvh2.serve = serve
+
+
+def _k8_replay_ms(acc, launched):
+    """(device ms, launches) of K8 over the recorded launches of a query,
+    launched again back to back under the profiler: the same inputs, so
+    the same work, as in the query."""
+    from mitsuba3_tpu_torch.ops.attic import bvh2
+    return _device_ms(lambda: [bvh2.serve(acc, *a) for a in launched],
+                      K8_KERNEL, warm=False)
 
 
 def _hold_oracle(tag, closest, anyhit, acc, res, ref):
@@ -1063,12 +1187,13 @@ def _hold_oracle(tag, closest, anyhit, acc, res, ref):
     return frac
 
 
-def phase_attic_queries(card: str):
+def phase_attic_queries(card: str, k8_device: dict):
     """bench_bvh's terrain queries (make_terrain(182), 2^19 primary and
     2^19 bounce rays, maxt 1e30) through bvh_pallas, bvh_pallas sorted,
     bvh_queue and bvh2, closest and any-hit: each timed once after a
     warm-up, held to the dense oracle on the first HOLD_RAYS rays
-    (bench_bvh.verify's checks) and to bvh_tiled (K4) at full width.
+    (bench_bvh.verify's checks) and to bvh_tiled (K4) at full width; the
+    bvh2 records get K8's device ms from `k8_device` (phase_k8_device).
     Returns (each module's kernel launches over its timed query set,
     query records)."""
     import torch
@@ -1150,6 +1275,15 @@ def phase_attic_queries(card: str):
                        "tiled_prim_match": p_eq, "tiled_occ_match": o_eq,
                        "closest_launches": n_c, "anyhit_launches": n_a,
                        "build_s": builds[name]}
+                for q in ("closest", "anyhit") if name == "bvh2" else ():
+                    ms, n = k8_device[f"{kind} {q}"]
+                    _check(n == rec[f"{q}_launches"]["serve"],
+                           f"{tag} {q}: K8 launched {n} times in "
+                           f"phase_k8_device's query, "
+                           f"{rec[f'{q}_launches']['serve']} in this one")
+                    rec[f"{q}_k8_device_ms"] = ms
+                    print(f"# query {tag} {q}: K8 {ms:.4f} device ms in {n} "
+                          f"launches [{card}]")
                 records.append(rec)
                 print(f"# query {tag}: closest {rec['closest_mrays_per_s']:.3f}"
                       f" Mrays/s ({wall_c * 1e3:.1f} ms, hit share "
@@ -1876,9 +2010,11 @@ def main():
     loops = [timed("cornell inverse-rendering loop", phase_cornell_loop, mi,
                    card),
              timed("terrain64k vertex loop", phase_terrain_loop, mi, card)]
-    rows += timed("kernels K5-K8", phase_kernels_attic, card)
+    k8_device = timed("K8 device times", phase_k8_device, card)
+    rows += timed("kernels K5-K8", lambda: phase_kernels_attic(
+        card, k8_device=k8_device))
     attic_launches, queries = timed("attic queries", phase_attic_queries,
-                                    card)
+                                    card, k8_device)
     launches.update(attic_launches)
 
     for r in rows:
@@ -1904,4 +2040,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(k8_device_main() if sys.argv[1:] == ["--k8-device-ms"]
+             else main())

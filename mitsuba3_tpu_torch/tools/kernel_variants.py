@@ -6,7 +6,8 @@ Run from the repository root on a machine with a card. KERNEL is
 ``cellserve_serve`` (K1, the cellserve render), ``bvh_serve_cull`` or
 ``bvh_serve_serve`` (K2 or K3, ``MI3T_ACCEL=serve``), ``bvh_tiled_mt``
 (K4, ``MI3T_ACCEL=tiled``), ``bvh_pallas_traverse`` (K5, the bvh_pallas
-queries) or ``bvh_queue_serve`` (K7, the bvh_queue queries); each FILE is
+queries), ``bvh_queue_serve`` (K7, the bvh_queue queries) or
+``bvh2_serve`` (K8, a bvh2 query); each FILE is
 a ``.cu`` that exports the same ``extern "C"`` launcher as
 ``csrc/KERNEL.cu``, whose own build runs as the variant ``shipped``. Every
 variant is built with the shipped flags (ptxas' registers and spills are
@@ -24,6 +25,12 @@ kernel's device ms from one more, profiled call, every result held
 bit-equal to the shipped kernel's; then ``chip_smoke.phase_kernels_attic``'s
 rows for the kernel (the plain versions, and K5's per-tile spread, run
 once with the shipped build loaded and are kept for the other variants).
+For K8 the query is the bvh2 closest hit on the 2^19 bounce rays alone
+(~13 s, most of it the refill), and the kernel's device ms are those of
+its launches in the warm-up call, replayed under the profiler
+(``chip_smoke._k8_replay_ms``: profiling the whole query takes minutes)
+once every query has run, each replay followed by 20 launches on the
+row's arguments, whose device time ``chip_smoke._k8_row`` then reports.
 The variants run in the order given, then again in reverse, so that a
 drift of the card shows; e.g. the parent commit's K5 against the shipped
 one::
@@ -47,16 +54,19 @@ KERNELS = {"cellserve_serve": ("cells", "phase_kernels"),
            "bvh_serve_cull": ("serve", "phase_kernels_serve"),
            "bvh_serve_serve": ("serve", "phase_kernels_serve"),
            "bvh_tiled_mt": ("tiled", "phase_kernels_tiled")}
-# attic kernel -> (its module in ops/attic, the queries timed, a name that
-# only the kernel's device functions carry, its rows in
+# attic kernel -> (its module in ops/attic, the queries timed, the ray
+# kinds, a name that only the kernel's device functions carry, its rows in
 # chip_smoke.phase_kernels_attic)
 ATTIC = {"bvh_pallas_traverse": (
              "bvh_pallas", ("intersect_bvh", "occluded_bvh",
                             "intersect_bvh_sorted", "occluded_bvh_sorted"),
-             "traverse_", "K5"),
+             ("primary", "bounce"), "traverse_", "K5"),
          "bvh_queue_serve": (
              "bvh_queue", ("intersect_bvh", "occluded_bvh"),
-             "serve_multi_kernel", "K7")}
+             ("primary", "bounce"), "serve_multi_kernel", "K7"),
+         "bvh2_serve": (
+             "bvh2", ("intersect_bvh",), ("bounce",), "bvh2_serve_kernel",
+             "K8")}
 OUT = Path("build") / "variants"
 
 
@@ -158,40 +168,59 @@ def _flat(out):
 
 
 def _attic(kernel: str, libs: dict, card: str) -> int:
-    """K5 or K7: per variant, the timed bench_bvh queries, then the
+    """K5, K7 or K8: per variant, the timed bench_bvh queries, then the
     kernel's rows of chip_smoke's attic phase."""
     import torch
     import chip_smoke as smoke
     from mitsuba3_tpu_torch.ops import native
-    modname, queries, label, rows = ATTIC[kernel]
+    modname, queries, kinds, label, rows = ATTIC[kernel]
     mod = importlib.import_module(f"mitsuba3_tpu_torch.ops.attic.{modname}")
     acc = mod.build(*smoke.make_terrain(smoke.BVH_SIDE), device="cuda")
-    rays = {kind: smoke._bvh_rays(kind) for kind in ("primary", "bounce")}
+    rays = {kind: smoke._bvh_rays(kind) for kind in kinds}
     order = list(libs) + list(libs)[::-1]
-    ref, equal = {}, True
+    ref, equal, timed = {}, True, []
     for i, name in enumerate(order):
         native._loaded[kernel] = libs[name]
         for kind, (o, d, maxt) in rays.items():
             for q in queries:
                 fn = getattr(mod, q)
+                launched = [] if kernel == "bvh2_serve" else None
                 out, wall, n = smoke._timed_query(mod.LAUNCHES, fn, acc, o,
-                                                  d, maxt)
+                                                  d, maxt, record=launched)
                 got = ref.setdefault((kind, q), _flat(out))
                 same = all(torch.equal(a, b)
                            for a, b in zip(_flat(out), got))
                 equal &= same
-                with torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    fn(acc, o, d, maxt)
-                    torch.cuda.synchronize()
-                dev_ms = sum(e.device_time_total for e in prof.key_averages()
-                             if e.device_type == torch.autograd.DeviceType.CUDA
-                             and label in e.key) / 1e3
-                print(f"# {kernel} {name} (pass {i // len(libs)}), {kind} "
-                      f"{q}: {wall * 1e3:.3f} ms, "
-                      f"{smoke.BVH_RAYS / wall / 1e6:.3f} Mrays/s, launches "
-                      f"{n}, kernel device ms {dev_ms:.3f}; results equal "
-                      f"to shipped's: {same} [{card}]", flush=True)
+                dev = None
+                if launched is None:
+                    dev = smoke._device_ms(lambda: fn(acc, o, d, maxt),
+                                           label, warm=False)
+                timed.append((i, name, kind, q, wall, n, same, launched,
+                              dev))
+    # K8's device times are taken only now, every query being done: a
+    # profiler session that follows another one and a large unprofiled
+    # workload misses kernels (chip_smoke.phase_k8_device); per pass and
+    # variant, the query's recorded launches replayed and 20 launches on
+    # the row's arguments
+    row, k8_rows = None, []
+    if kernel == "bvh2_serve":
+        row = mod.first_round(acc, *rays["bounce"])
+    for i, name, kind, q, wall, n, same, launched, dev in timed:
+        if dev is None:
+            native._loaded[kernel] = libs[name]
+            dev = smoke._k8_replay_ms(acc, launched)
+            k8_rows.append(smoke._device_ms(lambda: mod.serve(acc, *row),
+                                            smoke.K8_KERNEL, 20))
+        dev_ms, seen = dev
+        # the profiler must see every launch of the kernel (bvh_queue's
+        # cull is K6, another kernel)
+        equal &= seen == sum(v for k, v in n.items() if k != "cull")
+        print(f"# {kernel} {name} (pass {i // len(libs)}), {kind} "
+              f"{q}: {wall * 1e3:.3f} ms, "
+              f"{smoke.BVH_RAYS / wall / 1e6:.3f} Mrays/s, launches "
+              f"{n}, kernel device ms {dev_ms:.4f} in {seen} "
+              f"launches; results equal to shipped's: {same} "
+              f"[{card}]", flush=True)
     del acc
     torch.cuda.empty_cache()
     plain = {}
@@ -199,11 +228,13 @@ def _attic(kernel: str, libs: dict, card: str) -> int:
         native._loaded[kernel] = libs[name]
         print(f"# {kernel} {name} (pass {i // len(libs)}), full-width "
               f"rows:", flush=True)
-        smoke.phase_kernels_attic(card, kernels=(rows,), plain=plain)
+        smoke.phase_kernels_attic(
+            card, kernels=(rows,), plain=plain,
+            k8_device={"bounce row": k8_rows[i]} if k8_rows else None)
     native._loaded[kernel] = libs["shipped"]
     if not equal:
         print("kernel_variants: a variant's results differ from the shipped "
-              "kernel's", file=sys.stderr)
+              "kernel's, or the profiler missed launches", file=sys.stderr)
         return 1
     return 0
 

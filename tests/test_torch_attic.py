@@ -447,6 +447,53 @@ def test_serve_plain_matches_jax(np_rng, branch):
     np.testing.assert_allclose(v[hit], jv[hit], **UV_TOL)
 
 
+@pytest.mark.parametrize("edit", ["permuted", "repeated"])
+def test_serve_plain_served_order_free(np_rng, edit):
+    """What K8's one test pass per lane rests on: a lane's result depends
+    only on whether its id is served, not on the slot or how often.
+    "permuted": each chunk's served ids in a random order give the same
+    outputs; "repeated": one slot holding a copy of another slot's id
+    gives the outputs of that slot holding NONE. Both equal JAX's Pallas
+    kernel (interpret mode) on the edited ids."""
+    tris = rand_tris(np_rng, 2000)
+    j_acc = j_b2.build(*tris)
+    t_acc = t_b2.build(*tris, device="cpu")
+    ids, rays, want = _bvh2_serve_args(np_rng, t_acc)
+    c = ids.shape[0]
+    if edit == "permuted":
+        edited = ids.gather(1, torch.as_tensor(np.stack(
+            [np_rng.permutation(t_b2.N_SERVE) for _ in range(c)])))
+        assert not torch.equal(edited, ids)
+        ref = ids
+    else:
+        src = np_rng.integers(0, t_b2.N_SERVE, c)
+        dst = (src + np_rng.integers(1, t_b2.N_SERVE, c)) % t_b2.N_SERVE
+        rows = torch.arange(c)
+        edited, ref = ids.clone(), ids.clone()
+        edited[rows, dst] = ids[rows, src]
+        ref[rows, dst] = t_b2.NONE_ID
+    got = t_b2.serve_plain(t_acc, edited, rays, want)
+    for name, g, w in zip("t prim u v".split(), got,
+                          t_b2.serve_plain(t_acc, ref, rays, want)):
+        assert torch.equal(g, w), name
+    hit = got[1] >= 0
+    assert hit.sum() > 50
+    if edit == "repeated":
+        # the overwritten slots held ids that some lanes hit
+        assert not torch.equal(hit, t_b2.serve_plain(t_acc, ids, rays,
+                                                     want)[1] >= 0)
+    jt, jp, ju, jv = (np.asarray(x) for x in _jax_serve_kernel(
+        j_acc, jnp.asarray(edited.numpy()), jnp.asarray(rays.numpy()),
+        jnp.asarray(want.numpy())))
+    t, p, u, v = (x.numpy() for x in got)
+    np.testing.assert_array_equal(p, jp)
+    jhit = jp >= 0
+    np.testing.assert_array_equal(t[~jhit], jt[~jhit])
+    np.testing.assert_allclose(t[jhit], jt[jhit], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(u[jhit], ju[jhit], **UV_TOL)
+    np.testing.assert_allclose(v[jhit], jv[jhit], **UV_TOL)
+
+
 @pytest.mark.parametrize("kernel", ["queue_serve", "bvh2_serve"])
 def test_attic_plain_work_counts(np_rng, kernel):
     """The ray-triangle tests that K7's and K8's plain versions count for
@@ -487,6 +534,32 @@ def test_attic_plain_work_counts(np_rng, kernel):
 # ---------------------------------------------------------------------------
 # Host steps, bit-equal
 # ---------------------------------------------------------------------------
+
+def test_chip_smoke_k8_recorder(np_rng):
+    """chip_smoke._k8_recorded, whose launches the card replays to time K8
+    a query: the query's result is unchanged, each round's serve
+    arguments are kept once, in order, and bvh2.serve is restored."""
+    acc = t_b2.build(*rand_tris(np_rng, 2000), device="cpu")
+    o, d = rand_rays(np_rng, 1024)
+    args = (acc, tvec(o), tvec(d), torch.full((1024,), 1e30))
+    serve = t_b2.serve
+    got, launched = chip_smoke._k8_recorded(t_b2.intersect_bvh, *args)
+    assert t_b2.serve is serve
+    want = t_b2.intersect_bvh(*args)
+    for g, w in zip((got[0], got[1], got[2].x, got[2].y),
+                    (want[0], want[1], want[2].x, want[2].y)):
+        assert torch.equal(g, w)
+    calls = []
+    t_b2.serve = lambda *a: calls.append(a) or serve(*a)
+    try:
+        t_b2.intersect_bvh(*args)
+    finally:
+        t_b2.serve = serve
+    assert len(launched) == len(calls) > 1
+    for (ids, rays, want_ids), call in zip(launched, calls):
+        assert torch.equal(ids, call[1]) and torch.equal(want_ids, call[3])
+        assert torch.equal(rays, call[2])
+
 
 def test_bvh2_cull_topk_bit_equal(np_rng):
     """Keys and rest_min; a quarter of the rays have maxt 1, 16 have -1."""

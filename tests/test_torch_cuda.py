@@ -745,16 +745,157 @@ def test_bvh2_serve_kernel_matches_plain(cuda, np_rng):
     kt, kp, ku, kv = b2.serve(acc, ids, rays, want)
     torch.cuda.synchronize()
     assert b2.LAUNCHES["serve"] == before + 1
-    pt, pp, pu, pv = b2.serve_plain(acc, ids, rays, want)
-    hit = pp >= 0
-    assert hit.sum() > 100
-    assert torch.equal(kp >= 0, hit)
-    assert torch.equal(kt[~hit], pt[~hit])
-    assert torch.allclose(kt[hit], pt[hit], rtol=1e-5, atol=0)
-    same = kp[hit] == pp[hit]
-    assert same.float().mean() >= 0.999
-    assert torch.allclose(ku[hit][same], pu[hit][same], atol=1e-5)
-    assert torch.allclose(kv[hit][same], pv[hit][same], atol=1e-5)
+    want_out = b2.serve_plain(acc, ids, rays, want)
+    assert (want_out[1] >= 0).sum() > 100
+    _assert_equal((kt, kp, ku, kv), want_out)
+
+
+K8_NODES = 6   # supernodes of the edge cases' table
+K8_CHUNKS = 8
+
+
+def _k8_edge_case(np_rng, dev, case):
+    """(BVH2, ids, rays, want) of K8's edge cases: a table of six
+    supernodes of random triangles (node 1 with 20 real, the rest full),
+    eight chunks each served four of them, each lane wanting one of its
+    chunk's ids or none and aimed at one of that supernode's triangles,
+    tbest 1.5 on a quarter of the lanes and 3e38 elsewhere; then the
+    case's edit (see test_bvh2_serve_kernel_edges_equal_plain)."""
+    m, c, leaf = K8_NODES, K8_CHUNKS, b2.LEAF
+    tris = np.zeros((m, 10, leaf), np.float32)
+    tris[:, 9] = -1.0
+    scale = np.ones(m)   # of a lane's distance to the triangle it aims at
+    aim = {}
+    for node in range(m):
+        n = 20 if node == 1 else leaf
+        tris[node, 0:3, :n] = np_rng.uniform(-1, 1, (3, n))
+        tris[node, 3:9, :n] = np_rng.normal(0, 0.5, (6, n))
+        tris[node, 9, :n] = 100 * node + np.arange(n)
+        aim[node] = np.arange(n)
+    if case == "ties":
+        # node 2: two pairs of equal triangles, the larger id first in one
+        # pair and last in the other; its other triangles far away
+        tris[2, 0:3] += 100.0
+        for a, b in ((3, 17), (20, 25)):
+            tris[2, 0:9][:, [a, b]] = np.array(
+                [-0.5, -0.5, a, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])[:, None]
+        tris[2, 9, [3, 17, 20, 25]] = (250, 212, 226, 260)
+        aim[2] = np.array([3, 20])
+    if case == "degenerate":
+        # node 3: det = 0 in columns 5 (e1 = 0) and 6 (e2 = 0)
+        tris[3, 3:6, 5] = 0.0
+        tris[3, 6:9, 6] = 0.0
+        aim[3] = np.array([5, 6, 7])
+    if case == "det_range":
+        # |det| below 2^-126 in node 4, from 2^126 up in node 5
+        tris[4, 0:3] *= 1e-19
+        tris[4, 3:9] *= 2e-20
+        tris[5, 0:3] *= 1e18
+        tris[5, 3:9] *= 3e19
+        scale[4], scale[5] = 1e-19, 1e19
+    ids = np.stack([np.sort((k + np.arange(b2.N_SERVE)) % m)
+                    for k in range(c)]).astype(np.int32)
+    if case == "padding":     # chunk 1: only ids past the table
+        ids[1] = m + np.array([1, 2, 3, 7])
+    if case == "repeated":    # chunks 3-5 serve their first id twice
+        ids[3:6, 2] = ids[3:6, 0]
+    pick = np_rng.integers(0, 5, (c, b2.CHUNK))
+    want = np.where(pick < 4, np.take_along_axis(ids, np.minimum(pick, 3),
+                                                 axis=1), b2.NONE_ID)
+    if case == "none":        # chunk 0: no lane wants an id
+        want[0] = b2.NONE_ID
+    if case == "unserved":    # chunk 2: half its lanes want an id not served
+        want[2, ::2] = np.setdiff1d(np.arange(m), ids[2])[0]
+    w = want.reshape(-1)
+    d = np_rng.normal(size=(w.size, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np_rng.uniform(-4, 4, (w.size, 3))
+    for i in np.nonzero(w < m)[0]:
+        col = tris[w[i], :, np_rng.choice(aim[w[i]])].astype(np.float64)
+        o[i] = col[0:3] + 0.25 * col[3:6] + 0.25 * col[6:9] \
+            - 2.0 * scale[w[i]] * d[i]
+    tb = np.where(np.arange(w.size) % 4 == 0, 1.5, 3e38)
+    rays = np.stack([*o.T, *d.T, np.zeros(w.size), tb]).astype(np.float32)
+    rays = np.ascontiguousarray(rays.reshape(8, c, b2.CHUNK).transpose(
+        1, 0, 2))
+    acc = b2.BVH2(bounds=torch.zeros((m, 6), device=dev),
+                  tris=torch.as_tensor(tris, device=dev), n_nodes=m)
+    args = [torch.as_tensor(a, device=dev) for a in (ids, rays,
+                                                     want.astype(np.int32))]
+    if case == "t_eq_tbest":
+        # every hit lane's bound becomes its t: odd lanes' exactly, even
+        # lanes' one ulp below it
+        t, p, _, _ = b2.serve_plain(acc, *args)
+        hit = p >= 0
+        lane = torch.arange(b2.CHUNK, device=dev).expand_as(t)
+        below = torch.nextafter(t, torch.zeros_like(t))
+        tb = args[1][:, 7]
+        args[1][:, 7] = torch.where(hit, torch.where(lane % 2 == 1, t,
+                                                     below), tb)
+    return (acc, *args)
+
+
+def _k8_case_holds(case, acc, ids, rays, want, out):
+    """The plain version's outputs show the case's edit."""
+    t, p = out[0], out[1]
+    assert (p >= 0).sum() > 50
+    if case == "none":
+        assert (p[0] == -1).all() and (t[0] == b2.BIG).all()
+    if case == "padding":
+        assert (p[1] == -1).all() and (want[1] >= acc.n_nodes).all()
+    if case == "unserved":
+        assert (p[2, ::2] == -1).all() and (want[2, ::2] < acc.n_nodes).all()
+    if case == "ties":
+        for prim in (250, 260):
+            assert (p == prim).sum() > 5
+        assert not ((p == 212) | (p == 226)).any()
+    if case == "degenerate":
+        assert not ((p == 305) | (p == 306)).any()
+        assert ((p >= 300) & (p < 400)).any()
+    if case == "det_range":
+        d = rays[:, 3:6].permute(0, 2, 1).double()
+        for node, far in ((4, False), (5, True)):
+            sel = want == node
+            e1 = acc.tris[node, 3:6].double().T
+            e2 = acc.tris[node, 6:9].double().T
+            det = (torch.linalg.cross(d[sel][:, None, :], e2[None])
+                   * e1).sum(dim=2).abs()
+            assert (det >= 2.0 ** 126).any() if far else \
+                (det < 2.0 ** -126).any()
+    if case == "t_eq_tbest":
+        # the odd lanes' hits lie at exactly their bound
+        lane = torch.arange(b2.CHUNK, device=t.device).expand_as(t)
+        exact = (lane % 2 == 1) & (p >= 0)
+        assert exact.sum() > 50 and (t[exact] == rays[:, 7][exact]).all()
+    if case == "repeated":
+        ref = ids.clone()
+        ref[3:6, 2] = b2.NONE_ID
+        for g, w in zip(out, b2.serve_plain(acc, ref, rays, want)):
+            assert torch.equal(g, w)
+
+
+K8_EDGES = ("none", "padding", "unserved", "ties", "degenerate",
+            "det_range", "t_eq_tbest", "repeated")
+
+
+@pytest.mark.parametrize("case", K8_EDGES)
+def test_bvh2_serve_kernel_edges_equal_plain(cuda, np_rng, case):
+    """K8 on a hand-made table, t, prim, u and v bit-equal to the plain
+    version: "none", a chunk whose lanes all want NONE; "padding", a chunk
+    served only ids past the table; "unserved", lanes wanting an id of the
+    table that their chunk is not served; "ties", equal triangles (the
+    larger prim wins, in either column order); "degenerate", triangles with
+    det = 0; "det_range", |det| below 2^-126 and from 2^126 up (the IEEE
+    pass of mt_exact.cuh); "t_eq_tbest", hits at exactly the bound and one
+    ulp past it; "repeated", a served id repeated in a chunk."""
+    acc, ids, rays, want = _k8_edge_case(np_rng, cuda, case)
+    before = b2.LAUNCHES["serve"]
+    got = b2.serve(acc, ids, rays, want)
+    torch.cuda.synchronize()
+    assert b2.LAUNCHES["serve"] == before + 1
+    plain = b2.serve_plain(acc, ids, rays, want)
+    _k8_case_holds(case, acc, ids, rays, want, plain)
+    _assert_equal(got, plain)
 
 
 ATTIC = {"pallas": (bp, "intersect_bvh", "occluded_bvh"),
