@@ -28,14 +28,14 @@ Phases:
    each accel;
 6. Cornell fwd + PRB bwd, ``bench.py``'s main path: ``load_dict(
    cornell_box(512, 512, max_depth=8))`` with ``prb`` (dense intersector,
-   area light), one warm-up and one timed step of ``bench.py``'s
+   area light), a one-pass warm-up and one timed step of ``bench.py``'s
    grad_step at 64 spp (the image loss against a zero target,
    gradients of bsdf_params, em_radiance, textures and env_data), Mrays/s
    counted as ``bench.py`` counts it ((1 + bwd_ratio) x forward rays,
    bwd_ratio measured on a 64^2 wavefront), one profiled pass; a 32^2
    Cornell render on the card against the CPU;
 7. terrain64k PRB step: the terrain64k scene with ``prb`` through
-   cellserve, one warm-up, one timed and one profiled grad_step
+   cellserve, a one-pass warm-up, one timed and one profiled grad_step
    (gradients of bsdf_params, env_data and de_params); K1 closest and
    any-hit must launch in the primal and, as often, in the replay; K1's
    device ms per step; the small terrain's step on the card against the
@@ -79,8 +79,19 @@ Phases:
    width, and checked to launch every kernel of its module; per bvh2
    query K8's device ms (its launches recorded and replayed in that
    process);
-13. JSON lines of render, query, PRB, interior, loop and per-kernel
-   numbers.
+13. materials (after phase 7): the Cornell step of phase 6 again with
+   tests/test_regression.py's cornell_glossy BSDFs (glossy_cornell_dict:
+   a gold roughconductor, a plastic box), the roughconductor's alpha
+   gradients nonzero; the every-BSDF Cornell
+   (every_bsdf_dict: every BSDF type the port loads) rendered by `path`
+   at 512^2, 64 spp, max_depth 8, and its PRB step at 128^2, 16 spp; K1
+   against its plain version on one full-width round of terrain64k
+   bounce rays off a roughplastic (GGX, alpha 0.3) terrain; that glossy
+   terrain64k rendered through cellserve (K1 launches and device ms per
+   mode by CUDA events, a profiled render); each held against the CPU at
+   a small size;
+14. JSON lines of render, query, PRB, material, interior, loop and
+   per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -346,6 +357,65 @@ def small_terrain_dict(transform, width: int = 24):
     }
 
 
+def glossy_cornell_dict(mi, width: int, height: int, max_depth: int):
+    """tests/test_regression.py's cornell_glossy materials on
+    ``mi.cornell_box`` (`mi` is a package: the port or the JAX one): a gold
+    roughconductor (alpha 0.25) small box and a plastic large box."""
+    d = mi.cornell_box(width, height, max_depth=max_depth)
+    d["small-box"]["bsdf"] = {"type": "roughconductor", "alpha": 0.25,
+                              "material": "Au"}
+    d["large-box"]["bsdf"] = {"type": "plastic"}
+    return d
+
+
+def every_bsdf_dict(mi, width: int, height: int, max_depth: int):
+    """The Cornell box with every BSDF type the port loads: a dielectric
+    small box, a Beckmann roughdielectric large box, a blendbsdf back wall
+    (diffuse and an anisotropic GGX copper roughconductor), a
+    twosided(mask(roughplastic)) floor, an aluminium conductor ceiling, a
+    nonlinear plastic green wall, a thindielectric red wall and a null
+    rectangle inside the box."""
+    T = mi.ScalarTransform4f
+    d = mi.cornell_box(width, height, max_depth=max_depth)
+    d["small-box"]["bsdf"] = {"type": "dielectric", "int_ior": 1.5}
+    d["large-box"]["bsdf"] = {"type": "roughdielectric", "alpha": 0.2,
+                              "distribution": "beckmann"}
+    d["back"]["bsdf"] = {
+        "type": "blendbsdf", "weight": 0.3,
+        "bsdf_0": {"type": "diffuse", "reflectance": {
+            "type": "rgb", "value": [0.8, 0.7, 0.6]}},
+        "bsdf_1": {"type": "roughconductor", "material": "Cu",
+                   "alpha_u": 0.05, "alpha_v": 0.3,
+                   "distribution": "ggx"}}
+    d["floor"]["bsdf"] = {"type": "twosided", "bsdf": {
+        "type": "mask", "opacity": 0.7,
+        "bsdf": {"type": "roughplastic", "alpha": 0.2,
+                 "distribution": "ggx", "diffuse_reflectance": {
+                     "type": "rgb", "value": [0.6, 0.6, 0.7]}}}}
+    d["ceiling"]["bsdf"] = {"type": "conductor", "material": "Al"}
+    d["green-wall"]["bsdf"] = {"type": "plastic", "nonlinear": True,
+                               "diffuse_reflectance": {
+                                   "type": "rgb",
+                                   "value": [0.105421, 0.37798, 0.076425]}}
+    d["red-wall"]["bsdf"] = {"type": "thindielectric"}
+    d["veil"] = {"type": "rectangle",
+                 "to_world": T().translate([0.25, 0.1, 0.6]).rotate(
+                     [0, 1, 0], 30).scale(0.3),
+                 "bsdf": {"type": "null"}}
+    return d
+
+
+def every_bsdf_diffuse_box_dict(mi, width: int, height: int,
+                                max_depth: int):
+    """every_bsdf_dict with a diffuse small box in place of its smooth
+    dielectric: the one lobe of that scene that turns a rounding
+    difference into a different path by max_depth 8 (ROADMAP queue 3,
+    tests/test_torch_glossy.py::test_every_bsdf_depth8_parts_on_one_ulp)."""
+    d = every_bsdf_dict(mi, width, height, max_depth)
+    d["small-box"]["bsdf"] = {"type": "diffuse"}
+    return d
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -455,6 +525,31 @@ def _primary_rays(scene):
     return ri._gen_camera_rays(scene, ri.pass_seed(0, 0), sppc, 0, 4)[1]
 
 
+def _bounce_rays(scene):
+    """The second round of the terrain64k camera's pass: the primary rays
+    that hit, continued in the direction their BSDF samples (the glossy
+    terrain's roughplastic lobe), as the path integrator spawns them."""
+    import torch
+    from mitsuba3_tpu_torch import bsdfs
+    from mitsuba3_tpu_torch.core.struct import take_lanes
+    from mitsuba3_tpu_torch.core.vec import Vec2, Vec3
+    from mitsuba3_tpu_torch.render.records import Ray
+
+    ray = _primary_rays(scene)
+    pi = scene.ray_intersect_preliminary(ray)
+    si, attrs = scene.compute_surface_interaction(ray, pi)
+    hit = torch.nonzero(si.is_valid()).squeeze(1)
+    n = si.t.shape[0]
+    si = take_lanes(si, hit, n)
+    gen = torch.Generator(device=scene.device).manual_seed(0)
+    u = torch.rand((3, hit.shape[0]), generator=gen, device=scene.device)
+    bs, _ = bsdfs.sample(scene, attrs["bsdf"][hit], si, u[0],
+                         Vec2(u[1], u[2]))
+    d = si.to_world(bs.wo)
+    return Ray.make(si.offset_p(d), Vec3(d.x.contiguous(), d.y.contiguous(),
+                                         d.z.contiguous()))
+
+
 def _k1_tests(tris, r0, nr, n_pairs: int):
     """Ray-triangle tests one K1 launch needs, as a device scalar: every
     real pair of a sub-block tests every real triangle (id >= 0) of the
@@ -474,17 +569,18 @@ def _k1_bytes(tris, n_pad: int, n_sub: int, want_uv: bool):
         + n_sub * 8
 
 
-def phase_kernels(mi, card: str, make_dict=None, tag: str = ""):
+def phase_kernels(mi, card: str, make_dict=None, tag: str = "",
+                  rays_of=None):
     """K1 against its plain version on one full-width round (the primary
-    rays of one pass) of a main path through cellserve: terrain64k by
-    default, or the scene `make_dict` makes (its rows' names end in
-    `tag`)."""
+    rays of one pass, or the rays ``rays_of(scene)`` gives) of a main path
+    through cellserve: terrain64k by default, or the scene `make_dict`
+    makes (its rows' names end in `tag`)."""
     import torch
     from mitsuba3_tpu_torch.ops import cellserve as cs
 
     scene = mi.load_dict((make_dict or terrain64k_dict)(mi.ScalarTransform4f))
     acc = scene.accel
-    ray = _primary_rays(scene)
+    ray = (rays_of or _primary_rays)(scene)
     n = ray.o.x.shape[0]
     og, dg = cs._grid_ray(acc, ray.o, ray.d)
     t_in, t_out, inv = cs._clip(acc, og, dg, ray.maxt)
@@ -1052,28 +1148,49 @@ def _k8_row(tris, card: str, device):
 
 def k8_device_main():
     """``chip_smoke.py --k8-device-ms``: K8's device times on bench_bvh's
-    terrain in a process whose first profiler session comes after all its
-    other work: 20 launches on the first bvh2 round of the bounce rays,
-    and each bvh2 query's launches (closest and any-hit, primary and
-    bounce rays) recorded and replayed. Prints one JSON line, {"bounce
-    row": [ms, launches], "<rays> <query>": [ms, launches], ...}."""
+    terrain in a process whose one profiler session comes after all its
+    other work: 20 launches on the first bvh2 round of the bounce rays
+    (after one warm-up launch), then each bvh2 query's launches (closest
+    and any-hit, primary and bounce rays) recorded and replayed, back to
+    back. The session's K8 kernels, in launch order, are split by the
+    launch counts; one session, because torch.profiler dropped kernels in
+    sessions that followed another in the same process. Prints one JSON
+    line, {"bounce row": [ms, launches], "<rays> <query>": [ms,
+    launches], ...}."""
     sys.path.insert(0, ROOT)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from mitsuba3_tpu_torch.ops.attic import bvh2
     acc = bvh2.build(*make_terrain(BVH_SIDE), device="cuda")
-    recorded = {}
+    runs = {}
     for kind in ("primary", "bounce"):
         o, d, maxt = _bvh_rays(kind)
         if kind == "bounce":
             row = bvh2.first_round(acc, o, d, maxt)
         for q, fn in (("closest", bvh2.intersect_bvh),
                       ("anyhit", bvh2.occluded_bvh)):
-            recorded[f"{kind} {q}"] = _k8_recorded(fn, acc, o, d, maxt)[1]
-    out = {"bounce row": _device_ms(lambda: bvh2.serve(acc, *row),
-                                    K8_KERNEL, 20)}
-    for key, launched in recorded.items():
-        out[key] = _k8_replay_ms(acc, launched)
-        _check(out[key][1] == len(launched), f"K8 {key}: the profiler saw "
-               f"{out[key][1]} of {len(launched)} launches")
+            runs[f"{kind} {q}"] = _k8_recorded(fn, acc, o, d, maxt)[1]
+    runs = {"bounce row": [row] * 20, **runs}
+    bvh2.serve(acc, *row)                                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for launched in runs.values():
+            for args in launched:
+                bvh2.serve(acc, *args)
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.device_time_total)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and K8_KERNEL in e.key)
+    n_all = sum(len(v) for v in runs.values())
+    _check(len(kernels) == n_all, f"K8: the profiler saw {len(kernels)} of "
+           f"{n_all} launches")
+    out, i = {}, 0
+    for key, launched in runs.items():
+        n = len(launched)
+        out[key] = [sum(us for _, us in kernels[i:i + n]) / 1e3, n]
+        i += n
     print(json.dumps(out))
     return 0
 
@@ -1377,17 +1494,18 @@ def phase_render(mi, card: str, accel: str, ref=None):
 
 def _profile(run, wall_unprofiled: float, kernels: dict):
     """Device time by kernel over one call of `run` (a render, or a pass of
-    a PRB step) under torch.profiler; the idle share is taken against the
-    same work's unprofiled wall time, since the profiler slows the host.
-    `kernels` maps a label to the substring of the CUDA kernel names it
-    sums."""
+    a PRB step) under torch.profiler, recording CUDA activity only (a
+    material pass launches up to ~190,000 kernels, and aggregating their
+    host-side events too takes tens of seconds); the idle share is taken
+    against the same work's unprofiled wall time, since the profiler slows
+    the host. `kernels` maps a label to the substring of the CUDA kernel
+    names it sums."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1534,23 +1652,42 @@ def _check_grads(tag, grads, nonzero):
                   if isinstance(g, tuple)))
 
 
-def phase_cornell_prb(mi, card: str):
+def _agree_images(tag, img_g, img_c):
+    """A card image held against the CPU's: finite, > 99.5 % of values
+    isclose 1e-3, means rtol 1e-3. Returns the close share."""
+    close = float(np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean())
+    print(f"# agreement {tag}: {close:.5f} of values close, means "
+          f"{img_g.mean():.6f} (card) vs {img_c.mean():.6f} (cpu)")
+    _check(np.isfinite(img_g).all() and img_g.shape == img_c.shape,
+           f"{tag}: card image not finite or misshaped")
+    _check(close > 0.995, f"{tag}: only {close:.5f} of values agree")
+    _check(np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3),
+           f"{tag}: image means disagree")
+    return close
+
+
+def phase_cornell_prb(mi, card: str, make=None, tag: str = "cornell",
+                      nonzero=()):
     """bench.py's main path on the card: load_dict(cornell_box(512, 512,
-    max_depth=8)) with prb, one warm-up and one timed grad_step at 64 spp
+    max_depth=8)) with prb (with the BSDFs ``make(mi, w, h, max_depth)``
+    gives, when given), a one-pass warm-up and one timed grad_step at 64 spp
     (gradients of bsdf_params, em_radiance, textures and env_data),
     Mrays/s counted as bench.py counts it, one profiled pass; then a 32^2
-    Cornell render on the card against the CPU."""
+    render on the card against the CPU. `nonzero` lists (slot type,
+    columns) of bsdf_params whose gradient must not be zero."""
     import torch
 
+    make = make or (lambda m, w, h, depth: m.cornell_box(w, h,
+                                                         max_depth=depth))
     names = ("bsdf_params", "em_radiance", "textures", "env_data")
-    scene = mi.load_dict(_prb_dict(mi.cornell_box(512, 512, max_depth=8)))
+    scene = mi.load_dict(_prb_dict(make(mi, 512, 512, 8)))
     _check(scene.accel is None and scene.faces.shape[0] == 40,
-           "the Cornell box does not load through the dense branch")
+           f"{tag}: the Cornell box does not load through the dense branch")
     n_fwd, n_bwd = _bwd_ratio(scene)
     _check(n_fwd == n_bwd, f"replay issued {n_bwd} rays, primal {n_fwd}")
     bwd_ratio = n_bwd / max(n_fwd, 1)
 
-    _grad_step(scene, names, 0, CORNELL_SPP)      # warm-up
+    _grad_step(scene, names, 0, CORNELL_SPP, passes=1)     # warm-up: a pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1558,18 +1695,23 @@ def phase_cornell_prb(mi, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    _check_grads("cornell prb", grads, ("bsdf_params", "em_radiance"))
+    _check_grads(f"{tag} prb", grads, ("bsdf_params", "em_radiance"))
+    for t, cols in nonzero:
+        g = grads["bsdf_params"][scene.bsdf_types.index(t), cols]
+        _check(bool((g != 0).all()), f"{tag} prb: the bsdf_params gradient "
+               f"of type {t}, columns {cols}, has a zero: {g.tolist()}")
     # the Cornell box has no environment and loads no texture
     _check(float(grads["env_data"].abs().max()) == 0.0
            and grads["textures"] == (),
-           "cornell prb: env_data or textures gradient where none can be")
+           f"{tag} prb: env_data or textures gradient where none can be")
     mrays = (1.0 + bwd_ratio) * rays / wall / 1e6
-    out = {"scene": "cornell 512x512 64spp max_depth 8, prb",
+    out = {"scene": f"{tag} 512x512 64spp max_depth 8, prb",
+           "bsdf_types": list(scene.bsdf_types),
            "forward_rays": rays, "bwd_ratio": bwd_ratio,
            "ratio_rays_64x64": [n_fwd, n_bwd], "wall_s": wall,
            "passes": n_passes, "mrays_per_s": mrays, "peak_bytes": peak,
            "loss": loss, "textures": "none loaded (empty tuple)"}
-    print(f"# cornell fwd+PRB bwd 512x512 64spp: {rays} forward rays, "
+    print(f"# {tag} fwd+PRB bwd 512x512 64spp: {rays} forward rays, "
           f"bwd_ratio {bwd_ratio:.6f} ({n_bwd}/{n_fwd} on 64x64), step "
           f"{wall:.3f} s in {n_passes} passes = {mrays:.3f} Mrays/s, peak "
           f"memory {peak / 2**30:.2f} GiB, last pass loss {loss:.6g} "
@@ -1579,27 +1721,111 @@ def phase_cornell_prb(mi, card: str):
     del scene, grads
     torch.cuda.empty_cache()
 
-    # a 32^2 Cornell render (prb primal) on the card and on the CPU
-    d = _prb_dict(mi.cornell_box(32, 32, max_depth=8))
+    # a 32^2 render (prb primal) on the card and on the CPU
+    d = _prb_dict(make(mi, 32, 32, 8))
     img_g = mi.render(mi.load_dict(d), seed=5, spp=16).cpu().numpy()
     img_c = mi.render(mi.load_dict(d, device="cpu"), seed=5,
                       spp=16).numpy()
-    close = float(np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean())
-    print(f"# agreement cornell (32x32, 16 spp): {close:.5f} of values "
-          f"close, means {img_g.mean():.6f} (card) vs {img_c.mean():.6f} "
-          f"(cpu)")
-    _check(np.isfinite(img_g).all() and img_g.shape == (32, 32, 3),
-           "cornell: card image not finite or misshaped")
-    _check(close > 0.995, f"cornell: only {close:.5f} of values agree")
-    _check(np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3),
-           "cornell: image means disagree")
-    out.update(agreement_close=close)
+    out.update(agreement_close=_agree_images(f"{tag} (32x32, 16 spp)",
+                                             img_g, img_c))
+    return out
+
+
+EVERY_BSDF_PRB_SIDE = 128
+EVERY_BSDF_PRB_SPP = 16
+
+
+def phase_every_bsdf(mi, card: str):
+    """The every-BSDF Cornell (every_bsdf_dict: 11 BSDF types, a
+    twosided(mask(roughplastic)) floor, a null rectangle) with the path
+    integrator at 512^2, 64 spp, max_depth 8: a one-pass warm-up, one
+    timed render (Mrays/s as bench.py counts a forward render, peak
+    memory), one profiled pass; a PRB step at 128^2, 16 spp (gradients
+    of bsdf_params and em_radiance finite, wall and peak memory); 32^2
+    renders on the card against the CPU, per pixel: the scene at
+    max_depth 4, and at max_depth 8 with a diffuse small box
+    (every_bsdf_diffuse_box_dict)."""
+    import torch
+    from mitsuba3_tpu_torch.render import integrator as ri
+
+    scene = mi.load_dict(every_bsdf_dict(mi, 512, 512, 8))
+    _check(set(scene.bsdf_types) == set(range(11))
+           and scene.adapter_max_depth == 1,
+           f"every-BSDF: types {scene.bsdf_types}, adapter depth "
+           f"{scene.adapter_max_depth}")
+    sppc, n_passes = ri.plan_passes(scene, CORNELL_SPP)
+    mi.render_with_stats(scene, seed=0, spp=sppc)     # warm-up: one pass
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, rays = mi.render_with_stats(scene, seed=1, spp=CORNELL_SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _check(tuple(img.shape) == (scene.film.height, scene.film.width, 3)
+           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           "every-BSDF: image misshaped, not finite or black")
+    out = {"scene": "every-BSDF cornell 512x512 64spp max_depth 8, path",
+           "bsdf_types": list(scene.bsdf_types), "rays": rays,
+           "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
+           "peak_bytes": peak, "mean": float(img.mean())}
+    print(f"# every-BSDF cornell path 512x512 64spp: {rays} rays in "
+          f"{wall:.3f} s = {rays / wall / 1e6:.3f} Mrays/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, mean {float(img.mean()):.6f} [{card}]")
+    out.update(_profile(lambda: mi.render_with_stats(
+        scene, seed=2, spp=sppc), wall / n_passes, {}))
+    del scene, img
+    torch.cuda.empty_cache()
+
+    names = ("bsdf_params", "em_radiance")
+    side = EVERY_BSDF_PRB_SIDE
+    scene = mi.load_dict(_prb_dict(every_bsdf_dict(mi, side, side, 8)))
+    n_fwd, n_bwd = _bwd_ratio(scene)
+    _check(n_fwd == n_bwd, f"every-BSDF replay issued {n_bwd} rays, primal "
+           f"{n_fwd}")
+    _grad_step(scene, names, 0, EVERY_BSDF_PRB_SPP, passes=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, prb_rays, grads, n_passes = _grad_step(scene, names, 1,
+                                                 EVERY_BSDF_PRB_SPP)
+    torch.cuda.synchronize()
+    prb_wall = time.perf_counter() - t0
+    prb_peak = torch.cuda.max_memory_allocated()
+    _check_grads("every-BSDF prb", grads, names)
+    mrays = 2.0 * prb_rays / prb_wall / 1e6      # bwd_ratio 1 (checked)
+    out["prb"] = {"scene": f"every-BSDF cornell {side}x{side} "
+                           f"{EVERY_BSDF_PRB_SPP}spp max_depth 8, prb",
+                  "forward_rays": prb_rays, "bwd_ratio": 1.0,
+                  "ratio_rays_64x64": [n_fwd, n_bwd], "wall_s": prb_wall,
+                  "passes": n_passes, "mrays_per_s": mrays,
+                  "peak_bytes": prb_peak, "loss": loss}
+    print(f"# every-BSDF cornell fwd+PRB bwd {side}x{side} "
+          f"{EVERY_BSDF_PRB_SPP}spp: {prb_rays} forward rays, bwd_ratio 1 "
+          f"({n_bwd}/{n_fwd} on 64x64), step {prb_wall:.3f} s in "
+          f"{n_passes} passes = {mrays:.3f} Mrays/s, peak memory "
+          f"{prb_peak / 2**30:.2f} GiB [{card}]")
+    del scene, grads
+    torch.cuda.empty_cache()
+
+    # by max_depth 8 the small box's smooth glass turns a rounding
+    # difference into different paths (ROADMAP queue 3), so that depth is
+    # held per pixel with a diffuse small box
+    for key, make, depth in (("agreement_close", every_bsdf_dict, 4),
+                             ("agreement_depth8_close",
+                              every_bsdf_diffuse_box_dict, 8)):
+        d = make(mi, 32, 32, depth)
+        out[key] = _agree_images(
+            f"{make.__name__} (32x32, 16 spp, max_depth {depth})",
+            mi.render(mi.load_dict(d), seed=5, spp=16).cpu().numpy(),
+            mi.render(mi.load_dict(d, device="cpu"), seed=5,
+                      spp=16).numpy())
     return out
 
 
 def phase_terrain_prb(mi, card: str):
     """bench.py's terrain64k (512^2, 4 spp, max_depth 4) with prb through
-    cellserve: one warm-up, one timed and one profiled grad_step
+    cellserve: a one-pass warm-up, one timed and one profiled grad_step
     (gradients of bsdf_params, env_data and de_params). K1 must launch,
     closest and any-hit, in the primal and in the replay of every pass.
     Then the small terrain's step on the card against the CPU."""
@@ -1615,7 +1841,7 @@ def phase_terrain_prb(mi, card: str):
     _check(n_fwd == n_bwd, f"terrain replay issued {n_bwd} rays, primal "
            f"{n_fwd}")
     bwd_ratio = n_bwd / max(n_fwd, 1)
-    _grad_step(scene, names, 0, TERRAIN_PRB_SPP)          # warm-up
+    _grad_step(scene, names, 0, TERRAIN_PRB_SPP, passes=1)  # warm-up: a pass
 
     per_stage = {"fwd": dict.fromkeys(counters, 0),
                  "bwd": dict.fromkeys(counters, 0)}
@@ -1687,6 +1913,94 @@ def phase_terrain_prb(mi, card: str):
         _check(err <= tol, f"terrain prb: {k} gradients disagree")
     return out
 
+
+
+GLOSSY_TERRAIN_BSDF = {"type": "roughplastic", "alpha": 0.3,
+                       "distribution": "ggx"}
+
+
+def glossy(make_dict):
+    """`make_dict` (a terrain scene maker) with its terrain's BSDF replaced
+    by a GGX roughplastic of alpha 0.3."""
+    def make(transform, **kw):
+        d = make_dict(transform, **kw)
+        d["terrain"]["bsdf"] = dict(GLOSSY_TERRAIN_BSDF)
+        return d
+    return make
+
+
+def phase_glossy_terrain(mi, card: str):
+    """terrain64k with a roughplastic (GGX, alpha 0.3) BSDF through
+    cellserve, 512^2, 4 spp, max_depth 4, forward: one warm-up render,
+    one timed with K1's launches counted, the same again with each K1
+    launch timed by CUDA events (``_K1Meter``), one profiled (K1's device
+    ms per mode, the idle share); then the small terrain with the same
+    BSDF on the card against the CPU. Returns (K1 launches, numbers)."""
+    import torch
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    t0 = time.perf_counter()
+    scene = mi.load_dict(glossy(terrain64k_dict)(mi.ScalarTransform4f))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _check(isinstance(scene.accel, cellserve.CellServe)
+           and scene.bsdf_types == (8,),
+           "glossy terrain64k does not load as one roughplastic under "
+           "cellserve")
+    mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                     max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cellserve.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _check(all(v > 0 for v in launches.values()),
+           f"glossy terrain: the render did not launch K1 in both modes: "
+           f"{launches}")
+    # the same render again with each K1 launch timed (the events and the
+    # test counts cost host time, so the timed render above runs bare)
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    with _K1Meter() as meter:
+        mi.render_with_stats(scene, seed=1, spp=4, max_wavefront=1 << 20)
+    k1 = meter.summary()
+    _check(all(k1[m]["launches"] == launches[m] == cellserve.LAUNCHES[m]
+               for m in launches),
+           f"glossy terrain: K1 meter {k1} disagrees with {launches}")
+    _check(tuple(img.shape) == (scene.film.height, scene.film.width, 3)
+           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           "glossy terrain: image misshaped, not finite or black")
+    mrays = rays / wall / 1e6
+    out = {"scene": "terrain64k 512x512 4spp max_depth 4, roughplastic "
+                    "GGX alpha 0.3, cellserve", "rays": rays,
+           "wall_s": wall, "mrays_per_s": mrays, "scene_build_s": build_s,
+           "peak_bytes": peak, "mean": float(img.mean()), "k1": k1,
+           "k1_launches": launches}
+    print(f"# render glossy terrain64k 512x512 4spp: {rays} rays in "
+          f"{wall:.3f} s = {mrays:.3f} Mrays/s, scene build {build_s:.2f} "
+          f"s, peak memory {peak / 2**30:.2f} GiB, mean "
+          f"{float(img.mean()):.6f} [{card}]")
+    for mode, v in k1.items():
+        print(f"# glossy terrain K1 {mode}: {v['launches']} launches for "
+              f"{v['queries']} queries, {v['device_ms']:.2f} device ms "
+              f"(CUDA events), bound {v['bound_ms']:.2f} ms [{card}]")
+    _, labels = _accel_kernels("cells")
+    out.update(_profile(lambda: mi.render_with_stats(
+        scene, seed=2, spp=4, max_wavefront=1 << 20), wall, labels))
+    del scene, img
+    torch.cuda.empty_cache()
+
+    d = glossy(small_terrain_dict)(mi.ScalarTransform4f)
+    img_g = mi.render(mi.load_dict(d), seed=5, spp=4).cpu().numpy()
+    img_c = mi.render(mi.load_dict(d, device="cpu"), seed=5, spp=4).numpy()
+    out.update(agreement_close=_agree_images(
+        "glossy small terrain (24x24, 4 spp)", img_g, img_c))
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -2002,7 +2316,16 @@ def main():
     for accel in ("cells", "serve", "tiled"):
         timed(f"agreement {accel}", phase_agreement, mi, accel)
     prb_runs = [timed("cornell fwd+PRB bwd", phase_cornell_prb, mi, card),
-                timed("terrain64k PRB step", phase_terrain_prb, mi, card)]
+                timed("terrain64k PRB step", phase_terrain_prb, mi, card),
+                timed("glossy cornell fwd+PRB bwd", phase_cornell_prb, mi,
+                      card, glossy_cornell_dict, "glossy cornell",
+                      ((2, [6, 7]),))]
+    materials = [timed("every-BSDF cornell", phase_every_bsdf, mi, card)]
+    rows += timed("kernels K1 glossy bounce", phase_kernels, mi, card,
+                  glossy(terrain64k_dict), ".glossy", _bounce_rays)
+    launches["cells.glossy"], glossy_terrain = timed(
+        "render glossy terrain64k", phase_glossy_terrain, mi, card)
+    materials.append(glossy_terrain)
     rows += timed("kernels K1 interior120k", phase_kernels, mi, card,
                   interior_dict, ".interior120k")
     launches["cells.interior120k"], interior = timed(
@@ -2030,6 +2353,7 @@ def main():
     print(json.dumps({"renders": renders, "card": card}))
     print(json.dumps({"attic_queries": queries, "card": card}))
     print(json.dumps({"prb": prb_runs, "card": card}))
+    print(json.dumps({"materials": materials, "card": card}))
     print(json.dumps({"interior": interior, "card": card}))
     print(json.dumps({"loops": loops, "card": card}))
     print(json.dumps({"kernels": rows}))

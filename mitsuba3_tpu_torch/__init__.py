@@ -11,8 +11,11 @@ public API follows the JAX package::
 
 ``load_dict(d, device="cpu")`` puts a scene on the CPU, where every kernel
 runs as its plain PyTorch version. The port carries the plugins of
-triangle scenes (meshes, rectangles, cubes) with diffuse BSDFs, area
-lights, point, spot and directional lights and a constant environment,
+triangle scenes (meshes, rectangles, cubes) with constant-parameter
+BSDFs (diffuse, conductor, roughconductor, plastic, roughplastic,
+dielectric, thindielectric, roughdielectric, null, mask, blendbsdf and
+twosided), area lights, point, spot and directional lights and a
+constant environment,
 such as ``cornell_box()``, rendered by the ``path`` integrator or
 differentiated by ``prb`` (path replay backpropagation: gradients of the
 scene's tables through ``torch.autograd``); small scenes use the dense

@@ -122,6 +122,19 @@ def _attached_nee_geometry(scene_t, ds, ref_p_a):
     return d_a, torch.where(area_lane, ratio, 1.0)
 
 
+# below this, a continuation's detached BSDF value gives its lane no
+# Lr_ind gradient: d(a / det) = da / det overflows float32 there (a
+# Beckmann lobe sampled far in its tail: value and pdf ~1e-42, weight ~1)
+REL_MIN = 1e-30
+
+
+def _relative(a, det):
+    """a / det, and 0 where |det| <= REL_MIN (the relative-gradient trick's
+    ratio, whose value is 1 and whose gradient is da / det)."""
+    ok = det.abs() > REL_MIN
+    return torch.where(ok, a / torch.where(ok, det, 1.0), 0.0)
+
+
 @struct
 class PRBState:
     ray_o: Vec3
@@ -276,9 +289,9 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
                 # its local coordinates turn with the attached frame
                 bsdf_val_a = bsdfs.eval_pdf(scene_t, bsdf_idx, si_a,
                                             si_a.to_local(wo_world))[0]
-                rel = Vec3(m.safe_div(bsdf_val_a.x, bsdf_val_next_det.x),
-                           m.safe_div(bsdf_val_a.y, bsdf_val_next_det.y),
-                           m.safe_div(bsdf_val_a.z, bsdf_val_next_det.z))
+                rel = Vec3(_relative(bsdf_val_a.x, bsdf_val_next_det.x),
+                           _relative(bsdf_val_a.y, bsdf_val_next_det.y),
+                           _relative(bsdf_val_a.z, bsdf_val_next_det.z))
                 Lo = Le_a + Lr_dir_a + (L * rel).mask(active_next)
                 return (s.dL * Lo).to_array().sum()
 

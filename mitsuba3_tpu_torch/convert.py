@@ -64,7 +64,8 @@ ACCELS = {
 }
 ATTIC = ("pallas", "bvh2")   # standalone accels only: no scene holds one
 SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
-              "delta_emitter_types", "bsdf_types", "bsdf_flags", "spp")
+              "delta_emitter_types", "bsdf_types", "bsdf_flags",
+              "adapter_max_depth", "spp")
 
 
 def _np(x):

@@ -19,11 +19,27 @@ def sqr(x):
 
 
 def safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    """sqrt(max(x, 0)), whose gradient is 0 (not inf or NaN) where x <= 0:
+    a BSDF's branch not taken (total internal reflection, a grazing
+    cosine) must not turn the replay's local gradient into NaN."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def safe_rsqrt(x):
+    return torch.rsqrt(torch.clamp(x, min=torch.finfo(torch.float32).tiny))
 
 
 def safe_acos(x):
     return torch.acos(torch.clamp(x, -1.0, 1.0))
+
+
+def safe_asin(x):
+    return torch.asin(torch.clamp(x, -1.0, 1.0))
+
+
+def sign(x):
+    return torch.where(x >= 0.0, 1.0, -1.0)
 
 
 def safe_div(a, b, fallback=0.0):

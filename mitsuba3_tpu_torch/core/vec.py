@@ -44,12 +44,21 @@ class Vec3:
             return Vec3(self.x - o.x, self.y - o.y, self.z - o.z)
         return Vec3(self.x - o, self.y - o, self.z - o)
 
+    def __rsub__(self, o):
+        return Vec3(o - self.x, o - self.y, o - self.z)
+
     def __mul__(self, o):
         if isinstance(o, Vec3):
             return Vec3(self.x * o.x, self.y * o.y, self.z * o.z)
         return Vec3(self.x * o, self.y * o, self.z * o)
 
     __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        if isinstance(o, Vec3):
+            return Vec3(self.x / o.x, self.y / o.y, self.z / o.z)
+        inv = 1.0 / o
+        return Vec3(self.x * inv, self.y * inv, self.z * inv)
 
     def __neg__(self):
         return Vec3(-self.x, -self.y, -self.z)
@@ -76,6 +85,9 @@ class Vec3:
 
     def max_component(self):
         return torch.maximum(self.x, torch.maximum(self.y, self.z))
+
+    def mean(self):
+        return (self.x + self.y + self.z) * (1.0 / 3.0)
 
     def any_positive(self):
         return (self.x > 0.0) | (self.y > 0.0) | (self.z > 0.0)

@@ -2,9 +2,14 @@
 for the plugins the port carries:
 
 - ``mesh`` shapes given as ``vertices``/``faces`` arrays, ``rectangle`` and
-  ``cube``, each with a ``diffuse`` BSDF of constant reflectance (inline,
-  named at the top level, or a ``ref`` to a named one) and optionally an
-  ``area`` emitter of constant radiance;
+  ``cube``, each with a BSDF (inline, named at the top level, or a
+  ``ref`` to a named one) and optionally an ``area`` emitter of constant
+  radiance;
+- the BSDFs ``diffuse``, ``conductor``, ``roughconductor``, ``plastic``,
+  ``roughplastic``, ``dielectric``, ``thindielectric``,
+  ``roughdielectric``, ``null``, ``mask`` and ``blendbsdf``, and
+  ``twosided`` around any of them, with constant (RGB) parameters; the
+  rows, slot flags and adapter depth are the JAX loader's;
 - ``point``, ``spot`` and ``directional`` emitters and a ``constant``
   environment;
 - a ``perspective`` sensor with an ``hdrfilm`` (default Gaussian rfilter)
@@ -38,7 +43,9 @@ from .emitters import envmap as env_mod
 from .integrators import config_from_dict as integrator_from_dict
 from .integrators.path import PathConfig
 from .ops import bvh_serve, bvh_tiled, cellserve
+from .bsdfs import rough_transmittance as rtrans
 from .render.film import FilmConfig
+from .render.fresnel import CONDUCTOR_IOR
 from .render.scene import TRI_CHUNK, TRI_PAD, Scene
 
 ACCEL_MIN_FACES = 8192   # scenes above this many faces get an accel
@@ -50,6 +57,37 @@ _FILM_KEYS = ("type", "width", "height", "rfilter", "pixel_format")
 _SAMPLER_KEYS = ("type", "sample_count")
 _SENSOR_KEYS = ("type", "to_world", "fov", "fov_axis", "near_clip",
                 "far_clip", "film", "sampler")
+# every BSDF name the JAX loader knows; those outside BSDF_KEYS (or a
+# textured or spectral parameter of one inside) raise NotImplementedError
+BSDF_NAMES = ("diffuse", "conductor", "roughconductor", "dielectric",
+              "measured", "thindielectric", "roughdielectric", "plastic",
+              "roughplastic", "pplastic", "twosided", "null", "mask",
+              "blendbsdf", "normalmap", "bumpmap", "principled",
+              "principledthin", "hair", "polarizer", "retarder", "circular",
+              "measured_polarized")
+_IOR_KEYS = ("int_ior", "ext_ior")
+_ROUGH_KEYS = ("alpha", "alpha_u", "alpha_v", "distribution")
+BSDF_KEYS = {
+    "diffuse": ("reflectance",),
+    "conductor": ("material", "eta", "k", "specular_reflectance"),
+    "roughconductor": ("material", "eta", "k", "specular_reflectance")
+    + _ROUGH_KEYS,
+    "plastic": _IOR_KEYS + ("diffuse_reflectance", "nonlinear",
+                            "specular_reflectance"),
+    "roughplastic": _IOR_KEYS + ("diffuse_reflectance", "nonlinear",
+                                 "specular_reflectance", "alpha",
+                                 "distribution"),
+    "dielectric": _IOR_KEYS + ("specular_reflectance",
+                               "specular_transmittance"),
+    "thindielectric": _IOR_KEYS + ("specular_reflectance",
+                                   "specular_transmittance"),
+    "roughdielectric": _IOR_KEYS + ("specular_reflectance",
+                                    "specular_transmittance") + _ROUGH_KEYS,
+    "null": ("transmittance",),
+    "mask": ("opacity",),
+    "blendbsdf": ("weight",),
+    "twosided": (),
+}
 DELTA_KEYS = {
     "point": ("type", "position", "intensity", "to_world"),
     "spot": ("type", "position", "direction", "intensity", "to_world",
@@ -93,25 +131,160 @@ def _rgb(spec, default=(0.5, 0.5, 0.5)):
     return v
 
 
-def _bsdf_row(spec: dict):
-    """Lower a BSDF spec -> (type id, params row [N_PARAMS])."""
-    if spec.get("type") != "diffuse":
-        raise _not_ported(f"BSDF type {spec.get('type')!r}")
-    _check_keys(spec, ("type", "reflectance"), "diffuse")
+def _is_bsdf(v) -> bool:
+    return isinstance(v, dict) and v.get("type") in BSDF_NAMES
+
+
+def _scalar(spec, default: float, what: str) -> float:
+    """A constant scalar: number | {'type': 'rgb', 'value': number}."""
+    if spec is None:
+        return float(default)
+    if isinstance(spec, dict):
+        if spec.get("type") != "rgb":
+            raise _not_ported(f"{what} given as {spec.get('type')!r}")
+        spec = spec["value"]
+    return float(spec)
+
+
+def _bsdf_row(spec: dict, add_bsdf):
+    """Lower a BSDF spec -> (type id, params row [N_PARAMS]), as the JAX
+    loader does. `add_bsdf` registers a nested BSDF (mask, blendbsdf) and
+    returns its slot; nested slots come before their adapter's."""
+    btype = spec.get("type")
+    if btype not in BSDF_KEYS:
+        raise _not_ported(f"BSDF type {btype!r}")
+    nests = [v for v in spec.values() if _is_bsdf(v)]
+    _check_keys({k: v for k, v in spec.items() if not _is_bsdf(v)},
+                ("type",) + BSDF_KEYS[btype], btype)
     params = np.zeros(bsdfs_pkg.N_PARAMS, np.float32)
-    params[0:3] = _rgb(spec.get("reflectance"), (0.5, 0.5, 0.5))
-    return bsdfs_pkg.DIFFUSE, params
+
+    def color(key, default):
+        return _rgb(spec.get(key), default)
+
+    if btype == "twosided":
+        if len(nests) != 1:
+            raise ValueError("twosided needs exactly one nested BSDF")
+        tid, params = _bsdf_row(nests[0], add_bsdf)
+        params[16] = 1.0
+        return tid, params
+    if btype == "mask":
+        if len(nests) != 1:
+            raise ValueError("mask needs exactly one nested BSDF")
+        params[0] = _scalar(spec.get("opacity"), 0.5, "mask opacity")
+        params[15] = add_bsdf(nests[0])
+        return bsdfs_pkg.MASK, params
+    if btype == "blendbsdf":
+        if len(nests) != 2:
+            raise ValueError("blendbsdf needs exactly two nested BSDFs")
+        params[0] = _scalar(spec.get("weight"), 0.5, "blendbsdf weight")
+        params[14] = add_bsdf(nests[0])
+        params[15] = add_bsdf(nests[1])
+        return bsdfs_pkg.BLEND, params
+    if nests:
+        raise _not_ported(f"{btype} with a nested BSDF")
+    if btype == "diffuse":
+        params[0:3] = color("reflectance", (0.5, 0.5, 0.5))
+        return bsdfs_pkg.DIFFUSE, params
+    if btype in ("conductor", "roughconductor"):
+        eta_d, k_d = CONDUCTOR_IOR.get(spec.get("material", "none"),
+                                       CONDUCTOR_IOR["none"])
+        params[0:3] = color("eta", eta_d)
+        params[3:6] = color("k", k_d)
+        params[8:11] = color("specular_reflectance", (1, 1, 1))
+        if btype == "conductor":
+            return bsdfs_pkg.CONDUCTOR, params
+        alpha = float(spec.get("alpha", 0.1))
+        params[6] = float(spec.get("alpha_u", alpha))
+        params[7] = float(spec.get("alpha_v", alpha))
+        params[11] = 0.0 if spec.get("distribution", "ggx") == "ggx" else 1.0
+        return bsdfs_pkg.ROUGH_CONDUCTOR, params
+    if btype == "null":
+        params[0:3] = color("transmittance", (1.0, 1.0, 1.0))
+        return bsdfs_pkg.NULL, params
+    if btype in ("dielectric", "thindielectric"):
+        int_ior = float(spec.get("int_ior", 1.5046))  # bk7 (ior.h)
+        ext_ior = float(spec.get("ext_ior", 1.000277))  # air
+        params[0] = int_ior / ext_ior
+        params[1:4] = color("specular_reflectance", (1, 1, 1))
+        params[4:7] = color("specular_transmittance", (1, 1, 1))
+        return (bsdfs_pkg.DIELECTRIC if btype == "dielectric"
+                else bsdfs_pkg.THIN_DIELECTRIC), params
+    if btype == "roughdielectric":
+        int_ior = float(spec.get("int_ior", 1.5046))
+        ext_ior = float(spec.get("ext_ior", 1.000277))
+        params[0] = int_ior / ext_ior
+        alpha = float(spec.get("alpha", 0.1))
+        params[1] = float(spec.get("alpha_u", alpha))
+        params[2] = float(spec.get("alpha_v", alpha))
+        params[3] = (0.0 if spec.get("distribution", "beckmann") == "ggx"
+                     else 1.0)
+        params[4:7] = color("specular_reflectance", (1, 1, 1))
+        params[7:10] = color("specular_transmittance", (1, 1, 1))
+        return bsdfs_pkg.ROUGH_DIELECTRIC, params
+    # plastic, roughplastic
+    int_ior = float(spec.get("int_ior", 1.49))  # polypropylene (ior.h)
+    ext_ior = float(spec.get("ext_ior", 1.000277))
+    params[0:3] = color("diffuse_reflectance", (0.5, 0.5, 0.5))
+    params[4] = int_ior / ext_ior
+    params[5] = 1.0 if spec.get("nonlinear", False) else 0.0
+    params[8:11] = color("specular_reflectance", (1, 1, 1))
+    # specular sampling weight = s_mean / (d_mean + s_mean)
+    d_mean = float(params[0:3].mean())
+    s_mean = float(params[8:11].mean())
+    params[6] = s_mean / max(d_mean + s_mean, 1e-6)
+    if btype == "plastic":
+        return bsdfs_pkg.PLASTIC, params
+    params[11] = float(spec.get("alpha", 0.1))
+    params[12] = 0.0 if spec.get("distribution", "beckmann") == "ggx" else 1.0
+    # the coat's rough transmittance, fitted at load into the row
+    coeffs, fdr = rtrans.fit(float(params[4]), float(params[11]),
+                             beckmann=params[12] > 0.5)
+    params[17:17 + rtrans.N_COEF] = coeffs
+    params[25] = fdr
+    return bsdfs_pkg.ROUGH_PLASTIC, params
+
+
+def _nested_slots(t: int, row) -> list:
+    """The nested slots of an adapter row (mask: [15]; blend: [15], [14])."""
+    kids = [int(round(float(row[15])))]
+    if t == bsdfs_pkg.BLEND:
+        kids.append(int(round(float(row[14]))))
+    return kids
 
 
 def _slot_flags(bsdf_types, bsdf_rows):
-    """BSDFFlags per slot; the two-sided flag ([16]) adds both sides."""
-    out = []
-    for t, row in zip(bsdf_types, bsdf_rows):
-        f = bsdfs_pkg.type_flags(t)
-        if float(row[16]) > 0.5:
-            f |= bsdfs_pkg.FRONT_SIDE | bsdfs_pkg.BACK_SIDE
-        out.append(f)
-    return tuple(out)
+    """Resolved BSDFFlags per slot: an adapter takes the union of its
+    nested chains (a mask adds Null), and the two-sided flag ([16]) adds
+    both sides."""
+    def fl(slot, seen):
+        t = bsdf_types[slot]
+        base = bsdfs_pkg.type_flags(t)
+        if t in bsdfs_pkg.ADAPTER_TYPES and slot not in seen:
+            seen = seen | {slot}
+            nested = 0
+            for k in _nested_slots(t, bsdf_rows[slot]):
+                if 0 <= k < len(bsdf_types):
+                    nested |= fl(k, seen)
+            base = nested | (bsdfs_pkg.NULL_FLAG
+                             if t == bsdfs_pkg.MASK else 0)
+        if float(bsdf_rows[slot][16]) > 0.5:
+            base |= bsdfs_pkg.FRONT_SIDE | bsdfs_pkg.BACK_SIDE
+        return base
+    return tuple(fl(i, frozenset()) for i in range(len(bsdf_types)))
+
+
+def _adapter_chain_depth(bsdf_types, bsdf_rows) -> int:
+    """The longest adapter chain in the scene (at least 1): the static
+    unroll bound of ``bsdfs.dispatch_nested``."""
+    def depth(slot, seen):
+        t = bsdf_types[slot]
+        if t not in bsdfs_pkg.ADAPTER_TYPES or slot in seen:
+            return 0
+        seen = seen | {slot}
+        return 1 + max(depth(k, seen) for k in _nested_slots(
+            t, bsdf_rows[slot]) if 0 <= k < len(bsdf_types))
+    return max([depth(i, frozenset()) for i in range(len(bsdf_types))],
+               default=1) or 1
 
 
 def _film_config(film_spec: dict) -> FilmConfig:
@@ -223,7 +396,7 @@ def load_dict(d: dict, device=None) -> Scene:
     def add_bsdf(spec, name=None):
         if spec.get("type") == "ref":
             return named_bsdf[spec["id"]]
-        tid, row = _bsdf_row(spec)
+        tid, row = _bsdf_row(spec, add_bsdf)
         bsdf_types.append(tid)
         bsdf_params.append(row)
         if name is not None:
@@ -248,7 +421,7 @@ def load_dict(d: dict, device=None) -> Scene:
                 raise _not_ported(f"sampler type {sampler_spec['type']!r}")
             spp = int(sampler_spec.get("sample_count", 64))
             sensor_spec = val
-        elif vtype == "diffuse":
+        elif vtype in BSDF_NAMES:
             add_bsdf(val, name=key)
         elif vtype in shapes_pkg.SHAPE_KEYS:
             shape_items.append(val)
@@ -375,6 +548,7 @@ def load_dict(d: dict, device=None) -> Scene:
         delta_emitter_types=de_types,
         bsdf_types=tuple(bsdf_types),
         bsdf_flags=_slot_flags(bsdf_types, bsdf_params),
+        adapter_max_depth=_adapter_chain_depth(bsdf_types, bsdf_params),
         film=film_cfg,
         sensor_config=sensor_cfg,
         integrator=integrator_cfg,

@@ -1,7 +1,7 @@
 """Scene: flat SoA tables + dispatch hub — counterpart of
-``mitsuba3_tpu/render/scene.py`` (the parts a triangle scene with diffuse
-BSDFs, area lights, point, spot and directional lights and a constant
-environment reaches).
+``mitsuba3_tpu/render/scene.py`` (the parts a triangle scene with the
+port's BSDFs, area lights, point, spot and directional lights and a
+constant environment reaches).
 
 The JAX Scene's static fields are plain fields here; the per-face
 attribute table is built once from the leaves when the Scene is made.
@@ -71,6 +71,7 @@ class Scene:
     delta_emitter_types: tuple = ()
     bsdf_types: tuple = ()
     bsdf_flags: tuple = ()
+    adapter_max_depth: int = 1        # longest adapter chain (mask, blend)
     film: FilmConfig = dataclasses.field(default_factory=FilmConfig)
     sensor_config: SensorConfig = dataclasses.field(
         default_factory=SensorConfig)

@@ -7,8 +7,10 @@ PyTorch versions on the card, at test sizes, in each mode and topk; the
 queries of each accel (and the small terrain render of each loader accel,
 and a small interior lit by a point light) on the card against the CPU;
 PRB on the card: the Cornell box's gradients against the CPU's, and K1
-launched in the terrain replay as often as in the primal; the optimizers,
-LargeSteps and one ``update()`` rebuild on the card against the CPU. Run
+launched in the terrain replay as often as in the primal; the glossy and
+every-BSDF Cornell boxes' renders and PRB gradients against the CPU's;
+the optimizers, LargeSteps and one ``update()`` rebuild on the card
+against the CPU. Run
 on a machine with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -954,6 +956,40 @@ def test_cornell_prb_grads_on_card_match_cpu(cuda):
         assert torch.allclose(g_card[k], g_cpu[k], rtol=0,
                               atol=1e-3 * scale + 1e-12), k
     assert float(g_card["em_radiance"].abs().max()) > 0
+
+
+MATERIAL_SCENES = {"glossy": chip_smoke.glossy_cornell_dict,
+                   "every_bsdf": chip_smoke.every_bsdf_dict}
+
+
+@pytest.mark.parametrize("scene", sorted(MATERIAL_SCENES))
+def test_material_render_on_card_matches_cpu(cuda, scene):
+    """16^2 glossy and every-BSDF Cornell boxes (max_depth 4, 16 spp) on
+    the card against the CPU: > 99.5 % of values close, means rtol 1e-3."""
+    d = MATERIAL_SCENES[scene](mt, 16, 16, 4)
+    img_g = mt.render(mt.load_dict(d, device=cuda), seed=5,
+                      spp=16).cpu().numpy()
+    img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=16).numpy()
+    assert np.isfinite(img_g).all() and float(img_g.max()) > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+@pytest.mark.parametrize("scene", sorted(MATERIAL_SCENES))
+def test_material_prb_grads_on_card_match_cpu(cuda, scene):
+    """16^2 glossy and every-BSDF Cornell boxes under prb (max_depth 3,
+    4 spp): the card's gradients of bsdf_params and em_radiance finite and
+    within 1e-3 of each table's largest CPU gradient."""
+    d = chip_smoke._prb_dict(MATERIAL_SCENES[scene](mt, 16, 16, 3))
+    names = ("bsdf_params", "em_radiance")
+    g_card = _prb_grads(mt.load_dict(d, device=cuda), names, 4, 0)
+    g_cpu = _prb_grads(mt.load_dict(d, device="cpu"), names, 4, 0)
+    for k in names:
+        assert torch.isfinite(g_card[k]).all(), k
+        scale = float(g_cpu[k].abs().max())
+        assert scale > 0, k
+        assert torch.allclose(g_card[k].cpu(), g_cpu[k], rtol=0,
+                              atol=1e-3 * scale + 1e-12), k
 
 
 def test_terrain_prb_replay_launches_k1(cuda, monkeypatch):

@@ -179,7 +179,7 @@ BASE = chip_smoke.small_terrain_dict(mt.ScalarTransform4f)
 UNPORTED = {
     "shape": (_with(BASE, ball={"type": "sphere"}), "'sphere'"),
     "bsdf": (_with(BASE, terrain=dict(BASE["terrain"], bsdf={
-        "type": "roughconductor"})), "'roughconductor'"),
+        "type": "principled"})), "'principled'"),
     "emitter": (_with(BASE, lamp={"type": "projector"}), "'projector'"),
     "integrator": (_with(BASE, integrator={"type": "direct"}), "'direct'"),
     "rfilter": (_sensor(BASE, film={"width": 8, "height": 8,
