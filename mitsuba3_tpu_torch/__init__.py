@@ -10,13 +10,16 @@ public API follows the JAX package::
     img, n_rays = mi.render_with_stats(scene, seed=0, spp=4)
 
 ``load_dict(d, device="cpu")`` puts a scene on the CPU, where every kernel
-runs as its plain PyTorch version. The port carries the plugins of
-triangle scenes (meshes, rectangles, cubes) with constant-parameter
-BSDFs (diffuse, conductor, roughconductor, plastic, roughplastic,
-dielectric, thindielectric, roughdielectric, null, mask, blendbsdf and
-twosided), area lights, point, spot and directional lights and a
-constant environment,
-such as ``cornell_box()``, rendered by the ``path`` integrator or
+runs as its plain PyTorch version; ``load_file(path)`` and
+``load_string(xml)`` read a Mitsuba XML scene (with its OBJ, PLY and
+serialized meshes) the same way. The port carries the plugins of
+triangle scenes (meshes, rectangles, cubes, mesh files) with every
+sampler, sensor and reconstruction filter and the crop window,
+constant-parameter BSDFs (diffuse, conductor, roughconductor, plastic,
+roughplastic, dielectric, thindielectric, roughdielectric, null, mask,
+blendbsdf and twosided), area lights, point, spot and directional lights
+and a constant environment, such as ``cornell_box()``, rendered by the
+``path`` integrator or
 differentiated by ``prb`` (path replay backpropagation: gradients of the
 scene's tables through ``torch.autograd``); small scenes use the dense
 intersector, large ones the accel that ``MI3T_ACCEL`` names (cellserve,
@@ -45,9 +48,10 @@ from .models import cornell_box
 from .render.integrator import render, render_with_stats
 from .render.scene import Scene
 from .utils.params import SceneParameters, traverse
+from .utils.xml import load_file, load_string
 
 ScalarTransform4f = Transform4f
 
 __all__ = ["Scene", "SceneParameters", "ScalarTransform4f", "Transform4f",
-           "ad", "cornell_box", "load_dict", "render", "render_with_stats",
-           "traverse"]
+           "ad", "cornell_box", "load_dict", "load_file", "load_string",
+           "render", "render_with_stats", "traverse"]

@@ -3,12 +3,15 @@
 A renderer's "weights" are its scene tables. ``arrays_from_scene`` reads
 the leaves a scene of the port needs (vertices, faces, the face tables,
 area-emitter sampling tables, emitters, environment warp, BSDF rows,
-textures, sensor, accel arrays) into a flat dict of numpy arrays plus a
-dict of static fields. It takes a JAX ``Scene`` or a port ``Scene``
-alike, by attribute names, and imports nothing of JAX.
+textures, sensor or a batch sensor's sub-sensors, accel arrays) into a
+flat dict of numpy arrays plus a dict of static fields (among them the
+film with its crop window, the sensor config and the sampler type). It
+takes a JAX ``Scene`` or a port ``Scene`` alike, by attribute names, and
+imports nothing of JAX.
 ``scene_from_arrays`` builds the port's ``Scene`` from them on a device.
-Sphere emitters' cone-sampling rows (the JAX ``em_sphere``) are not
-ported: a scene that has them is refused.
+Sphere emitters' cone-sampling rows (the JAX ``em_sphere``) and a
+specfilm's response functions (``srfs``) are not ported: a scene that has
+them is refused.
 
 The accel is None for the dense all-triangles test (kind ``"dense"``,
 no arrays), or one of cellserve (``MI3T_ACCEL`` auto or cells), bvh_serve
@@ -49,7 +52,7 @@ SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
                 "env_data", "env_scale", "bsdf_params", "de_params")
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
 SENSOR_ARRAYS = ("origin", "axis_x", "axis_y", "axis_z", "tan_half_x",
-                 "tan_half_y")
+                 "tan_half_y", "aperture_radius", "focus_distance")
 # accel kind -> (class, array fields, static fields)
 ACCELS = {
     "cells": (CellServe, ("tris", "start", "occ", "lo", "inv_cell"),
@@ -65,7 +68,7 @@ ACCELS = {
 ATTIC = ("pallas", "bvh2")   # standalone accels only: no scene holds one
 SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
               "delta_emitter_types", "bsdf_types", "bsdf_flags",
-              "adapter_max_depth", "spp")
+              "adapter_max_depth", "spp", "sampler_type")
 
 
 def _np(x):
@@ -99,6 +102,10 @@ def arrays_from_scene(scene):
     if getattr(scene, "em_sphere", None) is not None:
         raise NotImplementedError(
             "sphere emitters (em_sphere) are not ported to mitsuba3_tpu_torch")
+    if getattr(scene.film, "srfs", ()):
+        raise NotImplementedError(
+            "specfilm response functions (srfs) are not ported to "
+            "mitsuba3_tpu_torch")
     arrays = {}
     for name in SCENE_ARRAYS:
         value = getattr(scene, name)
@@ -108,8 +115,10 @@ def arrays_from_scene(scene):
         arrays[f"textures.{i}"] = _np(tex)
     for name in WARP_ARRAYS:
         arrays[f"env_warp.{name}"] = _np(getattr(scene.env_warp, name))
-    for name in SENSOR_ARRAYS:
-        arrays[f"sensor.{name}"] = _np(getattr(scene.sensor, name))
+    for prefix, sensor in _sensor_prefixes(scene.sensor):
+        for name in SENSOR_ARRAYS:
+            if getattr(sensor, name, None) is not None:
+                arrays[f"{prefix}.{name}"] = _np(getattr(sensor, name))
     acc_arrays, acc_meta = ({}, {"kind": "dense"}) if scene.accel is None \
         else accel_arrays(scene.accel)
     arrays.update({f"accel.{name}": a for name, a in acc_arrays.items()})
@@ -120,6 +129,14 @@ def arrays_from_scene(scene):
     meta["integrator"] = _fields(scene.integrator, PathConfig)
     meta["accel"] = acc_meta
     return arrays, meta
+
+
+def _sensor_prefixes(sensor):
+    """(array-name prefix, SensorData) per sensor: "sensor", or
+    "sensor.k" for a batch sensor's k-th sub-sensor."""
+    if isinstance(sensor, tuple):
+        return [(f"sensor.{k}", s) for k, s in enumerate(sensor)]
+    return [("sensor", sensor)]
 
 
 def accel_kind(acc) -> str:
@@ -168,12 +185,19 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
         return torch.as_tensor(np.array(arrays[name]), device=device)
 
     def group(prefix, names):
-        return {name: t(f"{prefix}.{name}") for name in names}
+        return {name: t(f"{prefix}.{name}") for name in names
+                if f"{prefix}.{name}" in arrays}
 
     if meta["accel"]["kind"] in ATTIC:
         raise NotImplementedError(
             f"accel kind {meta['accel']['kind']!r}: no scene holds an attic "
             f"accel; use accel_from_arrays")
+    sensor_cfg = SensorConfig(**meta["sensor_config"])
+    if sensor_cfg.type == "batch":
+        sensor = tuple(SensorData(**group(f"sensor.{k}", SENSOR_ARRAYS))
+                       for k in range(len(sensor_cfg.sub_types)))
+    else:
+        sensor = SensorData(**group("sensor", SENSOR_ARRAYS))
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
     leaves.setdefault("de_params", None)
     n_tex = sum(name.startswith("textures.") for name in arrays)
@@ -182,11 +206,11 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
     return Scene(
         **leaves,
         env_warp=SlicedMarginal2D(**group("env_warp", WARP_ARRAYS)),
-        sensor=SensorData(**group("sensor", SENSOR_ARRAYS)),
+        sensor=sensor,
         accel=(None if meta["accel"]["kind"] == "dense"
                else accel_from_arrays(acc, meta["accel"], device)),
         textures=tuple(t(f"textures.{i}") for i in range(n_tex)),
         **{name: meta[name] for name in SCENE_META},
         film=FilmConfig(**meta["film"]),
-        sensor_config=SensorConfig(**meta["sensor_config"]),
+        sensor_config=sensor_cfg,
         integrator=config_from_dict(meta["integrator"]))

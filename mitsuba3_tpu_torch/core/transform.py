@@ -76,6 +76,14 @@ class Transform4f:
         v = np.asarray(v, dtype=np.float64)
         return v @ self.matrix[:3, :3].T
 
+    def transform_normal(self, n):
+        """Normals by the inverse transpose (not renormalised)."""
+        n = np.asarray(n, dtype=np.float64)
+        return n @ self.inverse_matrix[:3, :3]
+
+    def inverse(self) -> "Transform4f":
+        return Transform4f(self.inverse_matrix, self.matrix)
+
 
 def as_transform(spec) -> Transform4f:
     """A Transform4f from anything carrying a 4x4 ``matrix`` (any package's

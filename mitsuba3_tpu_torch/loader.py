@@ -1,10 +1,11 @@
 """Scene-dict loader — counterpart of ``load_dict`` in ``mitsuba3_tpu/loader.py``,
 for the plugins the port carries:
 
-- ``mesh`` shapes given as ``vertices``/``faces`` arrays, ``rectangle`` and
-  ``cube``, each with a BSDF (inline, named at the top level, or a
-  ``ref`` to a named one) and optionally an ``area`` emitter of constant
-  radiance;
+- ``mesh`` shapes given as ``vertices``/``faces`` arrays (with optional
+  per-vertex ``uvs`` and shading ``normals``), ``rectangle``, ``cube``
+  and the mesh files ``obj``, ``ply`` and ``serialized``, each with a
+  BSDF (inline, named at the top level, or a ``ref`` to a named one) and
+  optionally an ``area`` emitter of constant radiance;
 - the BSDFs ``diffuse``, ``conductor``, ``roughconductor``, ``plastic``,
   ``roughplastic``, ``dielectric``, ``thindielectric``,
   ``roughdielectric``, ``null``, ``mask`` and ``blendbsdf``, and
@@ -12,8 +13,15 @@ for the plugins the port carries:
   rows, slot flags and adapter depth are the JAX loader's;
 - ``point``, ``spot`` and ``directional`` emitters and a ``constant``
   environment;
-- a ``perspective`` sensor with an ``hdrfilm`` (default Gaussian rfilter)
-  and the ``independent`` sampler;
+- the sensors ``perspective``, ``thinlens``, ``orthographic``,
+  ``radiancemeter``, ``irradiancemeter``, ``distant`` and ``batch`` (of
+  perspective, thinlens and orthographic sub-sensors), with an ``hdrfilm``
+  and its crop window, the rfilters ``box``, ``tent``, ``gaussian``,
+  ``mitchell``, ``catmullrom`` and ``lanczos`` (at their default
+  parameters), and the samplers ``independent``, ``stratified``,
+  ``multijitter``, ``ldsampler`` and ``orthogonal``;
+- constant colors given as a number, an RGB triple, or an ``rgb``,
+  ``uniform``, ``d65``, ``srgb`` or ``rawconstant`` spectrum;
 - the ``path`` and ``prb`` integrators;
 - scenes of at most 8192 faces keep the dense all-triangles test
   (``accel`` None, ``ops/intersect.py``); above that, the accel that
@@ -22,10 +30,13 @@ for the plugins the port carries:
   device, ``serve`` gives ``bvh_serve`` and ``tiled`` gives ``bvh_tiled``;
   ``xla``, ``grid`` and ``none`` are not ported.
 
-Any other plugin raises ``NotImplementedError`` naming it. The host-side
-table building is the JAX package's, so the scene's arrays equal its
-leaves. The scene lives on ``device``: the card unless the caller asks for
-the CPU.
+Any other plugin raises ``NotImplementedError`` naming it: among them a
+``specfilm``, a sensor's ``medium``, an rfilter's parameters (which the
+JAX package ignores) and the ``blackbody``, ``regular`` and ``irregular``
+spectra. XML scene files lower to the same dicts (``utils/xml.py``). The
+host-side table building is the JAX package's, so the scene's arrays
+equal its leaves. The scene lives on ``device``: the card unless the
+caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -44,7 +55,8 @@ from .integrators import config_from_dict as integrator_from_dict
 from .integrators.path import PathConfig
 from .ops import bvh_serve, bvh_tiled, cellserve
 from .bsdfs import rough_transmittance as rtrans
-from .render.film import FilmConfig
+from .render import sampler as sampler_mod
+from .render.film import RFILTERS, FilmConfig
 from .render.fresnel import CONDUCTOR_IOR
 from .render.scene import TRI_CHUNK, TRI_PAD, Scene
 
@@ -53,10 +65,14 @@ ACCELS = {"auto": cellserve.build, "cells": cellserve.build,
           "serve": bvh_serve.build, "tiled": bvh_tiled.build}
 UNPORTED_ACCELS = ("xla", "grid", "none")
 
-_FILM_KEYS = ("type", "width", "height", "rfilter", "pixel_format")
+_FILM_KEYS = ("type", "width", "height", "rfilter", "pixel_format",
+              "crop_width", "crop_height", "crop_offset_x", "crop_offset_y")
 _SAMPLER_KEYS = ("type", "sample_count")
 _SENSOR_KEYS = ("type", "to_world", "fov", "fov_axis", "near_clip",
-                "far_clip", "film", "sampler")
+                "far_clip", "film", "sampler", "aperture_radius",
+                "focus_distance")
+# constant spectra: their value (or scale) is the color
+_CONSTANT_SPECTRA = ("uniform", "d65", "srgb", "rawconstant")
 # every BSDF name the JAX loader knows; those outside BSDF_KEYS (or a
 # textured or spectral parameter of one inside) raise NotImplementedError
 BSDF_NAMES = ("diffuse", "conductor", "roughconductor", "dielectric",
@@ -117,14 +133,22 @@ def _check_keys(spec: dict, allowed, what: str):
         raise _not_ported(f"{what} properties {extra}")
 
 
+def _spectrum_value(spec: dict, what: str):
+    """The value of an ``rgb`` or constant spectrum dict."""
+    if spec.get("type") == "rgb":
+        return spec["value"]
+    if spec.get("type") in _CONSTANT_SPECTRA:
+        return spec.get("value", spec.get("scale", 1.0))
+    raise _not_ported(f"{what} type {spec.get('type')!r}")
+
+
 def _rgb(spec, default=(0.5, 0.5, 0.5)):
-    """A constant color: number | [r, g, b] | {'type': 'rgb', 'value': ...}."""
+    """A constant color: number | [r, g, b] | an ``rgb`` or constant
+    spectrum dict ({'type': 'uniform', 'value': ...} and the like)."""
     if spec is None:
         return np.asarray(default, np.float32)
     if isinstance(spec, dict):
-        if spec.get("type") != "rgb":
-            raise _not_ported(f"spectrum type {spec.get('type')!r}")
-        spec = spec["value"]
+        spec = _spectrum_value(spec, "spectrum")
     v = np.asarray(spec, np.float32).reshape(-1)
     if v.size == 1:
         v = np.repeat(v, 3)
@@ -136,13 +160,12 @@ def _is_bsdf(v) -> bool:
 
 
 def _scalar(spec, default: float, what: str) -> float:
-    """A constant scalar: number | {'type': 'rgb', 'value': number}."""
+    """A constant scalar: number | an ``rgb`` or constant spectrum dict of
+    one value."""
     if spec is None:
         return float(default)
     if isinstance(spec, dict):
-        if spec.get("type") != "rgb":
-            raise _not_ported(f"{what} given as {spec.get('type')!r}")
-        spec = spec["value"]
+        spec = _spectrum_value(spec, f"{what} given as a spectrum")
     return float(spec)
 
 
@@ -287,6 +310,24 @@ def _adapter_chain_depth(bsdf_types, bsdf_rows) -> int:
                default=1) or 1
 
 
+def _film_crop_fields(film_spec: dict) -> dict:
+    """hdrfilm's crop window (film.h set_crop_window): the rendered raster
+    is the crop; the sensor maps the full film plane. FilmConfig kwargs
+    for width/height (the crop's size), the full size and the offset."""
+    fw = int(film_spec.get("width", 256))
+    fh = int(film_spec.get("height", 256))
+    cw = int(film_spec.get("crop_width", fw))
+    ch = int(film_spec.get("crop_height", fh))
+    ox = int(film_spec.get("crop_offset_x", 0))
+    oy = int(film_spec.get("crop_offset_y", 0))
+    if not (0 < cw <= fw and 0 < ch <= fh
+            and 0 <= ox <= fw - cw and 0 <= oy <= fh - ch):
+        raise ValueError(
+            f"invalid crop window {cw}x{ch}+{ox}+{oy} on {fw}x{fh} film")
+    return dict(width=cw, height=ch, full_width=fw, full_height=fh,
+                crop_ox=ox, crop_oy=oy)
+
+
 def _film_config(film_spec: dict) -> FilmConfig:
     _check_keys(film_spec, _FILM_KEYS, "film")
     if film_spec.get("type", "hdrfilm") != "hdrfilm":
@@ -294,10 +335,42 @@ def _film_config(film_spec: dict) -> FilmConfig:
     if film_spec.get("pixel_format", "rgb") != "rgb":
         raise _not_ported(f"pixel_format {film_spec['pixel_format']!r}")
     rf = film_spec.get("rfilter") or {}
-    if rf.get("type", "gaussian") != "gaussian" or set(rf) - {"type"}:
-        raise _not_ported(f"rfilter {rf!r}")
-    return FilmConfig(width=int(film_spec.get("width", 256)),
-                      height=int(film_spec.get("height", 256)))
+    rtype = rf.get("type", "gaussian")
+    if rtype not in RFILTERS:
+        raise _not_ported(f"rfilter {rtype!r}")
+    if set(rf) - {"type"}:
+        raise _not_ported(f"rfilter parameters {sorted(set(rf) - {'type'})}")
+    return FilmConfig(rfilter=rtype, **_film_crop_fields(film_spec))
+
+
+def _sampler_config(sampler_spec: dict):
+    """(spp, sampler type) of a sampler spec."""
+    _check_keys(sampler_spec, _SAMPLER_KEYS, "sampler")
+    stype = sampler_spec.get("type", "independent")
+    if stype not in sampler_mod.TYPES:
+        raise _not_ported(f"sampler type {stype!r}")
+    return int(sampler_spec.get("sample_count", 64)), stype
+
+
+def _sensor(spec: dict, dev):
+    """(film, spp, sampler type, (SensorData or a batch's tuple of them,
+    SensorConfig)) of a sensor spec."""
+    stype = spec["type"]
+    if stype == "batch":
+        subs = sensors_pkg.batch_subs(spec)
+        _check_keys({k: v for k, v in spec.items()
+                     if not any(v is s for s in subs)},
+                    ("type", "film", "sampler"), "batch sensor")
+        for sub in subs:
+            _check_keys(sub, _SENSOR_KEYS, f"{sub['type']} sensor in a batch")
+    else:
+        _check_keys(spec, _SENSOR_KEYS, f"{stype} sensor")
+    film = _film_config(spec.get("film", {}) or {})
+    spp, sampler_type = _sampler_config(spec.get("sampler", {}) or {})
+    build = (sensors_pkg.build_batch if stype == "batch"
+             else sensors_pkg.build_perspective)
+    return (film, spp, sampler_type,
+            build(spec, film.full_width, film.full_height, dev))
 
 
 def _delta_row(espec: dict):
@@ -387,8 +460,9 @@ def load_dict(d: dict, device=None) -> Scene:
 
     integrator_cfg = PathConfig()
     film_cfg = FilmConfig()
-    sensor_spec = None
+    sensor = None
     spp = 64
+    sampler_type = "independent"
     bsdf_types: list[int] = []
     bsdf_params: list[np.ndarray] = []
     named_bsdf: dict[str, int] = {}
@@ -412,15 +486,8 @@ def load_dict(d: dict, device=None) -> Scene:
         vtype = val.get("type")
         if key == "integrator" or vtype in ("path", "prb"):
             integrator_cfg = integrator_from_dict(val)
-        elif vtype == "perspective":
-            _check_keys(val, _SENSOR_KEYS, "perspective sensor")
-            film_cfg = _film_config(val.get("film", {}))
-            sampler_spec = val.get("sampler", {}) or {}
-            _check_keys(sampler_spec, _SAMPLER_KEYS, "sampler")
-            if sampler_spec.get("type", "independent") != "independent":
-                raise _not_ported(f"sampler type {sampler_spec['type']!r}")
-            spp = int(sampler_spec.get("sample_count", 64))
-            sensor_spec = val
+        elif vtype in sensors_pkg.TYPES or vtype == "batch":
+            film_cfg, spp, sampler_type, sensor = _sensor(val, dev)
         elif vtype in BSDF_NAMES:
             add_bsdf(val, name=key)
         elif vtype in shapes_pkg.SHAPE_KEYS:
@@ -434,12 +501,11 @@ def load_dict(d: dict, device=None) -> Scene:
         else:
             raise _not_ported(f"plugin type {vtype!r} (scene key {key!r})")
 
-    sensor_data, sensor_cfg = sensors_pkg.build_perspective(
-        sensor_spec if sensor_spec is not None else {"fov": 45.0},
-        film_cfg.width, film_cfg.height, dev)
+    sensor_data, sensor_cfg = sensor or sensors_pkg.build_perspective(
+        {"fov": 45.0}, film_cfg.width, film_cfg.height, dev)
 
     # ---- lower shapes; area emitters take the first emitter slots ----
-    all_verts, all_faces, face_uv = [], [], []
+    all_verts, all_faces, face_uv, face_ns = [], [], [], []
     face_shape, face_bsdf, face_emitter = [], [], []
     em_radiance, em_faces, em_areas = [], [], []
     v_off = f_off = 0
@@ -458,6 +524,8 @@ def load_dict(d: dict, device=None) -> Scene:
         all_faces.append(mesh.faces + v_off)
         face_uv.append(mesh.uvs[mesh.faces] if mesh.uvs is not None
                        else np.zeros((nf, 3, 2)))
+        face_ns.append(mesh.normals[mesh.faces] if mesh.normals is not None
+                       else np.zeros((nf, 3, 3)))
         face_shape.extend([s_idx] * nf)
         face_bsdf.extend([b_idx] * nf)
         face_emitter.extend([e_idx] * nf)
@@ -469,6 +537,7 @@ def load_dict(d: dict, device=None) -> Scene:
     vertices = np.concatenate(all_verts, 0).astype(np.float32)
     faces = np.concatenate(all_faces, 0).astype(np.int32)
     face_uv = np.concatenate(face_uv, 0).astype(np.float32)
+    face_normals = np.concatenate(face_ns, 0).astype(np.float32)
     face_shape = np.asarray(face_shape, np.int32)
     face_bsdf = np.asarray(face_bsdf, np.int32)
     face_emitter = np.asarray(face_emitter, np.int32)
@@ -510,6 +579,8 @@ def load_dict(d: dict, device=None) -> Scene:
             [face_inv_total_area, np.zeros(pad, np.float32)])
         face_uv = np.concatenate(
             [face_uv, np.zeros((pad, 3, 2), np.float32)], 0)
+        face_normals = np.concatenate(
+            [face_normals, np.zeros((pad, 3, 3), np.float32)], 0)
     n_padded = faces.shape[0]
 
     # small scenes keep the dense all-triangles test (accel None)
@@ -530,7 +601,7 @@ def load_dict(d: dict, device=None) -> Scene:
         face_emitter=t(face_emitter),
         face_inv_total_area=t(face_inv_total_area),
         face_uv=t(face_uv),
-        face_normals=t(np.zeros((n_padded, 3, 3), np.float32)),
+        face_normals=t(face_normals),
         em_radiance=t(np.asarray(em_radiance, np.float32).reshape(-1, 3)
                       if em_radiance else np.zeros((1, 3), np.float32)),
         ef_face=t(ef_face),
@@ -552,4 +623,5 @@ def load_dict(d: dict, device=None) -> Scene:
         film=film_cfg,
         sensor_config=sensor_cfg,
         integrator=integrator_cfg,
-        spp=spp)
+        spp=spp,
+        sampler_type=sampler_type)

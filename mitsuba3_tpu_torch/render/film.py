@@ -1,9 +1,11 @@
-"""Film — counterpart of ``mitsuba3_tpu/render/film.py`` (hdrfilm with its
-default Gaussian reconstruction filter).
+"""Film — counterpart of ``mitsuba3_tpu/render/film.py`` (hdrfilm with the
+box, tent, gaussian, mitchell, catmullrom and lanczos reconstruction
+filters, and the film's crop window).
 
 Samples are generated sppc-per-pixel in linear pixel order, so the splat
 is a per-pixel segment sum for each static filter tap followed by a
-shifted dense add: deterministic, with no atomics.
+shifted dense add: deterministic, with no atomics. The box filter puts
+each sample in its own pixel: a per-pixel sum with weight sppc.
 """
 from __future__ import annotations
 
@@ -13,13 +15,30 @@ import math
 import torch
 
 
+RFILTERS = ("box", "tent", "gaussian", "mitchell", "catmullrom", "lanczos")
+
+
 @dataclasses.dataclass(frozen=True)
 class FilmConfig:
     width: int = 256
     height: int = 256
     rfilter: str = "gaussian"
-    rfilter_radius: float = 2.0
+    rfilter_radius: float = 2.0   # the Gaussian's; the others' are fixed
     rfilter_std: float = 0.5
+    # film.h crop window: width/height above are the crop (the rendered
+    # raster); the sensor maps the full film plane of full_width x
+    # full_height with the crop at (crop_ox, crop_oy). full_* == 0 means
+    # no crop.
+    full_width: int = 0
+    full_height: int = 0
+    crop_ox: int = 0
+    crop_oy: int = 0
+
+
+def film_full(film: FilmConfig):
+    """(full_w, full_h, crop_ox, crop_oy) with the no-crop default."""
+    return (film.full_width or film.width, film.full_height or film.height,
+            film.crop_ox, film.crop_oy)
 
 
 def gaussian_weight(x, std, radius):
@@ -29,16 +48,63 @@ def gaussian_weight(x, std, radius):
                        - math.exp(alpha * radius * radius), min=0.0)
 
 
+def _mitchell_1d(x, b, c):
+    """mitchell.cpp / catmullrom via the (B, C) parameterization."""
+    x = x.abs()
+    x2 = x * x
+    x3 = x2 * x
+    p1 = ((12 - 9 * b - 6 * c) * x3 + (-18 + 12 * b + 6 * c) * x2
+          + (6 - 2 * b)) * (1.0 / 6.0)
+    p2 = ((-b - 6 * c) * x3 + (6 * b + 30 * c) * x2
+          + (-12 * b - 48 * c) * x + (8 * b + 24 * c)) * (1.0 / 6.0)
+    return torch.where(x < 1.0, p1, torch.where(x < 2.0, p2, 0.0))
+
+
+def _lanczos_1d(x, tau=3.0):
+    """lanczos.cpp: sinc(x) sinc(x/tau) windowed to |x| < tau."""
+    x = x.abs()
+    pix = math.pi * torch.clamp(x, min=1e-6)
+    sinc = torch.where(x < 1e-6, 1.0, torch.sin(pix) / pix)
+    pixt = math.pi * torch.clamp(x, min=1e-6) / tau
+    winc = torch.where(x < 1e-6, 1.0, torch.sin(pixt) / pixt)
+    return torch.where(x < tau, sinc * winc, 0.0)
+
+
 def rfilter_eval(name: str, x, radius, std=0.5):
-    """Evaluate the reconstruction filter at offsets x (pixels)."""
+    """Evaluate a reconstruction filter at offsets x (pixels)
+    (src/rfilters/{box,tent,gaussian,mitchell,catmullrom,lanczos}.cpp)."""
+    if name == "box":
+        return torch.where(x.abs() <= 0.5, 1.0, 0.0)
+    if name == "tent":
+        return torch.clamp(1.0 - x.abs() / radius, min=0.0)
     if name == "gaussian":
         return gaussian_weight(x, std, radius)
-    raise NotImplementedError(f"rfilter {name!r} is not ported")
+    if name == "mitchell":
+        return _mitchell_1d(x, 1.0 / 3.0, 1.0 / 3.0)
+    if name == "catmullrom":
+        return _mitchell_1d(x, 0.0, 0.5)
+    if name == "lanczos":
+        return _lanczos_1d(x, 3.0)
+    raise ValueError(f"Unknown rfilter {name!r}")
+
+
+def rfilter_radius(name: str) -> float:
+    return {"box": 0.5, "tent": 1.0, "gaussian": 2.0, "mitchell": 2.0,
+            "catmullrom": 2.0, "lanczos": 3.0}[name]
+
+
+def _radius(film: FilmConfig) -> float:
+    """The filter's radius: the Gaussian's is the film's, the others' are
+    fixed."""
+    return (film.rfilter_radius if film.rfilter == "gaussian"
+            else rfilter_radius(film.rfilter))
 
 
 def halo_rows(film: FilmConfig) -> int:
     """Vertical halo (rows) a splat canvas needs beyond its pixels."""
-    return int(math.ceil(film.rfilter_radius))
+    if film.rfilter == "box":
+        return 0
+    return int(math.ceil(_radius(film)))
 
 
 def _shifted(img, ha: int, dy: int, dx: int):
@@ -72,8 +138,12 @@ def splat_ordered(film: FilmConfig, jitter, values, sppc: int, h_local: int,
     def per_pixel(x):
         return x.reshape(h_local, w, sppc, -1).sum(dim=2)
 
+    if film.rfilter == "box":
+        return per_pixel(values), torch.full(
+            (h_local, w), float(sppc), dtype=torch.float32,
+            device=values.device)
     nch = values.shape[-1]
-    radius = film.rfilter_radius
+    radius = _radius(film)
     r_int = int(math.ceil(radius))
     ha = h_local + 2 * r_int
     dev = values.device

@@ -32,10 +32,15 @@ def pass_seed(seed: int, i: int) -> int:
 
 
 def _gen_camera_rays(scene, seed_value: int, sppc: int, pass_idx: int,
-                     spp_total: int):
+                     spp_total: int, base_seed: int = 0):
     """Seed the sampler and generate one pass's primary rays, sppc per
-    pixel in linear pixel order. Returns (rng, ray, jitter)."""
+    pixel in linear pixel order. Returns (rng, ray, jitter).
+
+    A crop window (film.h) keeps the full film's pixel ids and positions:
+    a crop render is sample for sample the same region of the full
+    render."""
     w, h = scene.film.width, scene.film.height
+    fw, fh, cox, coy = film_mod.film_full(scene.film)
     dev = scene.device
     n = w * h * sppc
     idx = torch.arange(n, dtype=torch.int64, device=dev)
@@ -43,12 +48,27 @@ def _gen_camera_rays(scene, seed_value: int, sppc: int, pass_idx: int,
     sample_idx = (idx % sppc + pass_idx * sppc) & M32
     pix_x = pixel % w
     pix_y = pixel // w
-    rng = sampler_mod.seed(seed_value, sample_idx, pix_y * w + pix_x,
-                           spp_total)
+    if cox or coy:
+        pix_x = pix_x + cox
+        pix_y = pix_y + coy
+    rng = sampler_mod.seed(seed_value, sample_idx, pix_y * fw + pix_x,
+                           spp_total, stype=scene.sampler_type,
+                           base_seed=base_seed)
     rng, jitter = sampler_mod.next_2d(rng)
-    pos01 = Vec2((pix_x.to(torch.float32) + jitter.x) / w,
-                 (pix_y.to(torch.float32) + jitter.y) / h)
-    return rng, sensors.sample_ray(scene.sensor, pos01), jitter
+    pos01 = Vec2((pix_x.to(torch.float32) + jitter.x) / fw,
+                 (pix_y.to(torch.float32) + jitter.y) / fh)
+    cfg = scene.sensor_config
+    ap = None
+    if cfg.type == "thinlens" or (cfg.type == "batch"
+                                  and "thinlens" in cfg.sub_types):
+        rng, ap = sampler_mod.next_2d(rng)
+    if cfg.type == "batch":
+        ray = sensors.sample_ray_batch(scene.sensor, pos01, cfg.sub_types,
+                                       aperture_sample=ap)
+    else:
+        ray = sensors.sample_ray(scene.sensor, pos01, stype=cfg.type,
+                                 aperture_sample=ap)
+    return rng, ray, jitter
 
 
 def _finalize_splat(scene, L, jitter, sppc: int):
@@ -62,12 +82,12 @@ def _finalize_splat(scene, L, jitter, sppc: int):
 
 
 def render_pass(scene, seed_value: int, sppc: int, pass_idx: int = 0,
-                spp_total: int | None = None):
+                spp_total: int | None = None, base_seed: int = 0):
     """Trace one pass of `sppc` samples per pixel. Returns (image, weight,
     n_rays): n_rays counts the primary rays plus every closest-hit and
     shadow query the integrator issued."""
     rng, ray, jitter = _gen_camera_rays(scene, seed_value, sppc, pass_idx,
-                                        spp_total or sppc)
+                                        spp_total or sppc, base_seed)
     n = ray.o.x.shape[0]
     L, _, n_rays = get_integrator(scene.integrator).sample(
         scene, rng, ray, scene.integrator)
@@ -96,7 +116,8 @@ def render_with_stats(scene, seed=0, spp=None, max_wavefront=1 << 19):
     for i in range(n_passes):
         img_i, wgt_i, rays_i = render_pass(scene, pass_seed(seed, i), sppc,
                                            pass_idx=i,
-                                           spp_total=sppc * n_passes)
+                                           spp_total=sppc * n_passes,
+                                           base_seed=seed)
         image = image + img_i
         weight = weight + wgt_i
         rays += rays_i

@@ -60,7 +60,7 @@ class Scene:
     de_params: torch.Tensor | None    # [D, 20] delta emitter rows
     # BSDFs, sensor, accel
     bsdf_params: torch.Tensor         # [B, N_PARAMS]
-    sensor: SensorData
+    sensor: SensorData | tuple        # a batch sensor: one per sub-sensor
     # None: the dense all-triangles test (scenes of at most 8192 faces)
     accel: cellserve.CellServe | bvh_serve.BVHServe | bvh_tiled.BVHTiled | None
     textures: tuple = ()              # [Hi, Wi, 3] each; none loaded yet
@@ -77,6 +77,7 @@ class Scene:
         default_factory=SensorConfig)
     integrator: Any = None
     spp: int = 64
+    sampler_type: str = "independent"
     face_table: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):

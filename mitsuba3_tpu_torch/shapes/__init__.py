@@ -1,6 +1,8 @@
 """Host-side shape -> triangle-mesh lowering — counterpart of
-``mitsuba3_tpu/shapes/__init__.py`` for the in-memory ``mesh``, the
-``rectangle`` and the ``cube``.
+``mitsuba3_tpu/shapes/__init__.py`` for the in-memory ``mesh`` (with
+optional per-vertex uvs and normals), the ``rectangle``, the ``cube`` and
+the mesh files ``obj``, ``ply`` and ``serialized`` (``loaders.py``,
+``serialized_io.py``).
 
 Shapes become world-space triangle arrays (NumPy, float64) while the scene
 dict is lowered; the loader concatenates them into the scene's face table.
@@ -12,25 +14,44 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.transform import as_transform
+from ..core.transform import Transform4f, as_transform
 
 # keys each shape type may carry; any other key names a feature that is
-# not ported (uvs or normals of a mesh, vertex colors, media)
+# not ported (vertex colors, media, obj's flip_tex_coords)
+_COMMON = ("type", "bsdf", "emitter", "to_world")
 SHAPE_KEYS = {
-    "mesh": ("type", "vertices", "faces", "bsdf", "emitter", "to_world"),
-    "rectangle": ("type", "bsdf", "emitter", "to_world"),
-    "cube": ("type", "bsdf", "emitter", "to_world"),
+    "mesh": _COMMON + ("vertices", "faces", "uvs", "normals"),
+    "rectangle": _COMMON,
+    "cube": _COMMON,
+    "obj": _COMMON + ("filename",),
+    "ply": _COMMON + ("filename",),
+    "serialized": _COMMON + ("filename", "shape_index"),
 }
 
 
 class MeshData:
-    """Host-side triangle mesh (world space), with optional per-vertex uvs."""
+    """Host-side triangle mesh (world space), with optional per-vertex uvs
+    and shading normals."""
 
     def __init__(self, vertices: np.ndarray, faces: np.ndarray,
-                 uvs: np.ndarray | None = None):
+                 uvs: np.ndarray | None = None,
+                 normals: np.ndarray | None = None):
         self.vertices = np.asarray(vertices, np.float64)
         self.faces = np.asarray(faces, np.int32)
         self.uvs = uvs if uvs is None else np.asarray(uvs, np.float64)
+        self.normals = (normals if normals is None
+                        else np.asarray(normals, np.float64))
+
+    def transformed(self, t: Transform4f) -> "MeshData":
+        """The mesh under `t`: points by the matrix, normals by its
+        inverse transpose, renormalised."""
+        n = None
+        if self.normals is not None:
+            n = t.transform_normal(self.normals)
+            n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True),
+                               1e-20)
+        return MeshData(t.transform_point(self.vertices), self.faces,
+                        self.uvs, n)
 
     def face_areas(self) -> np.ndarray:
         p = self.vertices[self.faces]
@@ -77,10 +98,20 @@ def build_shape(spec: dict) -> MeshData:
         mesh = make_rectangle()
     elif stype == "cube":
         mesh = make_cube()
+    elif stype in ("obj", "ply"):
+        from .loaders import load_mesh_file
+        mesh = load_mesh_file(spec["filename"], stype)
+    elif stype == "serialized":
+        from .serialized_io import read_serialized
+        m = read_serialized(spec["filename"], int(spec.get("shape_index", 0)))
+        mesh = MeshData(m["vertices"], m["faces"], uvs=m.get("uvs"),
+                        normals=m.get("normals"))
     else:
+        def opt(key):
+            return np.asarray(spec[key], np.float64) if key in spec else None
         mesh = MeshData(np.asarray(spec["vertices"], np.float64),
-                        np.asarray(spec["faces"], np.int64))
+                        np.asarray(spec["faces"], np.int64),
+                        uvs=opt("uvs"), normals=opt("normals"))
     if spec.get("to_world") is not None:
-        mesh = MeshData(as_transform(spec["to_world"]).transform_point(
-            mesh.vertices), mesh.faces, mesh.uvs)
+        mesh = mesh.transformed(as_transform(spec["to_world"]))
     return mesh

@@ -10,7 +10,8 @@ PRB on the card: the Cornell box's gradients against the CPU's, and K1
 launched in the terrain replay as often as in the primal; the glossy and
 every-BSDF Cornell boxes' renders and PRB gradients against the CPU's;
 the optimizers, LargeSteps and one ``update()`` rebuild on the card
-against the CPU. Run
+against the CPU; a render per sampler type from an XML file, and
+``load_file``'s default device. Run
 on a machine with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -1098,3 +1099,36 @@ def test_vertex_update_on_card_equals_cpu(cuda, monkeypatch):
     assert mg == mc and sorted(ag) == sorted(ac)
     for k in ac:
         np.testing.assert_array_equal(ag[k], ac[k], err_msg=k)
+
+
+@pytest.mark.parametrize("combo", chip_smoke.XML_COMBOS,
+                         ids=[c[0] for c in chip_smoke.XML_COMBOS])
+def test_sampler_render_on_card_matches_cpu(cuda, tmp_path, combo):
+    """Each sampler type (with chip_smoke's sensor and filter for it) from
+    one XML file at 16^2, 16 spp, max_depth 4: the card's image against
+    the CPU's per pixel."""
+    sampler, sensor, rfilter, crop = combo
+    path = chip_smoke.cornell_xml(
+        mt, str(tmp_path), 16, 16, max_depth=4, spp=16, sampler=sampler,
+        sensor=sensor, rfilter=rfilter,
+        crop=crop and tuple(c // 2 for c in crop))
+    img_g = mt.render(mt.load_file(path), seed=5).cpu().numpy()
+    img_c = mt.render(mt.load_file(path, device="cpu"), seed=5).numpy()
+    assert img_g.shape == img_c.shape and np.isfinite(img_g).all()
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+def test_load_file_defaults_to_the_card(cuda, tmp_path, monkeypatch):
+    """load_file and load_string with no device put the scene on the card,
+    its accel too (the small terrain as a PLY above 8192 faces)."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+    path = chip_smoke.terrain_xml(
+        str(tmp_path), chip_smoke.small_terrain_dict(mt.ScalarTransform4f),
+        "terrain")
+    scene = mt.load_file(path)
+    assert scene.device.type == "cuda"
+    assert scene.accel.tris.device.type == "cuda"
+    monkeypatch.chdir(tmp_path)
+    with open(path) as f:
+        assert mt.load_string(f.read()).device.type == "cuda"

@@ -182,10 +182,10 @@ UNPORTED = {
         "type": "principled"})), "'principled'"),
     "emitter": (_with(BASE, lamp={"type": "projector"}), "'projector'"),
     "integrator": (_with(BASE, integrator={"type": "direct"}), "'direct'"),
-    "rfilter": (_sensor(BASE, film={"width": 8, "height": 8,
-                                    "rfilter": {"type": "box"}}), "box"),
-    "sampler": (_sensor(BASE, sampler={"type": "stratified"}),
-                "'stratified'"),
+    "specfilm": (_sensor(BASE, film={"type": "specfilm", "width": 8,
+                                     "height": 8}), "'specfilm'"),
+    "sensor_medium": (_sensor(BASE, medium={"type": "homogeneous"}),
+                      r"\['medium'\]"),
     "texture": (_with(BASE, terrain=dict(BASE["terrain"], bsdf={
         "type": "diffuse", "reflectance": {"type": "bitmap"}})), "'bitmap'"),
     "disk_shape": (_with(BASE, lid={"type": "disk"}), "'disk'"),
