@@ -84,7 +84,7 @@ Phases:
    a gold roughconductor, a plastic box), the roughconductor's alpha
    gradients nonzero; the every-BSDF Cornell
    (every_bsdf_dict: every BSDF type the port loads) rendered by `path`
-   at 512^2, 16 spp, max_depth 8, and its PRB step at 128^2, 16 spp; K1
+   at 512^2, 8 spp, max_depth 8, and its PRB step at 128^2, 16 spp; K1
    against its plain version on one full-width round of terrain64k
    bounce rays off a roughplastic (GGX, alpha 0.3) terrain; that glossy
    terrain64k rendered through cellserve (K1 launches and device ms per
@@ -101,8 +101,20 @@ Phases:
    filter combinations (XML_COMBOS, 32^2) and the radiancemeter,
    irradiancemeter and distant sensors (4^2) on the card against the
    CPU, per pixel;
-15. JSON lines of render, query, PRB, material, interior, loop, scene-file
-   and per-kernel numbers.
+15. textures (after the scene files; every image written by the port's
+   own writers): the Cornell box with a mipmapped 1024^2 EXR floor, a
+   checkerboard wall, a normalmap from a PNG around a roughplastic with a
+   PNG reflectance and a mask with a PFM opacity, as an XML file whose
+   ``load_file`` scene must equal ``load_dict``'s, its PRB step (512^2,
+   16 spp, max_depth 8) with every texture's gradient finite and nonzero,
+   a profiled pass and a 32^2 render on the card against the CPU; then
+   terrain64k with a mipmapped 2048^2 EXR reflectance and an envmap from
+   a 2048x1024 RGBE file: a 512^2, 4 spp render through K1 (K1 launched
+   in both modes, its device ms from a profiled render), a PRB step of
+   the texture and env_data, and the small terrain so textured on the
+   card against the CPU;
+16. JSON lines of render, query, PRB, material, interior, loop, scene-file,
+   texture and per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -619,6 +631,139 @@ def cornell_xml(mi, dirpath: str, width: int, height: int,
     with open(path, "w") as f:
         f.write(xml)
     return path
+
+
+# the textures phase: texture and environment image sizes
+TEX_SIDE = 1024            # the textured Cornell's floor and normal map
+TERRAIN_TEX_SIDE = 2048    # the textured terrain's reflectance
+ENV_SIZE = (1024, 2048)    # the terrain's envmap, height x width
+TEXTURE_FILES = ("floor.exr", "normals.png", "diffuse.png", "opacity.pfm")
+WHITE = [0.885809, 0.698859, 0.666422]
+
+
+def write_cornell_textures(dirpath: str, side: int = TEX_SIDE,
+                           seed: int = 7):
+    """The textured Cornell's image files, made from a seed and written by
+    the port's own writers: ``floor.exr`` (side^2 float RGB tiles with
+    noise), ``normals.png`` (side^2 8-bit RGB), ``diffuse.png`` ((side/2)^2
+    8-bit RGB, sRGB-encoded by ``write_image``) and ``opacity.pfm``
+    ((side/4)^2 RGB, gray values: a gray PFM reads as one channel, which
+    no texture takes)."""
+    from mitsuba3_tpu_torch.utils import image_io
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side] * (8.0 / side)
+    tiles = ((np.floor(yy) + np.floor(xx)) % 2)[..., None]
+    floor = (0.25 + 0.5 * tiles * np.array([0.9, 0.7, 0.5])
+             + 0.1 * rng.random((side, side, 3)))
+    image_io.write_image(os.path.join(dirpath, "floor.exr"), floor)
+    normals = np.concatenate([rng.integers(96, 160, (side, side, 2)),
+                              rng.integers(200, 256, (side, side, 1))], -1)
+    image_io.write_png(os.path.join(dirpath, "normals.png"),
+                       normals.astype(np.uint8))
+    image_io.write_image(os.path.join(dirpath, "diffuse.png"),
+                         rng.random((side // 2, side // 2, 3)))
+    q = side // 4
+    opacity = np.clip(np.hypot(*(np.mgrid[0:q, 0:q] / q - 0.5)) * 2.2, 0, 1)
+    image_io.write_image(os.path.join(dirpath, "opacity.pfm"),
+                         np.repeat(opacity[..., None], 3, -1))
+
+
+def textured_cornell_dict(mi, root: str, width: int, height: int,
+                          max_depth: int = 8, spp: int = 16) -> dict:
+    """``mi.cornell_box`` with four surfaces textured from the files of
+    write_cornell_textures under `root` ("" for names relative to a scene
+    file): the floor a mipmapped ``.exr`` bitmap; the back wall a
+    checkerboard; the large box a normalmap (``normals.png``, raw) around a
+    roughplastic whose diffuse reflectance is ``diffuse.png``
+    (sRGB-decoded, mirror wrap); the small box a mask whose opacity is
+    ``opacity.pfm`` (clamp wrap, nearest filter) around a diffuse. Every
+    wrap mode and filter occurs. `mi` is a package (the port or the JAX
+    one)."""
+    d = mi.cornell_box(width, height, spp=spp, max_depth=max_depth)
+
+    def f(name):
+        return os.path.join(root, name)
+
+    d["floor"]["bsdf"] = {"type": "diffuse", "reflectance": {
+        "type": "bitmap", "filename": f("floor.exr"), "mipmap": True}}
+    d["back"]["bsdf"] = {"type": "diffuse", "reflectance": {
+        "type": "checkerboard", "color0": 0.75, "color1": 0.2,
+        "to_uv": mi.ScalarTransform4f().scale([3.0, 3.0, 1.0])}}
+    d["large-box"]["bsdf"] = {
+        "type": "normalmap",
+        "normalmap": {"type": "bitmap", "filename": f("normals.png"),
+                      "raw": True},
+        "bsdf": {"type": "roughplastic", "alpha": 0.2,
+                 "diffuse_reflectance": {
+                     "type": "bitmap", "filename": f("diffuse.png"),
+                     "wrap_mode": "mirror"}}}
+    d["small-box"]["bsdf"] = {
+        "type": "mask",
+        "opacity": {"type": "bitmap", "filename": f("opacity.pfm"),
+                    "wrap_mode": "clamp", "filter_type": "nearest"},
+        "bsdf": {"type": "diffuse",
+                 "reflectance": {"type": "rgb", "value": WHITE}}}
+    return d
+
+
+def textured_cornell_xml(mi, dirpath: str, width: int, height: int,
+                         max_depth: int = 8, spp: int = 16) -> str:
+    """textured_cornell_dict with the ``prb`` integrator, written as a
+    scene file by the port's ``write_file`` into `dirpath`, beside the
+    texture files, which it names relative to itself. Returns the XML
+    file's path."""
+    from mitsuba3_tpu_torch.utils import xml as xml_mod
+    d = _prb_dict(textured_cornell_dict(mi, "", width, height, max_depth,
+                                        spp))
+    path = os.path.join(dirpath, f"textured_cornell_{width}x{height}.xml")
+    xml_mod.write_file(d, path)
+    return path
+
+
+def write_terrain_textures(dirpath: str, side: int = TERRAIN_TEX_SIDE,
+                           env_size=ENV_SIZE, seed: int = 11):
+    """The textured terrain's images: ``terrain.exr`` (side^2 float RGB:
+    greens and browns with noise) and ``sky.hdr`` (an RGBE lat-long map,
+    env_size = (height, width): a blue gradient with a bright sun region
+    around the directional sun's direction)."""
+    from mitsuba3_tpu_torch.utils import image_io
+    rng = np.random.default_rng(seed)
+    t = rng.random((side, side, 1))
+    tex = (np.array([0.18, 0.35, 0.12]) * (1 - t)
+           + np.array([0.45, 0.33, 0.2]) * t
+           + 0.05 * rng.random((side, side, 3)))
+    image_io.write_image(os.path.join(dirpath, "terrain.exr"), tex)
+    h, w = env_size
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2 * np.pi
+    # uv_to_dir: (sin t sin p, cos t, -sin t cos p), y up in the map
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    d = np.stack(np.broadcast_arrays(st * np.sin(phi), ct,
+                                     -st * np.cos(phi)), -1)
+    sun = -np.array([0.3, 0.3, -1.0]) / np.linalg.norm([0.3, 0.3, -1.0])
+    sky = (np.array([0.35, 0.5, 0.8]) * (0.4 + 0.6 * np.abs(ct))[..., None]
+           * np.ones((h, w, 1)))
+    sky = sky + 50.0 * (d @ sun > 0.995)[..., None]
+    image_io.write_image(os.path.join(dirpath, "sky.hdr"), sky)
+
+
+def textured_terrain_dict(make_dict, transform, root: str, **kw) -> dict:
+    """`make_dict(transform, **kw)` (terrain64k_dict or small_terrain_dict)
+    with planar uvs from x and y, the reflectance ``terrain.exr`` under
+    `root` (mipmapped, to_uv a scale of 4) and an envmap ``sky.hdr`` in
+    place of the constant environment; the sun stays."""
+    d = make_dict(transform, **kw)
+    v = np.asarray(d["terrain"]["vertices"], np.float64)
+    lo, hi = v[:, :2].min(0), v[:, :2].max(0)
+    d["terrain"] = dict(d["terrain"], uvs=(v[:, :2] - lo) / (hi - lo),
+                        bsdf={"type": "diffuse", "reflectance": {
+                            "type": "bitmap",
+                            "filename": os.path.join(root, "terrain.exr"),
+                            "mipmap": True,
+                            "to_uv": transform().scale([4.0, 4.0, 1.0])}})
+    d["env"] = {"type": "envmap",
+                "filename": os.path.join(root, "sky.hdr")}
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -1810,11 +1955,6 @@ def _grad_step(scene, names, seed: int, spp: int, passes=None, between=None):
 
     sppc, n_passes = ri.plan_passes(scene, spp)
     n_passes = n_passes if passes is None else passes
-    # the render's seed keys a structured sampler's pixel hash; an
-    # independent scene (and an older tree's, in tools/compare_trees.py)
-    # draws the same without it
-    keyed = ({"base_seed": seed} if getattr(
-        scene, "sampler_type", "independent") != "independent" else {})
     acc, rays, loss = None, 0, None
     for i in range(n_passes):
         # a tuple entry (the textures) gets a leaf per tensor
@@ -1824,7 +1964,7 @@ def _grad_step(scene, names, seed: int, spp: int, passes=None, between=None):
                 for t in (v if isinstance(v, tuple) else (v,))]
         img_i, wgt_i, rays_i = ri.render_pass(
             scene.replace(**theta), ri.pass_seed(seed, i), sppc, pass_idx=i,
-            spp_total=spp, **keyed)
+            spp_total=spp, base_seed=seed)
         if between is not None:
             between("fwd")
         loss = torch.mean(film_mod.develop(img_i, wgt_i) ** 2)
@@ -1963,7 +2103,7 @@ def phase_cornell_prb(mi, card: str, make=None, tag: str = "cornell",
     return out
 
 
-EVERY_BSDF_PATH_SPP = 16
+EVERY_BSDF_PATH_SPP = 8
 EVERY_BSDF_PRB_SIDE = 128
 EVERY_BSDF_PRB_SPP = 16
 
@@ -1971,7 +2111,7 @@ EVERY_BSDF_PRB_SPP = 16
 def phase_every_bsdf(mi, card: str):
     """The every-BSDF Cornell (every_bsdf_dict: 11 BSDF types, a
     twosided(mask(roughplastic)) floor, a null rectangle) with the path
-    integrator at 512^2, 16 spp, max_depth 8: a one-pass warm-up, one
+    integrator at 512^2, 8 spp, max_depth 8: a one-pass warm-up, one
     timed render (Mrays/s as bench.py counts a forward render, peak
     memory), one profiled pass; a PRB step at 128^2, 16 spp (gradients
     of bsdf_params and em_radiance finite, wall and peak memory); 32^2
@@ -2672,6 +2812,180 @@ def phase_scene_files(mi, card: str):
     return out
 
 
+TEXTURED_PRB_SPP = 16
+
+
+def _check_texture_grads(tag, grads, n_textures: int):
+    """`n_textures` texture gradients, each finite and not all zero."""
+    import torch
+    g = grads["textures"]
+    _check(len(g) == n_textures, f"{tag}: {len(g)} texture gradients, "
+           f"{n_textures} textures")
+    for i, t in enumerate(g):
+        _check(bool(torch.isfinite(t).all()) and bool((t != 0).any()),
+               f"{tag}: texture {i}'s gradient is not finite or all zero")
+
+
+def phase_textures(mi, card: str):
+    """Textures and image files on the card, every file written by the
+    port's writers into a temporary directory. (a) The textured Cornell
+    (textured_cornell_dict: a mipmapped 1024^2 EXR floor, a checkerboard
+    back wall, a normalmap from a 1024^2 PNG around a roughplastic with a
+    512^2 PNG reflectance, a mask with a PFM opacity) as an XML file,
+    whose load_file scene must equal load_dict's array for array; a PRB
+    step at 512^2, 16 spp, max_depth 8 (8 passes) differentiating
+    bsdf_params, em_radiance and textures (every texture's gradient
+    finite and nonzero), a profiled pass; a 32^2 render on the card
+    against the CPU. (b) terrain64k with planar uvs, a mipmapped 2048^2
+    EXR reflectance (to_uv a scale of 4) and an envmap read from a
+    2048x1024 RGBE file: a `path` render at 512^2, 4 spp through K1 (a
+    warm-up, a timed and a profiled render), then a PRB step (2 passes)
+    differentiating textures and env_data; the small terrain so textured
+    on the card against the CPU."""
+    import tempfile
+
+    import torch
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_cornell_textures(tmp)
+        write_terrain_textures(tmp)
+        out["write_files_s"] = time.perf_counter() - t0
+
+        # (a) the textured Cornell from an XML file
+        path = textured_cornell_xml(mi, tmp, 512, 512, 8, TEXTURED_PRB_SPP)
+        t0 = time.perf_counter()
+        scene = mi.load_file(path)
+        torch.cuda.synchronize()
+        file_s = time.perf_counter() - t0
+        _hold_scene_equal("textured Cornell XML against load_dict", scene,
+                          mi.load_dict(_prb_dict(textured_cornell_dict(
+                              mi, tmp, 512, 512, 8, TEXTURED_PRB_SPP))))
+        _check(len(scene.textures) == 5
+               and {m[:2] for m in scene.texture_meta} == {
+                   ("repeat", "bilinear"), ("clamp", "nearest"),
+                   ("mirror", "bilinear")}
+               and [len(m) for m in scene.texture_mips].count(
+                   TEX_SIDE.bit_length() - 1) == 1,
+               f"textured Cornell: textures as loaded {scene.texture_meta}")
+        names = ("bsdf_params", "em_radiance", "textures")
+        _grad_step(scene, names, 0, TEXTURED_PRB_SPP, passes=1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, rays, grads, n_passes = _grad_step(scene, names, 1,
+                                                 TEXTURED_PRB_SPP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        _check_grads("textured cornell prb", grads, names[:2])
+        _check_texture_grads("textured cornell prb", grads, 5)
+        mrays = 2.0 * rays / wall / 1e6          # bwd_ratio 1 (phase 6)
+        out["cornell"] = {
+            "scene": f"textured cornell (XML) 512x512 {TEXTURED_PRB_SPP}spp "
+                     "max_depth 8, prb",
+            "bsdf_types": list(scene.bsdf_types), "load_file_s": file_s,
+            "forward_rays": rays, "wall_s": wall, "passes": n_passes,
+            "mrays_per_s": mrays, "peak_bytes": peak, "loss": loss}
+        print(f"# textured cornell fwd+PRB bwd 512x512 {TEXTURED_PRB_SPP}spp:"
+              f" {rays} forward rays, step {wall:.3f} s in {n_passes} passes"
+              f" = {mrays:.3f} Mrays/s (bwd_ratio 1), peak memory "
+              f"{peak / 2**30:.2f} GiB, load_file {file_s:.3f} s [{card}]")
+        out["cornell"].update(_profile(lambda: _grad_step(
+            scene, names, 2, TEXTURED_PRB_SPP, passes=1), wall / n_passes,
+            {}))
+        del scene, grads
+        torch.cuda.empty_cache()
+        path = textured_cornell_xml(mi, tmp, 32, 32, 8, 16)
+        out["cornell"]["agreement_close"] = _agree_images(
+            "textured cornell XML (32x32, 16 spp)",
+            mi.render(mi.load_file(path), seed=5).cpu().numpy(),
+            mi.render(mi.load_file(path, device="cpu"), seed=5).numpy())
+
+        # (b) the textured terrain64k lit by an image
+        counters, labels = _accel_kernels("cells")
+        d = textured_terrain_dict(terrain64k_dict, mi.ScalarTransform4f, tmp)
+        t0 = time.perf_counter()
+        scene = mi.load_dict(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        _check(isinstance(scene.accel, cellserve.CellServe)
+               and tuple(scene.env_data.shape) == ENV_SIZE + (3,)
+               and tuple(scene.textures[0].shape) == (TERRAIN_TEX_SIDE,) * 2
+               + (3,), "textured terrain64k: accel, envmap or texture not "
+               "as written")
+        mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+        for k in counters:
+            counters[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                         max_wavefront=1 << 20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(counters)
+        _check(all(v > 0 for v in launches.values()),
+               f"textured terrain64k: K1 did not launch in both modes: "
+               f"{launches}")
+        _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+               "textured terrain64k: image not finite or black")
+        out["terrain"] = {
+            "scene": "terrain64k, 2048^2 EXR texture (mipmap), 2048x1024 "
+                     "RGBE envmap, 512x512 4spp max_depth 4, path, cellserve",
+            "rays": rays, "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
+            "peak_bytes": peak, "load_dict_s": load_s,
+            "k1_launches": launches, "mean": float(img.mean())}
+        print(f"# textured terrain64k 512x512 4spp: {rays} rays in "
+              f"{wall:.3f} s = {rays / wall / 1e6:.3f} Mrays/s, peak memory "
+              f"{peak / 2**30:.2f} GiB, load_dict {load_s:.3f} s; K1 "
+              f"launches {launches} [{card}]")
+        prof = _profile(lambda: mi.render_with_stats(
+            scene, seed=2, spp=4, max_wavefront=1 << 20), wall, labels)
+        for label in labels:
+            _check(prof["profiled_kernels"][label]["launches"] > 0,
+                   f"textured terrain64k: the profiled render ran no {label}")
+        out["terrain"].update(prof)
+        del scene, img
+        torch.cuda.empty_cache()
+
+        names = ("textures", "env_data")
+        scene = mi.load_dict(_prb_dict(d))
+        _grad_step(scene, names, 0, TERRAIN_PRB_SPP, passes=1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, rays, grads, n_passes = _grad_step(scene, names, 1,
+                                                 TERRAIN_PRB_SPP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        _check_grads("textured terrain64k prb", grads, ("env_data",))
+        _check_texture_grads("textured terrain64k prb", grads, 1)
+        mrays = 2.0 * rays / wall / 1e6
+        out["terrain_prb"] = {
+            "scene": "textured terrain64k 512x512 4spp max_depth 4, prb",
+            "forward_rays": rays, "wall_s": wall, "passes": n_passes,
+            "mrays_per_s": mrays, "peak_bytes": peak, "loss": loss}
+        print(f"# textured terrain64k fwd+PRB bwd 512x512 4spp: {rays} "
+              f"forward rays, step {wall:.3f} s in {n_passes} passes = "
+              f"{mrays:.3f} Mrays/s (bwd_ratio 1), peak memory "
+              f"{peak / 2**30:.2f} GiB [{card}]")
+        del scene, grads
+        torch.cuda.empty_cache()
+
+        d = textured_terrain_dict(small_terrain_dict, mi.ScalarTransform4f,
+                                  tmp)
+        out["terrain"]["agreement_close"] = _agree_images(
+            "textured small terrain (24x24, 4 spp)",
+            mi.render(mi.load_dict(d), seed=5).cpu().numpy(),
+            mi.render(mi.load_dict(d, device="cpu"), seed=5).numpy())
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2749,6 +3063,7 @@ def main():
                    card),
              timed("terrain64k vertex loop", phase_terrain_loop, mi, card)]
     scene_files = timed("scene files", phase_scene_files, mi, card)
+    textures = timed("textures", phase_textures, mi, card)
     k8_device = timed("K8 device times", phase_k8_device, card)
     rows += timed("kernels K5-K8", lambda: phase_kernels_attic(
         card, k8_device=k8_device))
@@ -2773,6 +3088,7 @@ def main():
     print(json.dumps({"interior": interior, "card": card}))
     print(json.dumps({"loops": loops, "card": card}))
     print(json.dumps({"scene_files": scene_files, "card": card}))
+    print(json.dumps({"textures": textures, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -25,6 +25,12 @@ emitter geometry) and delta-emitter rows. Intersections stay detached, so
 the accels' kernels run in both passes and need no backward. Like the
 path integrator, the loop drops lanes whose path has ended: they add
 nothing more to L or to the gradients.
+
+A texture's bilinear lookups read its quad table (``render/texture.py``).
+The replay builds that table once per pass as a leaf of its own, which
+every bounce's lookups share; the table's gradient, summed over the
+bounces, goes back to the texture through the table's build once, at the
+end of the pass.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from ..core.struct import struct, take_lanes
 from ..core.vec import Vec3
 from ..integrators.path import mis_weight
 from ..render import sampler as sampler_mod
+from ..render import texture as tex_mod
 from ..render.records import Ray
 from ..render.sampler import Sampler
 
@@ -167,6 +174,19 @@ def _theta_leaves(theta: dict):
     return leaves, flat
 
 
+def _quad_leaves(scene, textures):
+    """For each texture leaf whose lookups read a quad table (bilinear,
+    repeat or clamp): (texture, wrap, a quad-table leaf registered as its
+    table)."""
+    quads = []
+    for tex, (wrap, filt, _, _) in zip(textures, scene.texture_meta):
+        if filt == "bilinear" and wrap in ("repeat", "clamp"):
+            quad = tex_mod.build_quad(tex.detach(), wrap).requires_grad_(True)
+            tex_mod.register_quad(tex, wrap, quad)
+            quads.append((tex, wrap, quad))
+    return quads
+
+
 def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
           theta=None):
     """The shared primal / backward bounce loop on the detached `scene`;
@@ -193,7 +213,9 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
         prev_bsdf_delta=torch.ones(n, dtype=torch.bool, device=dev),
         rng=rng, dL=None if primal else dL)
     leaves, flat = _theta_leaves(theta or {})
-    grad_acc = [torch.zeros_like(leaf) for leaf in flat]
+    quads = _quad_leaves(scene, leaves.get("textures", ()))
+    diff = flat + [quad for _, _, quad in quads]
+    grad_acc = [torch.zeros_like(leaf) for leaf in diff]
     L_out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     valid = torch.zeros(n, dtype=torch.bool, device=dev)
     lanes = torch.arange(n, device=dev)
@@ -299,7 +321,7 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
                 with torch.enable_grad():
                     obj = local_contrib()
                     if obj.requires_grad:
-                        g = torch.autograd.grad(obj, flat, allow_unused=True)
+                        g = torch.autograd.grad(obj, diff, allow_unused=True)
                         for acc, gi in zip(grad_acc, g):
                             if gi is not None:
                                 acc += gi
@@ -348,6 +370,12 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
                 break
         retire(state, lanes)
 
+    # the quad tables' gradients back to their textures
+    for (tex, wrap, _), g_quad in zip(quads, grad_acc[len(flat):]):
+        with torch.enable_grad():
+            g_tex, = torch.autograd.grad(tex_mod.build_quad(tex, wrap), tex,
+                                         g_quad)
+        grad_acc[next(i for i, x in enumerate(flat) if x is tex)] += g_tex
     grads, it = {}, iter(grad_acc)
     for name, value in leaves.items():
         grads[name] = (tuple(next(it) for _ in value)
@@ -413,22 +441,18 @@ class _PRBFunction(torch.autograd.Function):
         tensors = [t.detach() for t in tensors]
         want = ctx.needs_input_grad[1:]
         theta = _unflatten_theta(run.keys, tensors)
-        wanted = _unflatten_theta(
-            [k for k, w in zip(run.keys, want) if w],
-            [t for t, w in zip(tensors, want) if w])
+        # a tuple entry (the textures) is differentiated whole when any of
+        # its tensors is wanted: the replay's scene keeps every texture
+        wanted = {name: theta[name] for (name, _), w in zip(run.keys, want)
+                  if w}
         dL = dL.detach()
         grads = _loop(substitute_theta(run.scene, theta), run.rng, run.ray,
                       run.cfg, "backward",
                       dL=Vec3(dL[:, 0], dL[:, 1], dL[:, 2]),
                       L_in=Vec3(L[:, 0], L[:, 1], L[:, 2]), theta=wanted)[3]
-        out, n_taken = [], {}
-        for (name, i), w in zip(run.keys, want):
-            g = grads[name] if w else None
-            if w and i is not None:     # the j-th wanted texture
-                j = n_taken.get(name, 0)
-                n_taken[name] = j + 1
-                g = g[j]
-            out.append(g)
+        out = [None if not w else grads[name] if i is None
+               else grads[name][i]
+               for (name, i), w in zip(run.keys, want)]
         return (None, *out)
 
 

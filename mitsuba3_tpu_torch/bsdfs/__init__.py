@@ -3,10 +3,11 @@
 
 Each BSDF type is a module of functions over per-lane parameter rows;
 per-lane dispatch evaluates every type present in the scene and blends
-by mask. The port registers the JAX package's type ids 0-10: diffuse,
+by mask. The port registers the JAX package's type ids 0-11: diffuse,
 conductor, roughconductor, dielectric, plastic, null, thindielectric,
-roughdielectric, roughplastic and the adapters mask and blendbsdf
-(``twosided`` is the row's flag [16], not a type).
+roughdielectric, roughplastic and the adapters mask, blendbsdf and
+normalmap (``twosided`` is the row's flag [16], not a type; a bumpmap
+loads as a normalmap).
 
 Adapters wrap nested BSDF slots. Their nesting unrolls statically:
 ``dispatch_nested`` includes adapter types until the scene's longest
@@ -19,11 +20,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from ..core.vec import Vec3
-from . import (blendbsdf, conductor, dielectric, diffuse, mask, null,
-               plastic, roughconductor, roughdielectric, roughplastic,
+from . import (blendbsdf, conductor, dielectric, diffuse, mask, normalmap,
+               null, plastic, roughconductor, roughdielectric, roughplastic,
                thindielectric)
 
 # BSDFFlags (bsdf.h)
@@ -52,6 +54,7 @@ ROUGH_DIELECTRIC = 7
 ROUGH_PLASTIC = 8
 MASK = 9
 BLEND = 10
+NORMALMAP = 11
 N_PARAMS = 28  # bsdf_params row width ([16] = two-sided flag, all types;
 #                [14], [15] = nested slots; [17:26] = roughplastic's fit)
 
@@ -59,8 +62,63 @@ _REGISTRY = {DIFFUSE: diffuse, CONDUCTOR: conductor,
              ROUGH_CONDUCTOR: roughconductor, DIELECTRIC: dielectric,
              PLASTIC: plastic, NULL: null, THIN_DIELECTRIC: thindielectric,
              ROUGH_DIELECTRIC: roughdielectric, ROUGH_PLASTIC: roughplastic,
-             MASK: mask, BLEND: blendbsdf}
-ADAPTER_TYPES = frozenset((MASK, BLEND))
+             MASK: mask, BLEND: blendbsdf, NORMALMAP: normalmap}
+ADAPTER_TYPES = frozenset((MASK, BLEND, NORMALMAP))
+# the row column of each textured type's texture id
+TEXTURE_COLUMN = {DIFFUSE: 3, PLASTIC: 3, ROUGH_PLASTIC: 3, MASK: 1,
+                  BLEND: 1, NORMALMAP: 1}
+
+
+def _name(type_id) -> str:
+    return _REGISTRY[type_id].__name__.rpartition(".")[2]
+
+
+def nested_slots(type_id, row) -> list:
+    """The nested slots of an adapter row (mask, normalmap: [15]; blend:
+    [15], [14])."""
+    kids = [int(round(float(row[15])))]
+    if type_id == BLEND:
+        kids.append(int(round(float(row[14]))))
+    return kids
+
+
+def reachable_types(bsdf_types, bsdf_rows, face_slots) -> tuple:
+    """((None, the types of the slots faces name), (adapter module name,
+    the types of the slots its rows nest), ...): the types a dispatch at
+    the top and one nested in each adapter can meet (``_dispatch``)."""
+    n = len(bsdf_types)
+    nested = {}
+    for t, row in zip(bsdf_types, bsdf_rows):
+        if t in ADAPTER_TYPES:
+            nested.setdefault(_name(t), set()).update(
+                bsdf_types[k] for k in nested_slots(t, row) if 0 <= k < n)
+    top = sorted({bsdf_types[int(s)] for s in set(face_slots)})
+    return ((None, tuple(top)),) + tuple(
+        (name, tuple(sorted(types))) for name, types in sorted(nested.items()))
+
+
+def texture_users(bsdf_types, bsdf_rows) -> tuple:
+    """((BSDF module name, texture ids its rows hold), ...): the ids
+    (k + 1 for scene.textures[k], -1 for vertex colors) in the texture
+    column of every row of each textured type. A masked dispatch gives a
+    type's function rows of that type only, so its color lookups need no
+    other texture (``Scene.texture_ids``)."""
+    users = {}
+    for t, row in zip(bsdf_types, bsdf_rows):
+        if t in TEXTURE_COLUMN:
+            k = int(np.float32(row[TEXTURE_COLUMN[t]]))
+            ids = users.setdefault(_name(t), set())
+            if k:
+                ids.add(k)
+    return tuple((name, tuple(sorted(ids))) for name, ids in
+                 sorted(users.items()))
+
+
+def dispatch_tables(bsdf_types, bsdf_rows, face_slots) -> dict:
+    """A Scene's ``bsdf_textures`` and ``bsdf_reach`` for the host rows
+    `bsdf_rows` and the slots `face_slots` that faces name."""
+    return {"bsdf_textures": texture_users(bsdf_types, bsdf_rows),
+            "bsdf_reach": reachable_types(bsdf_types, bsdf_rows, face_slots)}
 
 
 @functools.lru_cache(maxsize=256)
@@ -95,10 +153,14 @@ def _where_tree(mask, new, old):
     return tuple(_where_tree(mask, a, b) for a, b in zip(new, old))
 
 
-def _dispatch(scene, bsdf_idx, fn_name, *args, level: int = 0):
+def _dispatch(scene, bsdf_idx, fn_name, *args, level: int = 0,
+              parent: str = None):
     """Masked static dispatch over the types present at nesting `level`
-    (0 at the top): adapter types only while `level` is below the scene's
-    longest adapter chain.
+    (0 at the top; `parent` names the adapter module of a nested call):
+    adapter types only while `level` is below the scene's longest adapter
+    chain, and of those only the types that the faces' slots (at the top)
+    or the parent's rows' nested slots have (``scene.bsdf_reach``): no lane
+    reaches another type there.
 
     With several types, each type's function reads its own lanes' rows and,
     on the other lanes, the row of the first slot of its type: the values
@@ -107,8 +169,10 @@ def _dispatch(scene, bsdf_idx, fn_name, *args, level: int = 0):
     into the gradient that the replay of ``prb`` takes through the masked
     select. The selected lanes compute what the JAX package computes."""
     max_depth = getattr(scene, "adapter_max_depth", 1) or 1
+    reach = dict(scene.bsdf_reach)[parent]
     unique = tuple(t for t in sorted(set(scene.bsdf_types))
-                   if level < max_depth or t not in ADAPTER_TYPES)
+                   if (level < max_depth or t not in ADAPTER_TYPES)
+                   and t in reach)
     if len(unique) == 1:
         kw = {"level": level} if unique[0] in ADAPTER_TYPES else {}
         return getattr(_REGISTRY[unique[0]], fn_name)(scene, bsdf_idx,
@@ -134,10 +198,12 @@ def eval_pdf(scene, bsdf_idx, si, wo):
     return _dispatch(scene, bsdf_idx, "eval_pdf", si, wo)
 
 
-def dispatch_nested(scene, bsdf_idx, fn_name, *args, level: int):
-    """An adapter's call of its nested slots `bsdf_idx` at nesting `level`
-    (1 for an adapter dispatched at the top)."""
-    return _dispatch(scene, bsdf_idx, fn_name, *args, level=level)
+def dispatch_nested(scene, bsdf_idx, fn_name, *args, level: int,
+                    parent: str):
+    """Adapter module `parent`'s call of its nested slots `bsdf_idx` at
+    nesting `level` (1 for an adapter dispatched at the top)."""
+    return _dispatch(scene, bsdf_idx, fn_name, *args, level=level,
+                     parent=parent)
 
 
 def eval_null_transmission(scene, bsdf_idx, si):

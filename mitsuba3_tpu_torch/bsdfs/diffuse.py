@@ -26,7 +26,7 @@ def _side_sign(params, si):
 
 def reflectance(scene, params, si) -> Vec3:
     return eval_color(scene, Vec3(params[0], params[1], params[2]),
-                      params[3], si)
+                      params[3], si, scene.texture_ids("diffuse"))
 
 
 def sample(scene, bsdf_idx, si, s1, s2: Vec2):

@@ -1,9 +1,10 @@
 """Opacity mask — counterpart of ``mitsuba3_tpu/bsdfs/mask.py``.
 
-Blends a nested BSDF with perfect null transmission by a constant
-opacity. Param row: [0] opacity, [15] nested BSDF slot, [16] two-sided
-flag. `level` is the nesting level of the dispatch that called the
-function (0 at the top).
+Blends a nested BSDF with perfect null transmission by an opacity,
+constant or from a texture. Param row: [0] opacity, [1] its texture id
+(0: the constant), [15] nested BSDF slot, [16] two-sided flag. `level`
+is the nesting level of the dispatch that called the function (0 at the
+top).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ FLAGS = 0x0001 | 0x0002 | 0x0008 | 0x2000 | 0x4000  # Null|Smooth-ish|2-sided
 
 def _opacity(scene, params, si):
     c = eval_color(scene, Vec3(params[0], params[0], params[0]), params[1],
-                   si)
+                   si, scene.texture_ids("mask"))
     return torch.clamp(c.mean(), 0.0, 1.0)
 
 
@@ -36,7 +37,7 @@ def sample(scene, bsdf_idx, si, s1, s2, level: int = 0):
     pick_nested = s1 < op
     s1_r = torch.clamp(m.safe_div(s1, op), 0.0, 1.0 - 1e-7)
     bs_n, w_n = dispatch_nested(scene, _nested_idx(params), "sample", si_n,
-                                s1_r, s2, level=level + 1)
+                                s1_r, s2, level=level + 1, parent="mask")
     wo_n = Vec3(bs_n.wo.x, bs_n.wo.y, bs_n.wo.z * sgn)
 
     wo = Vec3.where(pick_nested, wo_n, -si.wi)
@@ -61,7 +62,8 @@ def eval_pdf(scene, bsdf_idx, si, wo, level: int = 0):
     op = _opacity(scene, params, si)
     si_n, sgn = flip_for_twosided(params, si)
     val, pdf = dispatch_nested(scene, _nested_idx(params), "eval_pdf", si_n,
-                               Vec3(wo.x, wo.y, wo.z * sgn), level=level + 1)
+                               Vec3(wo.x, wo.y, wo.z * sgn), level=level + 1,
+                               parent="mask")
     return val * op, pdf * op
 
 

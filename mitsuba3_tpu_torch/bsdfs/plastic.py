@@ -36,7 +36,7 @@ def _diffuse_scale(scene, params, si, eta):
     """diffuse / (1 - fdr_int) (per channel under `nonlinear`) and 1/eta^2."""
     fdr_int = fresnel_diffuse_reflectance(1.0 / eta)
     diff = eval_color(scene, Vec3(params[0], params[1], params[2]),
-                      params[3], si)
+                      params[3], si, scene.texture_ids("plastic"))
     denom = Vec3.where(params[5] > 0.5, 1.0 - diff * fdr_int, 1.0 - fdr_int)
     return diff / denom, 1.0 / (eta * eta)
 

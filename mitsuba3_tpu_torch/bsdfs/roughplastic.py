@@ -62,7 +62,7 @@ def _eval_pdf_local(scene, params, si, wi, wo):
     t_o = _fit(params, cos_theta_o)
     fdr_int = params[25]
     diff = eval_color(scene, Vec3(params[0], params[1], params[2]),
-                      params[3], si)
+                      params[3], si, scene.texture_ids("roughplastic"))
     denom = Vec3.where(params[5] > 0.5, 1.0 - diff * fdr_int, 1.0 - fdr_int)
     inv_eta_2 = 1.0 / (eta * eta)
     value = value + (diff / denom) * (m.InvPi * inv_eta_2

@@ -1,11 +1,13 @@
 """Carry a scene's state between the JAX package and the port.
 
 A renderer's "weights" are its scene tables. ``arrays_from_scene`` reads
-the leaves a scene of the port needs (vertices, faces, the face tables,
-area-emitter sampling tables, emitters, environment warp, BSDF rows,
-textures, sensor or a batch sensor's sub-sensors, accel arrays) into a
-flat dict of numpy arrays plus a dict of static fields (among them the
-film with its crop window, the sensor config and the sampler type). It
+the leaves a scene of the port needs (vertices, faces, the face tables
+with their vertex colors, area-emitter sampling tables, emitters,
+environment map and warp, BSDF rows, textures and their mip levels,
+sensor or a batch sensor's sub-sensors, accel arrays) into a flat dict of
+numpy arrays plus a dict of static fields (among them the textures'
+metadata, the film with its crop window, the sensor config and the
+sampler type). It
 takes a JAX ``Scene`` or a port ``Scene`` alike, by attribute names, and
 imports nothing of JAX.
 ``scene_from_arrays`` builds the port's ``Scene`` from them on a device.
@@ -34,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import bsdfs
 from .core.distr2d import SlicedMarginal2D
 from .integrators import config_from_dict
 from .integrators.path import PathConfig
@@ -48,8 +51,9 @@ from .sensors import SensorConfig, SensorData
 
 SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
                 "face_emitter", "face_inv_total_area", "face_uv",
-                "face_normals", "em_radiance", "ef_face", "ef_cdf",
-                "env_data", "env_scale", "bsdf_params", "de_params")
+                "face_normals", "face_colors", "em_radiance", "ef_face",
+                "ef_cdf", "env_data", "env_scale", "bsdf_params",
+                "de_params")
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
 SENSOR_ARRAYS = ("origin", "axis_x", "axis_y", "axis_z", "tan_half_x",
                  "tan_half_y", "aperture_radius", "focus_distance")
@@ -68,7 +72,7 @@ ACCELS = {
 ATTIC = ("pallas", "bvh2")   # standalone accels only: no scene holds one
 SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
               "delta_emitter_types", "bsdf_types", "bsdf_flags",
-              "adapter_max_depth", "spp", "sampler_type")
+              "adapter_max_depth", "spp", "sampler_type", "texture_meta")
 
 
 def _np(x):
@@ -113,6 +117,9 @@ def arrays_from_scene(scene):
             arrays[name] = _np(value)
     for i, tex in enumerate(scene.textures):
         arrays[f"textures.{i}"] = _np(tex)
+        for j, level in enumerate(scene.texture_mips[i]
+                                  if i < len(scene.texture_mips) else ()):
+            arrays[f"texture_mips.{i}.{j}"] = _np(level)
     for name in WARP_ARRAYS:
         arrays[f"env_warp.{name}"] = _np(getattr(scene.env_warp, name))
     for prefix, sensor in _sensor_prefixes(scene.sensor):
@@ -124,6 +131,9 @@ def arrays_from_scene(scene):
     arrays.update({f"accel.{name}": a for name, a in acc_arrays.items()})
 
     meta = {name: getattr(scene, name) for name in SCENE_META}
+    meta["texture_meta"] = tuple(
+        (str(w), str(f), bool(mip), tuple(float(x) for x in extra))
+        for w, f, mip, extra in scene.texture_meta)
     meta["film"] = _fields(scene.film, FilmConfig)
     meta["sensor_config"] = _fields(scene.sensor_config, SensorConfig)
     meta["integrator"] = _fields(scene.integrator, PathConfig)
@@ -200,7 +210,12 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
         sensor = SensorData(**group("sensor", SENSOR_ARRAYS))
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
     leaves.setdefault("de_params", None)
+    leaves.setdefault("face_colors", None)
+    rows = np.asarray(arrays["bsdf_params"])
     n_tex = sum(name.startswith("textures.") for name in arrays)
+    mips = tuple(tuple(t(f"texture_mips.{i}.{j}") for j in range(sum(
+        name.startswith(f"texture_mips.{i}.") for name in arrays)))
+        for i in range(n_tex))
     acc = {name[len("accel."):]: a for name, a in arrays.items()
            if name.startswith("accel.")}
     return Scene(
@@ -210,6 +225,10 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
         accel=(None if meta["accel"]["kind"] == "dense"
                else accel_from_arrays(acc, meta["accel"], device)),
         textures=tuple(t(f"textures.{i}") for i in range(n_tex)),
+        texture_mips=mips,
+        **bsdfs.dispatch_tables(
+            meta["bsdf_types"], rows, np.asarray(arrays["face_bsdf"])[
+                np.asarray(arrays["face_shape"]) >= 0]),
         **{name: meta[name] for name in SCENE_META},
         film=FilmConfig(**meta["film"]),
         sensor_config=sensor_cfg,

@@ -4,8 +4,11 @@ tables).
 
 The tables are built on the host in NumPy, exactly as the JAX package
 builds them. Sampling inverts the marginal and the conditional CDF by
-counting the entries below the sample; one table slice per condition,
-and the environment uses a single slice (S = 1).
+counting the entries below the sample, as the JAX package does; the
+count is a binary search (``_count_below``), not a compare over a row
+gathered per lane, which at an environment map's 2048 columns and a
+million lanes would take gigabytes. One table slice per condition; the
+environment uses a single slice (S = 1).
 """
 from __future__ import annotations
 
@@ -44,19 +47,19 @@ class SlicedMarginal2D:
         """k [N] slice index, s uniform -> (pos Vec2 in [0,1]^2, pdf [N])."""
         h = self.marg_cdf.shape[1]
         w = self.cond_cdf.shape[1]
-        mrow = self.marg_cdf[k]                                   # [N, H]
-        iy = torch.clamp((mrow < s.y[:, None]).sum(1), max=h - 1)
-        cy = _at(mrow, iy)
-        py = _at(mrow, iy - 1)
+        iy = torch.clamp(_count_below(self.marg_cdf, k, s.y), max=h - 1)
+        cy = _at(self.marg_cdf, k, iy)
+        py = _at(self.marg_cdf, k, iy - 1)
         fy = safe_div(s.y - py, cy - py)
 
-        crow = self.cond_cdf[k * h + iy]                          # [N, W]
-        ix = torch.clamp((crow < s.x[:, None]).sum(1), max=w - 1)
-        cx = _at(crow, ix)
-        px = _at(crow, ix - 1)
+        row = k * h + iy
+        ix = torch.clamp(_count_below(self.cond_cdf, row, s.x), max=w - 1)
+        cx = _at(self.cond_cdf, row, ix)
+        px = _at(self.cond_cdf, row, ix - 1)
         fx = safe_div(s.x - px, cx - px)
 
-        pos = Vec2((ix + fx.clamp(0.0, 1.0)) / w, (iy + fy.clamp(0.0, 1.0)) / h)
+        pos = Vec2((ix + fx.clamp(0.0, 1.0)) / w,
+                   (iy + fy.clamp(0.0, 1.0)) / h)
         return pos, self.eval(k, pos)
 
     def eval(self, k, pos: Vec2):
@@ -65,13 +68,28 @@ class SlicedMarginal2D:
         w = self.cond_cdf.shape[1]
         iy = torch.clamp((pos.y * h).to(torch.int32), 0, h - 1)
         ix = torch.clamp((pos.x * w).to(torch.int32), 0, w - 1)
-        drow = self.density.reshape(s_count * h, w)[k * h + iy]  # [N, W]
-        return _at(drow, ix)
+        return _at(self.density.reshape(s_count * h, w), k * h + iy, ix)
 
 
-def _at(rows, col):
-    """rows[i, col[i]] per lane, 0 where col is out of range (col == -1)."""
-    ok = (col >= 0) & (col < rows.shape[1])
-    idx = torch.clamp(col, 0, rows.shape[1] - 1).long()
-    val = rows.gather(1, idx[:, None])[:, 0]
-    return torch.where(ok, val, 0.0)
+def _count_below(table, row, x):
+    """The number of entries of table[row[i]] below x[i] per lane (each
+    row is non-decreasing), without a [N, C] row per lane: one search of
+    the rows laid end to end, row r's entries raised by r in float64,
+    where r + entry is exact, so each comparison is the float32 one."""
+    c = table.shape[1]
+    keys = (torch.arange(table.shape[0], device=table.device,
+                         dtype=torch.float64)[:, None]
+            + table.to(torch.float64)).reshape(-1)
+    r = row.to(torch.int64)
+    below = torch.searchsorted(keys, r.to(torch.float64) + x.to(
+        torch.float64))
+    return torch.clamp(below - r * c, min=0).to(torch.int32)
+
+
+def _at(table, row, col):
+    """table[row[i], col[i]] per lane, 0 where col is out of range (col ==
+    -1)."""
+    c = table.shape[1]
+    ok = (col >= 0) & (col < c)
+    idx = row.to(torch.int64) * c + torch.clamp(col, 0, c - 1).to(torch.int64)
+    return torch.where(ok, table.reshape(-1)[idx], 0.0)

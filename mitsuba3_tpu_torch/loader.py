@@ -8,11 +8,20 @@ for the plugins the port carries:
   optionally an ``area`` emitter of constant radiance;
 - the BSDFs ``diffuse``, ``conductor``, ``roughconductor``, ``plastic``,
   ``roughplastic``, ``dielectric``, ``thindielectric``,
-  ``roughdielectric``, ``null``, ``mask`` and ``blendbsdf``, and
-  ``twosided`` around any of them, with constant (RGB) parameters; the
-  rows, slot flags and adapter depth are the JAX loader's;
-- ``point``, ``spot`` and ``directional`` emitters and a ``constant``
-  environment;
+  ``roughdielectric``, ``null``, ``mask``, ``blendbsdf``, ``normalmap``
+  and ``bumpmap`` (lowered to a normal map, as the JAX loader does), and
+  ``twosided`` around any of them; the rows, slot flags and adapter depth
+  are the JAX loader's;
+- textures where the JAX loader reads them (``TEXTURED``): a diffuse
+  ``reflectance`` and a plastic's or roughplastic's
+  ``diffuse_reflectance`` from a ``bitmap`` (an image file or a ``data``
+  array), a ``checkerboard``, a ``volume`` (``constvolume``, a grid or a
+  ``.vol`` file) or a ``mesh_attribute`` (vertex colors); a mask's
+  ``opacity`` and a blendbsdf's ``weight`` from a bitmap or a
+  checkerboard; a normalmap's or bumpmap's texture (read raw); with the
+  textures' metadata and, for ``mipmap`` bitmaps, their mip levels;
+- ``point``, ``spot`` and ``directional`` emitters and a ``constant`` or
+  ``envmap`` environment (an image file or a ``data`` array);
 - the sensors ``perspective``, ``thinlens``, ``orthographic``,
   ``radiancemeter``, ``irradiancemeter``, ``distant`` and ``batch`` (of
   perspective, thinlens and orthographic sub-sensors), with an ``hdrfilm``
@@ -32,11 +41,13 @@ for the plugins the port carries:
 
 Any other plugin raises ``NotImplementedError`` naming it: among them a
 ``specfilm``, a sensor's ``medium``, an rfilter's parameters (which the
-JAX package ignores) and the ``blackbody``, ``regular`` and ``irregular``
-spectra. XML scene files lower to the same dicts (``utils/xml.py``). The
-host-side table building is the JAX package's, so the scene's arrays
-equal its leaves. The scene lives on ``device``: the card unless the
-caller asks for the CPU.
+JAX package ignores), the ``blackbody``, ``regular`` and ``irregular``
+spectra, a textured parameter outside ``TEXTURED`` (principled's
+``base_color`` among them) and an image format that ``utils/image_io.py``
+does not read. XML scene files lower to the same dicts
+(``utils/xml.py``). The host-side table building is the JAX package's,
+so the scene's arrays equal its leaves. The scene lives on ``device``:
+the card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -56,9 +67,11 @@ from .integrators.path import PathConfig
 from .ops import bvh_serve, bvh_tiled, cellserve
 from .bsdfs import rough_transmittance as rtrans
 from .render import sampler as sampler_mod
+from .render import texture as tex_mod
 from .render.film import RFILTERS, FilmConfig
 from .render.fresnel import CONDUCTOR_IOR
 from .render.scene import TRI_CHUNK, TRI_PAD, Scene
+from .render.texture_io import Texture, load_texture_spec
 
 ACCEL_MIN_FACES = 8192   # scenes above this many faces get an accel
 ACCELS = {"auto": cellserve.build, "cells": cellserve.build,
@@ -74,7 +87,8 @@ _SENSOR_KEYS = ("type", "to_world", "fov", "fov_axis", "near_clip",
 # constant spectra: their value (or scale) is the color
 _CONSTANT_SPECTRA = ("uniform", "d65", "srgb", "rawconstant")
 # every BSDF name the JAX loader knows; those outside BSDF_KEYS (or a
-# textured or spectral parameter of one inside) raise NotImplementedError
+# spectral parameter, or a textured one outside TEXTURED) raise
+# NotImplementedError
 BSDF_NAMES = ("diffuse", "conductor", "roughconductor", "dielectric",
               "measured", "thindielectric", "roughdielectric", "plastic",
               "roughplastic", "pplastic", "twosided", "null", "mask",
@@ -102,8 +116,26 @@ BSDF_KEYS = {
     "null": ("transmittance",),
     "mask": ("opacity",),
     "blendbsdf": ("weight",),
+    "normalmap": ("normalmap", "bumpmap"),
+    "bumpmap": ("normalmap", "bumpmap"),
     "twosided": (),
 }
+# (BSDF type, parameter) -> the texture types the JAX loader reads there
+_IMAGE_TEXTURES = ("bitmap", "checkerboard")
+_COLOR_TEXTURES = _IMAGE_TEXTURES + ("volume", "mesh_attribute")
+TEXTURED = {
+    ("diffuse", "reflectance"): _COLOR_TEXTURES,
+    ("plastic", "diffuse_reflectance"): _COLOR_TEXTURES,
+    ("roughplastic", "diffuse_reflectance"): _COLOR_TEXTURES,
+    ("mask", "opacity"): _IMAGE_TEXTURES,
+    ("blendbsdf", "weight"): _IMAGE_TEXTURES,
+}
+_TEXTURE_TYPES = _COLOR_TEXTURES + ("gridvolume", "constvolume")
+_VOLUME_KEYS = {"gridvolume": ("type", "filename", "grid", "data",
+                               "to_world"),
+                "constvolume": ("type", "value", "to_world")}
+ENV_KEYS = {"constant": ("type", "radiance", "scale"),
+            "envmap": ("type", "filename", "data", "raw", "scale")}
 DELTA_KEYS = {
     "point": ("type", "position", "intensity", "to_world"),
     "spot": ("type", "position", "direction", "intensity", "to_world",
@@ -169,44 +201,127 @@ def _scalar(spec, default: float, what: str) -> float:
     return float(spec)
 
 
-def _bsdf_row(spec: dict, add_bsdf):
+def _volume_texture(cspec: dict) -> Texture:
+    """The ``volume`` texture adapter (src/textures/volume.cpp): a nested
+    gridvolume or constvolume, sampled at the world hit point through its
+    world->local transform (the metadata's 3x4 matrix)."""
+    _check_keys({k: v for k, v in cspec.items() if k != "volume"
+                 and not (isinstance(v, dict)
+                          and v.get("type") in _VOLUME_KEYS)},
+                ("type",), "volume texture")
+    vol = cspec.get("volume") or next(
+        (v for v in cspec.values()
+         if isinstance(v, dict) and v.get("type") in _VOLUME_KEYS), None)
+    if vol is None or vol.get("type") not in _VOLUME_KEYS:
+        raise _not_ported(f"volume texture of "
+                          f"{None if vol is None else vol.get('type')!r}")
+    _check_keys(vol, _VOLUME_KEYS[vol["type"]], vol["type"])
+    if vol["type"] == "constvolume":
+        g = np.tile(_rgb(vol.get("value"), (0.75,) * 3),
+                    (2, 2, 2, 1)).astype(np.float32)
+    elif "filename" in vol:
+        from .utils.vol_io import read_vol
+        g = np.asarray(read_vol(vol["filename"])[0], np.float32)
+    else:
+        g = np.asarray(vol.get("grid", vol.get("data")), np.float32)
+    if g.ndim == 3:
+        g = np.repeat(g[..., None], 3, axis=-1)
+    tw = vol.get("to_world")
+    mtx = np.eye(4) if tw is None else as_transform(tw).matrix
+    w2l = tuple(float(v) for v in np.linalg.inv(mtx)[:3, :4].reshape(-1))
+    return Texture(np.ascontiguousarray(g, np.float32),
+                   ("3d", "trilinear", False, w2l))
+
+
+def _bsdf_row(spec: dict, add_bsdf, textures: list):
     """Lower a BSDF spec -> (type id, params row [N_PARAMS]), as the JAX
-    loader does. `add_bsdf` registers a nested BSDF (mask, blendbsdf) and
-    returns its slot; nested slots come before their adapter's."""
+    loader does. `add_bsdf` registers a nested BSDF (mask, blendbsdf,
+    normalmap) and returns its slot; nested slots come before their
+    adapter's. A texture a parameter names is appended to `textures` and
+    its row slot holds its index + 1 (-1 for vertex colors)."""
     btype = spec.get("type")
     if btype not in BSDF_KEYS:
         raise _not_ported(f"BSDF type {btype!r}")
     nests = [v for v in spec.values() if _is_bsdf(v)]
     _check_keys({k: v for k, v in spec.items() if not _is_bsdf(v)},
                 ("type",) + BSDF_KEYS[btype], btype)
+    for key, v in spec.items():
+        if (isinstance(v, dict) and v.get("type") in _TEXTURE_TYPES
+                and btype not in ("normalmap", "bumpmap")
+                and v["type"] not in TEXTURED.get((btype, key), ())):
+            raise _not_ported(f"a {v['type']} texture as {btype}'s {key}")
     params = np.zeros(bsdfs_pkg.N_PARAMS, np.float32)
 
     def color(key, default):
         return _rgb(spec.get(key), default)
 
+    def texture(cspec, tex_slot):
+        """Register the texture `cspec` in the row's slot `tex_slot`."""
+        if cspec["type"] == "mesh_attribute":
+            # the interpolated vertex color (mesh_attribute.cpp): si.vcolor,
+            # selected by texture id -1
+            _check_keys(cspec, ("type", "name"), "mesh_attribute")
+            if cspec.get("name", "vertex_color") != "vertex_color":
+                raise _not_ported(f"mesh_attribute {cspec['name']!r} (the "
+                                  f"port carries vertex_color only)")
+            params[tex_slot] = -1
+            return
+        textures.append(_volume_texture(cspec) if cspec["type"] == "volume"
+                        else load_texture_spec(cspec))
+        params[tex_slot] = len(textures)
+
+    def color_or_texture(key, default, rgb_slot, tex_slot):
+        cspec = spec.get(key)
+        if isinstance(cspec, dict) and cspec.get("type") in _TEXTURE_TYPES:
+            texture(cspec, tex_slot)
+            params[rgb_slot:rgb_slot + 3] = 0.5
+        else:
+            params[rgb_slot:rgb_slot + 3] = _rgb(cspec, default)
+
+    def scalar_or_texture(key, what):
+        v = spec.get(key)
+        if isinstance(v, dict) and v.get("type") in _TEXTURE_TYPES:
+            texture(v, 1)
+            params[0] = 0.5
+        else:
+            params[0] = _scalar(v, 0.5, what)
+
     if btype == "twosided":
         if len(nests) != 1:
             raise ValueError("twosided needs exactly one nested BSDF")
-        tid, params = _bsdf_row(nests[0], add_bsdf)
+        tid, params = _bsdf_row(nests[0], add_bsdf, textures)
         params[16] = 1.0
         return tid, params
     if btype == "mask":
         if len(nests) != 1:
             raise ValueError("mask needs exactly one nested BSDF")
-        params[0] = _scalar(spec.get("opacity"), 0.5, "mask opacity")
+        scalar_or_texture("opacity", "mask opacity")
         params[15] = add_bsdf(nests[0])
         return bsdfs_pkg.MASK, params
     if btype == "blendbsdf":
         if len(nests) != 2:
             raise ValueError("blendbsdf needs exactly two nested BSDFs")
-        params[0] = _scalar(spec.get("weight"), 0.5, "blendbsdf weight")
+        scalar_or_texture("weight", "blendbsdf weight")
         params[14] = add_bsdf(nests[0])
         params[15] = add_bsdf(nests[1])
         return bsdfs_pkg.BLEND, params
+    if btype in ("normalmap", "bumpmap"):
+        # a bumpmap is lowered to a normal map: its texture, if any, is
+        # read as tangent-space normals; without one the normal is flat
+        nm = spec.get("normalmap") or spec.get("bumpmap")
+        if isinstance(nm, dict):
+            textures.append(load_texture_spec({**nm, "raw": True}))
+            params[1] = len(textures)
+        elif nm is not None:
+            raise _not_ported(f"a {btype} given as {nm!r}")
+        if len(nests) > 1:
+            raise ValueError(f"{btype} takes one nested BSDF")
+        params[15] = add_bsdf(nests[0] if nests else {"type": "diffuse"})
+        return bsdfs_pkg.NORMALMAP, params
     if nests:
         raise _not_ported(f"{btype} with a nested BSDF")
     if btype == "diffuse":
-        params[0:3] = color("reflectance", (0.5, 0.5, 0.5))
+        color_or_texture("reflectance", (0.5, 0.5, 0.5), 0, 3)
         return bsdfs_pkg.DIFFUSE, params
     if btype in ("conductor", "roughconductor"):
         eta_d, k_d = CONDUCTOR_IOR.get(spec.get("material", "none"),
@@ -247,12 +362,12 @@ def _bsdf_row(spec: dict, add_bsdf):
     # plastic, roughplastic
     int_ior = float(spec.get("int_ior", 1.49))  # polypropylene (ior.h)
     ext_ior = float(spec.get("ext_ior", 1.000277))
-    params[0:3] = color("diffuse_reflectance", (0.5, 0.5, 0.5))
+    color_or_texture("diffuse_reflectance", (0.5, 0.5, 0.5), 0, 3)
     params[4] = int_ior / ext_ior
     params[5] = 1.0 if spec.get("nonlinear", False) else 0.0
     params[8:11] = color("specular_reflectance", (1, 1, 1))
     # specular sampling weight = s_mean / (d_mean + s_mean)
-    d_mean = float(params[0:3].mean())
+    d_mean = float(params[0:3].mean()) if params[3] == 0 else 0.5
     s_mean = float(params[8:11].mean())
     params[6] = s_mean / max(d_mean + s_mean, 1e-6)
     if btype == "plastic":
@@ -267,14 +382,6 @@ def _bsdf_row(spec: dict, add_bsdf):
     return bsdfs_pkg.ROUGH_PLASTIC, params
 
 
-def _nested_slots(t: int, row) -> list:
-    """The nested slots of an adapter row (mask: [15]; blend: [15], [14])."""
-    kids = [int(round(float(row[15])))]
-    if t == bsdfs_pkg.BLEND:
-        kids.append(int(round(float(row[14]))))
-    return kids
-
-
 def _slot_flags(bsdf_types, bsdf_rows):
     """Resolved BSDFFlags per slot: an adapter takes the union of its
     nested chains (a mask adds Null), and the two-sided flag ([16]) adds
@@ -285,7 +392,7 @@ def _slot_flags(bsdf_types, bsdf_rows):
         if t in bsdfs_pkg.ADAPTER_TYPES and slot not in seen:
             seen = seen | {slot}
             nested = 0
-            for k in _nested_slots(t, bsdf_rows[slot]):
+            for k in bsdfs_pkg.nested_slots(t, bsdf_rows[slot]):
                 if 0 <= k < len(bsdf_types):
                     nested |= fl(k, seen)
             base = nested | (bsdfs_pkg.NULL_FLAG
@@ -304,7 +411,7 @@ def _adapter_chain_depth(bsdf_types, bsdf_rows) -> int:
         if t not in bsdfs_pkg.ADAPTER_TYPES or slot in seen:
             return 0
         seen = seen | {slot}
-        return 1 + max(depth(k, seen) for k in _nested_slots(
+        return 1 + max(depth(k, seen) for k in bsdfs_pkg.nested_slots(
             t, bsdf_rows[slot]) if 0 <= k < len(bsdf_types))
     return max([depth(i, frozenset()) for i in range(len(bsdf_types))],
                default=1) or 1
@@ -466,11 +573,12 @@ def load_dict(d: dict, device=None) -> Scene:
     bsdf_types: list[int] = []
     bsdf_params: list[np.ndarray] = []
     named_bsdf: dict[str, int] = {}
+    textures: list[Texture] = []
 
     def add_bsdf(spec, name=None):
         if spec.get("type") == "ref":
             return named_bsdf[spec["id"]]
-        tid, row = _bsdf_row(spec, add_bsdf)
+        tid, row = _bsdf_row(spec, add_bsdf, textures)
         bsdf_types.append(tid)
         bsdf_params.append(row)
         if name is not None:
@@ -492,9 +600,8 @@ def load_dict(d: dict, device=None) -> Scene:
             add_bsdf(val, name=key)
         elif vtype in shapes_pkg.SHAPE_KEYS:
             shape_items.append(val)
-        elif vtype == "constant":
-            _check_keys(val, ("type", "radiance", "scale"),
-                        "constant emitter")
+        elif vtype in ENV_KEYS:
+            _check_keys(val, ENV_KEYS[vtype], f"{vtype} emitter")
             env_spec = val
         elif vtype in DELTA_KEYS:
             delta_specs.append(val)
@@ -505,10 +612,11 @@ def load_dict(d: dict, device=None) -> Scene:
         {"fov": 45.0}, film_cfg.width, film_cfg.height, dev)
 
     # ---- lower shapes; area emitters take the first emitter slots ----
-    all_verts, all_faces, face_uv, face_ns = [], [], [], []
+    all_verts, all_faces, face_uv, face_ns, face_vc = [], [], [], [], []
     face_shape, face_bsdf, face_emitter = [], [], []
     em_radiance, em_faces, em_areas = [], [], []
     v_off = f_off = 0
+    any_colors = False
     for s_idx, spec in enumerate(shape_items):
         bspec = spec.get("bsdf")
         b_idx = add_bsdf(bspec if bspec is not None else {"type": "diffuse"})
@@ -526,6 +634,9 @@ def load_dict(d: dict, device=None) -> Scene:
                        else np.zeros((nf, 3, 2)))
         face_ns.append(mesh.normals[mesh.faces] if mesh.normals is not None
                        else np.zeros((nf, 3, 3)))
+        face_vc.append(mesh.colors[mesh.faces] if mesh.colors is not None
+                       else np.zeros((nf, 3, 3)))
+        any_colors = any_colors or mesh.colors is not None
         face_shape.extend([s_idx] * nf)
         face_bsdf.extend([b_idx] * nf)
         face_emitter.extend([e_idx] * nf)
@@ -538,6 +649,7 @@ def load_dict(d: dict, device=None) -> Scene:
     faces = np.concatenate(all_faces, 0).astype(np.int32)
     face_uv = np.concatenate(face_uv, 0).astype(np.float32)
     face_normals = np.concatenate(face_ns, 0).astype(np.float32)
+    face_colors = np.concatenate(face_vc, 0).astype(np.float32)
     face_shape = np.asarray(face_shape, np.int32)
     face_bsdf = np.asarray(face_bsdf, np.int32)
     face_emitter = np.asarray(face_emitter, np.int32)
@@ -553,8 +665,15 @@ def load_dict(d: dict, device=None) -> Scene:
     env_index = n_area + n_delta if has_env else -1
     n_emitters = n_area + n_delta + (1 if has_env else 0)
     if has_env:
-        rad = _rgb(env_spec.get("radiance"), (1.0, 1.0, 1.0))
-        env_data = np.broadcast_to(rad, (4, 8, 3)).astype(np.float32)
+        if env_spec["type"] == "constant":
+            rad = _rgb(env_spec.get("radiance"), (1.0, 1.0, 1.0))
+            env_data = np.broadcast_to(rad, (4, 8, 3)).astype(np.float32)
+        elif "filename" in env_spec or "data" in env_spec:
+            env_data = load_texture_spec({"type": "bitmap", **{
+                k: v for k, v in env_spec.items()
+                if k in ("filename", "data", "raw")}}).data
+        else:
+            env_data = np.ones((4, 8, 3), np.float32)
         env_scale = float(env_spec.get("scale", 1.0))
         # the environment holds an em_radiance slot too (unused for eval)
         em_radiance.append(np.zeros(3, np.float32))
@@ -581,6 +700,8 @@ def load_dict(d: dict, device=None) -> Scene:
             [face_uv, np.zeros((pad, 3, 2), np.float32)], 0)
         face_normals = np.concatenate(
             [face_normals, np.zeros((pad, 3, 3), np.float32)], 0)
+        face_colors = np.concatenate(
+            [face_colors, np.zeros((pad, 3, 3), np.float32)], 0)
     n_padded = faces.shape[0]
 
     # small scenes keep the dense all-triangles test (accel None)
@@ -613,11 +734,19 @@ def load_dict(d: dict, device=None) -> Scene:
         bsdf_params=t(np.stack(bsdf_params, 0)),
         sensor=sensor_data,
         accel=accel,
+        textures=tuple(t(tx.data) for tx in textures),
+        texture_mips=tuple(
+            tuple(t(lv) for lv in tex_mod.build_mips(tx.data))
+            if tx.meta[2] else () for tx in textures),
+        face_colors=t(face_colors) if any_colors else None,
         n_emitters=n_emitters,
         n_area_emitters=n_area,
         env_emitter=env_index,
         delta_emitter_types=de_types,
         bsdf_types=tuple(bsdf_types),
+        texture_meta=tuple(tx.meta for tx in textures),
+        **bsdfs_pkg.dispatch_tables(bsdf_types, bsdf_params,
+                                    face_bsdf[:n_faces]),
         bsdf_flags=_slot_flags(bsdf_types, bsdf_params),
         adapter_max_depth=_adapter_chain_depth(bsdf_types, bsdf_params),
         film=film_cfg,

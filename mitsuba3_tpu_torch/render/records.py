@@ -48,6 +48,10 @@ class SurfaceInteraction:
     wi: Vec3                  # incident direction, local shading frame
     shape_index: torch.Tensor
     prim_index: torch.Tensor
+    vcolor: Vec3 | None = None        # interpolated vertex color
+    #                                   (mesh_attribute.cpp); None unused
+    duv_scale: torch.Tensor | None = None  # |duv|/|dp|, the mip LOD input;
+    #                                   None without a mipmapped texture
 
     def is_valid(self):
         return self.shape_index >= 0

@@ -1,7 +1,7 @@
 """Scene: flat SoA tables + dispatch hub — counterpart of
 ``mitsuba3_tpu/render/scene.py`` (the parts a triangle scene with the
-port's BSDFs, area lights, point, spot and directional lights and a
-constant environment reaches).
+port's BSDFs and textures, area lights, point, spot and directional
+lights and an environment map reaches).
 
 The JAX Scene's static fields are plain fields here; the per-face
 attribute table is built once from the leaves when the Scene is made.
@@ -37,6 +37,7 @@ A_P0, A_E1, A_E2 = 0, 3, 6       # xyz each
 A_UV = 9                         # uv0, uv1, uv2
 A_INV_AREA, A_EMITTER, A_BSDF, A_SHAPE = 15, 16, 17, 18
 A_NS = 19                        # per-corner shading normals, 9 columns
+A_VC = 28                        # per-corner vertex colors, 9 columns
 
 
 @struct
@@ -63,7 +64,16 @@ class Scene:
     sensor: SensorData | tuple        # a batch sensor: one per sub-sensor
     # None: the dense all-triangles test (scenes of at most 8192 faces)
     accel: cellserve.CellServe | bvh_serve.BVHServe | bvh_tiled.BVHTiled | None
-    textures: tuple = ()              # [Hi, Wi, 3] each; none loaded yet
+    # derived from bsdf_params by bsdfs.dispatch_tables (update() redoes it):
+    # (BSDF module name, texture ids its rows hold) and the BSDF types each
+    # dispatch can meet
+    bsdf_textures: tuple
+    bsdf_reach: tuple
+    textures: tuple = ()              # [Hi, Wi, 3] each (a volume's
+    #                                   [D, H, W, 3]), differentiable
+    texture_mips: tuple = ()          # per texture: a tuple of levels
+    face_colors: torch.Tensor | None = None  # [F, 3, 3]; None: no mesh
+    #                                   carries vertex colors
     # static configuration
     n_emitters: int = 0
     n_area_emitters: int = 0
@@ -71,6 +81,8 @@ class Scene:
     delta_emitter_types: tuple = ()
     bsdf_types: tuple = ()
     bsdf_flags: tuple = ()
+    texture_meta: tuple = ()          # per texture: (wrap, filter, mipmap,
+    #                                   uv transform or world->local 3x4)
     adapter_max_depth: int = 1        # longest adapter chain (mask, blend)
     film: FilmConfig = dataclasses.field(default_factory=FilmConfig)
     sensor_config: SensorConfig = dataclasses.field(
@@ -101,7 +113,7 @@ class Scene:
 
     def _face_table(self):
         """[F, 28] per-face attribute rows (columns A_*; int columns as
-        exact f32)."""
+        exact f32), [F, 37] with vertex colors."""
         p0, e1, e2 = self.triangle_soa()
         uv = self.face_uv
         ns = self.face_normals
@@ -113,11 +125,14 @@ class Scene:
                 self.face_bsdf.to(torch.float32),
                 self.face_shape.to(torch.float32)]
         cols += [ns[:, i, j] for i in range(3) for j in range(3)]
+        if self.face_colors is not None:
+            vc = self.face_colors
+            cols += [vc[:, i, j] for i in range(3) for j in range(3)]
         return torch.stack(cols, dim=1)
 
     def gather_face_attrs(self, prim):
-        """Per-lane face attributes as SoA rows [28, N] (one row take per
-        lane)."""
+        """Per-lane face attributes as SoA rows [28 or 37, N] (one row take
+        per lane)."""
         return take_rows(self.face_table, prim).T
 
     # ------------------------------------------------------------------
@@ -187,10 +202,27 @@ class Scene:
         def as_int(x):
             return torch.round(x).to(torch.int32)
 
+        duv_scale = None
+        if any(meta[2] for meta in self.texture_meta):
+            # per-face uv density |d(uv)| / |d(p)| for the mip LOD (constant
+            # on an affinely parameterised triangle)
+            duv1 = Vec2(a[A_UV + 2] - a[A_UV], a[A_UV + 3] - a[A_UV + 1])
+            duv2 = Vec2(a[A_UV + 4] - a[A_UV], a[A_UV + 5] - a[A_UV + 1])
+            uv_area = torch.abs(duv1.x * duv2.y - duv1.y * duv2.x)
+            duv_scale = torch.sqrt(m.safe_div(uv_area,
+                                              te1.cross(te2).norm()))
+        vcolor = None
+        if self.face_colors is not None:
+            # the interpolated vertex attribute (mesh_attribute.cpp eval)
+            c0, c1, c2 = A_VC, A_VC + 3, A_VC + 6
+            vcolor = Vec3(a[c0] * w0 + a[c1] * b1 + a[c2] * b2,
+                          a[c0 + 1] * w0 + a[c1 + 1] * b1 + a[c2 + 1] * b2,
+                          a[c0 + 2] * w0 + a[c1 + 2] * b1 + a[c2 + 2] * b2)
+
         si = SurfaceInteraction(
             p=p, t=pi.t, n=ng, sh_frame=sh_frame, uv=uv, wi=wi,
             shape_index=torch.where(valid, as_int(a[A_SHAPE]), -1),
-            prim_index=pi.prim_index)
+            prim_index=pi.prim_index, vcolor=vcolor, duv_scale=duv_scale)
         attrs = {
             "bsdf": as_int(a[A_BSDF]),
             "emitter": torch.where(valid, as_int(a[A_EMITTER]), -1),
@@ -413,6 +445,11 @@ class Scene:
     def eval_env(self, d: Vec3) -> Vec3:
         """Environment radiance for escaped rays."""
         return env_mod.eval_env(self, d)
+
+    def texture_ids(self, bsdf_name: str):
+        """The texture ids (k + 1 for textures[k], -1 for vertex colors)
+        the rows of BSDF type `bsdf_name` hold."""
+        return dict(self.bsdf_textures)[bsdf_name]
 
     def gather_bsdf_params(self, bsdf_idx):
         """[N] bsdf slots -> SoA param rows [N_PARAMS, N]."""

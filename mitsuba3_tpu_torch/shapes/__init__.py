@@ -1,7 +1,7 @@
 """Host-side shape -> triangle-mesh lowering — counterpart of
 ``mitsuba3_tpu/shapes/__init__.py`` for the in-memory ``mesh`` (with
-optional per-vertex uvs and normals), the ``rectangle``, the ``cube`` and
-the mesh files ``obj``, ``ply`` and ``serialized`` (``loaders.py``,
+optional per-vertex uvs, normals and colors), the ``rectangle``, the
+``cube`` and the mesh files ``obj``, ``ply`` and ``serialized`` (``loaders.py``,
 ``serialized_io.py``).
 
 Shapes become world-space triangle arrays (NumPy, float64) while the scene
@@ -17,10 +17,11 @@ import numpy as np
 from ..core.transform import Transform4f, as_transform
 
 # keys each shape type may carry; any other key names a feature that is
-# not ported (vertex colors, media, obj's flip_tex_coords)
+# not ported (media, obj's flip_tex_coords)
 _COMMON = ("type", "bsdf", "emitter", "to_world")
 SHAPE_KEYS = {
-    "mesh": _COMMON + ("vertices", "faces", "uvs", "normals"),
+    "mesh": _COMMON + ("vertices", "faces", "uvs", "normals",
+                       "vertex_colors"),
     "rectangle": _COMMON,
     "cube": _COMMON,
     "obj": _COMMON + ("filename",),
@@ -30,17 +31,20 @@ SHAPE_KEYS = {
 
 
 class MeshData:
-    """Host-side triangle mesh (world space), with optional per-vertex uvs
-    and shading normals."""
+    """Host-side triangle mesh (world space), with optional per-vertex uvs,
+    shading normals and colors."""
 
     def __init__(self, vertices: np.ndarray, faces: np.ndarray,
                  uvs: np.ndarray | None = None,
-                 normals: np.ndarray | None = None):
+                 normals: np.ndarray | None = None,
+                 colors: np.ndarray | None = None):
         self.vertices = np.asarray(vertices, np.float64)
         self.faces = np.asarray(faces, np.int32)
         self.uvs = uvs if uvs is None else np.asarray(uvs, np.float64)
         self.normals = (normals if normals is None
                         else np.asarray(normals, np.float64))
+        self.colors = (colors if colors is None
+                       else np.asarray(colors, np.float64))
 
     def transformed(self, t: Transform4f) -> "MeshData":
         """The mesh under `t`: points by the matrix, normals by its
@@ -51,7 +55,7 @@ class MeshData:
             n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True),
                                1e-20)
         return MeshData(t.transform_point(self.vertices), self.faces,
-                        self.uvs, n)
+                        self.uvs, n, self.colors)
 
     def face_areas(self) -> np.ndarray:
         p = self.vertices[self.faces]
@@ -105,13 +109,14 @@ def build_shape(spec: dict) -> MeshData:
         from .serialized_io import read_serialized
         m = read_serialized(spec["filename"], int(spec.get("shape_index", 0)))
         mesh = MeshData(m["vertices"], m["faces"], uvs=m.get("uvs"),
-                        normals=m.get("normals"))
+                        normals=m.get("normals"), colors=m.get("colors"))
     else:
         def opt(key):
             return np.asarray(spec[key], np.float64) if key in spec else None
         mesh = MeshData(np.asarray(spec["vertices"], np.float64),
                         np.asarray(spec["faces"], np.int64),
-                        uvs=opt("uvs"), normals=opt("normals"))
+                        uvs=opt("uvs"), normals=opt("normals"),
+                        colors=opt("vertex_colors"))
     if spec.get("to_world") is not None:
         mesh = mesh.transformed(as_transform(spec["to_world"]))
     return mesh

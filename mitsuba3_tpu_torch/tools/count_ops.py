@@ -1,6 +1,7 @@
 """Count the tensor operations of one render pass per sampler, on the CPU.
 
     python3 -m mitsuba3_tpu_torch.tools.count_ops [--size 16] [--spp 64]
+    python3 -m mitsuba3_tpu_torch.tools.count_ops --textured [--size 16]
 
 Run from the repository root. For each sampler type, the scene is
 ``chip_smoke.cornell_xml``'s Cornell box (perspective sensor, Gaussian
@@ -11,6 +12,12 @@ operation is one kernel launch, so the count predicts a pass's launches
 before a chip run. The orthogonal sampler is also counted with the
 thinlens sensor and the lanczos filter (``chip_smoke``'s XML Cornell
 cell). Prints one line per scene and the ratio to ``independent``.
+
+``--textured`` counts instead one PRB pass (forward and backward, as
+``chip_smoke._grad_step`` runs it: 2 of ``--spp`` samples per pixel) of
+``chip_smoke``'s textured Cornell (``textured_cornell_xml``, its image
+files at 64^2) and of the diffuse Cornell box, both with ``prb`` at
+``max_depth`` 8, and prints their ratio.
 """
 from __future__ import annotations
 
@@ -47,12 +54,42 @@ def count_pass(path: str, spp: int) -> int:
     return c.n
 
 
+def count_prb_pass(scene, spp: int, names) -> int:
+    """Operations of one PRB pass of 2 of `spp` samples per pixel, forward
+    and backward, differentiating the θ tables `names`."""
+    import chip_smoke
+    with _Count() as c:
+        chip_smoke._grad_step(scene, names, 7, spp, passes=1)
+    return c.n
+
+
+def count_textured(size: int, spp: int):
+    import chip_smoke
+    import mitsuba3_tpu_torch as mt
+    names = ("bsdf_params", "em_radiance", "textures")
+    with tempfile.TemporaryDirectory() as tmp:
+        chip_smoke.write_cornell_textures(tmp, 64)
+        textured = mt.load_file(chip_smoke.textured_cornell_xml(
+            mt, tmp, size, size, 8, spp), device="cpu")
+        n_tex = count_prb_pass(textured, spp, names)
+    diffuse = mt.load_dict(chip_smoke._prb_dict(mt.cornell_box(
+        size, size, spp=spp, max_depth=8)), device="cpu")
+    n_dif = count_prb_pass(diffuse, spp, names)
+    print(f"PRB pass {size}x{size}, 2 of {spp} spp, max_depth 8: textured "
+          f"cornell {n_tex} ops, diffuse cornell {n_dif} ops, "
+          f"{n_tex / n_dif:.2f}x")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=16)
     ap.add_argument("--spp", type=int, default=64)
+    ap.add_argument("--textured", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
+    if args.textured:
+        count_textured(args.size, args.spp)
+        return 0
     import chip_smoke
     import mitsuba3_tpu_torch as mt
     from mitsuba3_tpu_torch.render.sampler import TYPES

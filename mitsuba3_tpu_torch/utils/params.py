@@ -5,7 +5,8 @@ A dict-like view of a Scene's differentiable tables under the JAX
 package's keys, with ``set_dirty`` batching. ``update()`` applies the
 pending writes, rebuilds the state derived from them (the environment's
 sampling tables after an ``env_data`` edit; the area-emitter tables and
-the accel after a ``vertices`` edit, as Scene::parameters_changed does)
+the accel after a ``vertices`` edit, as Scene::parameters_changed does;
+the BSDF dispatch's texture and type tables after a ``bsdf_params`` edit)
 and returns a new Scene; the Scene it started from is left as it was.
 
 The accel is geometry, not a parameter: it is rebuilt on the host from
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import bsdfs
 from ..emitters import envmap as env_mod
 from ..ops import bvh_serve, bvh_tiled, cellserve
 
@@ -80,12 +82,14 @@ class SceneParameters:
                 s = _rebuild_geometry_derived(s.replace(vertices=v))
             elif k == "env_data":
                 s = _rebuild_env_tables(s.replace(env_data=v))
+            elif k == "bsdf_params":
+                s = _rebuild_dispatch_tables(s.replace(bsdf_params=v))
             elif k == "sensor.to_world.origin":
                 s = s.replace(sensor=s.sensor.replace(origin=v))
             elif k.startswith("texture"):
                 tex[int(k[len("texture"):].split(".")[0])] = v
                 s = s.replace(textures=tuple(tex))
-            else:   # em_radiance, bsdf_params, env_scale, de_params
+            else:   # em_radiance, env_scale, de_params
                 s = s.replace(**{k: v})
         self._dirty.clear()
         self._scene = s
@@ -93,6 +97,16 @@ class SceneParameters:
 
     def scene(self):
         return self.update()
+
+
+def _rebuild_dispatch_tables(scene):
+    """Refresh the textures each BSDF type's rows name and the types each
+    dispatch can meet after a ``bsdf_params`` edit, which may point a row
+    at another texture or an adapter at another nested slot."""
+    face_slots = scene.face_bsdf[scene.face_shape >= 0].cpu().numpy()
+    return scene.replace(**bsdfs.dispatch_tables(
+        scene.bsdf_types, scene.bsdf_params.detach().cpu().numpy(),
+        face_slots))
 
 
 def _rebuild_env_tables(scene):

@@ -273,6 +273,10 @@ def test_mixed_lanes_match_jax():
     assert (tuple(sj.bsdf_flags), sj.adapter_max_depth) == (
         st.bsdf_flags, st.adapter_max_depth)
     assert set(st.bsdf_types) == set(range(11))
+    # lanes here name every slot, nested ones too, which no face names: the
+    # dispatch's reach is that of faces naming every slot
+    st = st.replace(bsdf_reach=bsdfs_t.reachable_types(
+        st.bsdf_types, st.bsdf_params.numpy(), range(len(st.bsdf_types))))
     idx = np.random.default_rng(3).integers(0, len(st.bsdf_types), N)
     idx = idx.astype(np.int32)
     bj, wj, bt, wt = _sample(sj, st, _slots(st, idx), seed=17)

@@ -11,7 +11,9 @@ launched in the terrain replay as often as in the primal; the glossy and
 every-BSDF Cornell boxes' renders and PRB gradients against the CPU's;
 the optimizers, LargeSteps and one ``update()`` rebuild on the card
 against the CPU; a render per sampler type from an XML file, and
-``load_file``'s default device. Run
+``load_file``'s default device; texture lookups (every wrap and filter,
+the mip levels), the textured Cornell's render and the texture and
+environment gradients of it and of the small textured terrain. Run
 on a machine with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -1132,3 +1134,73 @@ def test_load_file_defaults_to_the_card(cuda, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with open(path) as f:
         assert mt.load_string(f.read()).device.type == "cuda"
+
+
+@pytest.mark.parametrize("filt", ["bilinear", "nearest"])
+@pytest.mark.parametrize("wrap", ["repeat", "clamp", "mirror"])
+def test_texture_lookups_on_card_match_cpu(cuda, np_rng, wrap, filt):
+    """eval_texture (every wrap and filter, uvs inside and outside
+    [0, 1]) and, for mipmaps, the levels in one gather: the card's values
+    within 1e-6 of the CPU's."""
+    from mitsuba3_tpu_torch.core.vec import Vec2
+    from mitsuba3_tpu_torch.render import texture as tex_mod
+    tex = np_rng.random((37, 23, 3)).astype(np.float32)
+    uv = np_rng.uniform(-0.8, 1.9, (2, 8192)).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t = torch.as_tensor(tex, device=dev)
+        u, v = (torch.as_tensor(a, device=dev) for a in uv)
+        vals = [tex_mod.eval_texture(t, Vec2(u, v), wrap, filt).to_array()]
+        if filt == "bilinear" and wrap != "mirror":
+            levels = tuple(torch.as_tensor(lv, device=dev)
+                           for lv in tex_mod.build_mips(tex))
+            vals.append(tex_mod._eval_levels(levels, Vec2(u, v), wrap))
+        out.append([x.cpu() for x in vals])
+    for a, b in zip(*out):
+        assert torch.allclose(a, b, rtol=0, atol=1e-6)
+
+
+def test_textured_cornell_on_card_matches_cpu(cuda, tmp_path):
+    """chip_smoke's textured Cornell from its XML file (64^2 images) at
+    32^2, 16 spp, max_depth 8 (prb primal): the card's image against the
+    CPU's per pixel."""
+    chip_smoke.write_cornell_textures(str(tmp_path), 64)
+    path = chip_smoke.textured_cornell_xml(mt, str(tmp_path), 32, 32, 8, 16)
+    img_g = mt.render(mt.load_file(path), seed=5).cpu().numpy()
+    img_c = mt.render(mt.load_file(path, device="cpu"), seed=5).numpy()
+    assert np.isfinite(img_g).all() and float(img_g.max()) > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+def test_texture_grads_on_card_match_cpu(cuda, tmp_path):
+    """The textured Cornell (16^2, max_depth 3, 4 spp, prb): every
+    texture's gradient on the card finite, of the CPU's shape and within
+    1e-3 of its largest CPU entry; the small textured terrain's env_data
+    and texture gradients likewise."""
+    root = str(tmp_path)
+    chip_smoke.write_cornell_textures(root, 64)
+    chip_smoke.write_terrain_textures(root, 64, (16, 32))
+    scenes = (
+        (mt.load_file(chip_smoke.textured_cornell_xml(mt, root, 16, 16, 3, 4),
+                      device=cuda),
+         mt.load_file(chip_smoke.textured_cornell_xml(mt, root, 16, 16, 3, 4),
+                      device="cpu")),
+        tuple(mt.load_dict(chip_smoke._prb_dict(
+            chip_smoke.textured_terrain_dict(
+                chip_smoke.small_terrain_dict, mt.ScalarTransform4f, root,
+                width=16)), device=dev) for dev in (cuda, "cpu")))
+    for card, cpu in scenes:
+        theta = {}
+        for name, scene in (("cuda", card), ("cpu", cpu)):
+            leaves = tuple(t.detach().clone().requires_grad_(True)
+                           for t in scene.textures)
+            env = scene.env_data.detach().clone().requires_grad_(True)
+            img = mt.render(scene.replace(textures=leaves, env_data=env),
+                            spp=4, seed=0)
+            theta[name] = [g.cpu() for g in torch.autograd.grad(
+                img.mean(), leaves + (env,))]
+        for a, b in zip(theta["cuda"], theta["cpu"]):
+            assert a.shape == b.shape and torch.isfinite(a).all()
+            scale = float(b.abs().max())
+            assert torch.allclose(a, b, rtol=0, atol=1e-3 * scale + 1e-12)

@@ -205,8 +205,12 @@ def test_glossy_cornell_prb_grads_match_jax(monkeypatch):
 
 
 UNPORTED = {
-    "normalmap": {"type": "normalmap", "bsdf": {"type": "diffuse"}},
-    "bumpmap": {"type": "bumpmap", "bsdf": {"type": "diffuse"}},
+    # normalmap, bumpmap and the textures below load: their cases give
+    # them what the port still refuses
+    "normalmap": {"type": "normalmap", "normalmap": 0.5,
+                  "bsdf": {"type": "diffuse"}},
+    "bumpmap": {"type": "bumpmap", "bumpmap": 1.0,
+                "bsdf": {"type": "diffuse"}},
     "principled": {"type": "principled"},
     "principledthin": {"type": "principledthin"},
     "hair": {"type": "hair"},
@@ -218,30 +222,31 @@ UNPORTED = {
     "measured_polarized": {"type": "measured_polarized"},
     "twosided(principled)": {"type": "twosided",
                              "bsdf": {"type": "principled"}},
-    "bitmap": {"type": "diffuse", "reflectance": {"type": "bitmap",
-                                                  "filename": "x.png"}},
-    "checkerboard": {"type": "roughplastic", "diffuse_reflectance": {
+    "bitmap": {"type": "conductor", "specular_reflectance": {
+        "type": "bitmap", "filename": "x.png"}},
+    "checkerboard": {"type": "roughplastic", "specular_reflectance": {
         "type": "checkerboard"}},
-    "volume": {"type": "plastic", "diffuse_reflectance": {
+    "volume": {"type": "dielectric", "specular_transmittance": {
         "type": "volume", "volume": {"type": "constvolume"}}},
     "regular": {"type": "conductor", "eta": {
         "type": "regular", "lambda_min": 400, "lambda_max": 700,
         "values": "1, 2"}},
-    "bitmap opacity": {"type": "mask", "opacity": {"type": "bitmap",
-                                                   "filename": "x.png"},
-                       "bsdf": {"type": "diffuse"}},
+    "bitmap opacity": {"type": "mask", "opacity": {
+        "type": "bitmap", "filename": "x.png", "format": "rgb"},
+        "bsdf": {"type": "diffuse"}},
     "checkerboard weight": {"type": "blendbsdf", "weight": {
-        "type": "checkerboard"}, "a": {"type": "diffuse"},
-        "b": {"type": "conductor"}},
+        "type": "checkerboard", "color0": {"type": "bitmap"}},
+        "a": {"type": "diffuse"}, "b": {"type": "conductor"}},
     "dispersion": {"type": "dielectric", "dispersion": 0.004},
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_bsdf_raises(case):
-    """BSDF types outside the slice, and parameters given as a texture, a
-    volume or a spectrum, raise NotImplementedError naming them; nothing
-    falls back to diffuse."""
+    """BSDF types outside the slice, and parameters given as a texture
+    where the port reads none (or a texture it cannot read), a volume or a
+    spectrum, raise NotImplementedError naming them; nothing falls back to
+    diffuse."""
     spec = UNPORTED[case]
     d = mt.cornell_box(8, 8, max_depth=2)
     d["small-box"]["bsdf"] = spec

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``mitsuba3_tpu_torch`` (every module)
-and ``chip_smoke`` loads neither JAX nor the JAX package, no source of
-either imports them, and ``chip_smoke.py`` refuses to run without a card
+and ``chip_smoke`` loads neither JAX nor the JAX package nor PIL (the
+machine with the card has none; the port reads and writes PNG itself),
+no source of either imports them, and ``chip_smoke.py`` refuses to run without a card
 or outside a checkout, printing no result."""
 import os
 import re
@@ -16,8 +17,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "mitsuba3_tpu_torch"
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|jaxlib|mitsuba3_tpu)\b(?!_torch)"
-    r"|from\s+(jax|jaxlib|mitsuba3_tpu)\b(?!_torch))", re.M)
+    r"^\s*(import\s+(jax|jaxlib|mitsuba3_tpu|PIL)\b(?!_torch)"
+    r"|from\s+(jax|jaxlib|mitsuba3_tpu|PIL)\b(?!_torch))", re.M)
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -27,7 +28,7 @@ for info in pkgutil.walk_packages(mitsuba3_tpu_torch.__path__,
                                   "mitsuba3_tpu_torch."):
     importlib.import_module(info.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "mitsuba3_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "mitsuba3_tpu", "PIL"))
 print("LOADED", len([m for m in sys.modules
                      if m.startswith("mitsuba3_tpu_torch")]))
 print("FORBIDDEN", bad)
@@ -57,6 +58,7 @@ def test_sources_import_no_jax():
     # the pattern does catch what it forbids
     assert FORBIDDEN.search("import jax.numpy as jnp\n")
     assert FORBIDDEN.search("from mitsuba3_tpu.ops import cellserve\n")
+    assert FORBIDDEN.search("    from PIL import Image\n")
     assert not FORBIDDEN.search("from mitsuba3_tpu_torch import ops\n")
 
 

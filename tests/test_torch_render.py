@@ -187,7 +187,9 @@ UNPORTED = {
     "sensor_medium": (_sensor(BASE, medium={"type": "homogeneous"}),
                       r"\['medium'\]"),
     "texture": (_with(BASE, terrain=dict(BASE["terrain"], bsdf={
-        "type": "diffuse", "reflectance": {"type": "bitmap"}})), "'bitmap'"),
+        "type": "diffuse", "reflectance": {"type": "bitmap", "data": [[0.5]],
+                                           "format": "rgb"}})),
+                r"bitmap properties \['format'\]"),
     "disk_shape": (_with(BASE, lid={"type": "disk"}), "'disk'"),
     "area_emitter_type": (_with(BASE, panel={
         "type": "rectangle", "emitter": {"type": "directionalarea"}}),
