@@ -79,9 +79,10 @@ Phases:
    width, and checked to launch every kernel of its module; per bvh2
    query K8's device ms (its launches recorded and replayed in that
    process);
-13. materials (after phase 7): the Cornell step of phase 6 again with
-   tests/test_regression.py's cornell_glossy BSDFs (glossy_cornell_dict:
-   a gold roughconductor, a plastic box), the roughconductor's alpha
+13. materials (after phase 7): the Cornell step of phase 6 again at 16
+   spp with tests/test_regression.py's cornell_glossy BSDFs
+   (glossy_cornell_dict: a gold roughconductor, a plastic box), the
+   roughconductor's alpha
    gradients nonzero; the every-BSDF Cornell
    (every_bsdf_dict: every BSDF type the port loads) rendered by `path`
    at 512^2, 8 spp, max_depth 8, and its PRB step at 128^2, 16 spp; K1
@@ -95,7 +96,7 @@ Phases:
    array for array (cellserve's included), rendered at 512^2, 4 spp with
    K1 launched in both modes; the Cornell box as XML with OBJ walls,
    rendered by `path` with the orthogonal sampler, a thinlens sensor and
-   the lanczos filter (512^2, 64 spp, max_depth 8; one timed render, a
+   the lanczos filter (512^2, 16 spp, max_depth 8; one timed render, a
    profiled pass), a PRB step with multijitter, mitchell and a 384^2 crop
    at 16 spp beside phase 6's step at 16 spp; five sampler, sensor and
    filter combinations (XML_COMBOS, 32^2) and the radiancemeter,
@@ -113,8 +114,23 @@ Phases:
    in both modes, its device ms from a profiled render), a PRB step of
    the texture and env_data, and the small terrain so textured on the
    card against the CPU;
-16. JSON lines of render, query, PRB, material, interior, loop, scene-file,
-   texture and per-kernel numbers.
+16. media (after the textures): the fog Cornell (tests/test_regression.py's
+   fog cube, homogeneous sigma_t 0.4, albedo 0.7, in bench.py's Cornell
+   box) at 512^2, 16 spp, max_depth 6 under prbvolpath: a PRB step
+   (Mrays/s with its bwd_ratio, peak memory, gradients of the medium
+   rows, BSDF rows and emitter radiance finite, sigma_t and albedo
+   nonzero) and a profiled pass; interior120k with the camera in a
+   homogeneous medium (sigma_t 0.1, albedo 0.8, HG g 0.3) under volpath
+   through cellserve, two timed 256^2, 4 spp renders with K1's launches
+   counted from zero (closest must launch) and its device ms and bound
+   by CUDA events; examples/03_volumetric.py's smoke on a 256^3 grid at
+   512^2, 4 spp, max_depth 8 under volpath and volpathmis (its cell
+   table built once for both), a profiled volpath render; the fog
+   Cornell (and its gradients), the smoke on 16^3 and the 9,000-triangle
+   foggy interior on the card against the CPU. Run it alone with
+   ``python3 chip_smoke.py --phase media``;
+17. JSON lines of render, query, PRB, material, interior, loop, scene-file,
+   texture, media and per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -436,6 +452,87 @@ def every_bsdf_diffuse_box_dict(mi, width: int, height: int,
     tests/test_torch_glossy.py::test_every_bsdf_depth8_parts_on_one_ulp)."""
     d = every_bsdf_dict(mi, width, height, max_depth)
     d["small-box"]["bsdf"] = {"type": "diffuse"}
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Participating media
+# ---------------------------------------------------------------------------
+
+FOG_MEDIUM = {"type": "homogeneous",
+              "sigma_t": {"type": "rgb", "value": 0.4},
+              "albedo": {"type": "rgb", "value": 0.7}}
+INTERIOR_MEDIUM = {"type": "homogeneous",
+                   "sigma_t": {"type": "rgb", "value": 0.1},
+                   "albedo": {"type": "rgb", "value": 0.8},
+                   "phase": {"type": "hg", "g": 0.3}}
+
+
+def fog_cornell_dict(mi, width: int, height: int, max_depth: int,
+                     integrator: str = "volpath"):
+    """tests/test_regression.py's fog_cube on ``mi.cornell_box`` (`mi` is
+    a package: the port or the JAX one): a null-BSDF cube (0.9, raised by
+    1) holding a homogeneous medium of sigma_t 0.4 and albedo 0.7."""
+    d = mi.cornell_box(width, height, max_depth=max_depth)
+    d["integrator"] = {"type": integrator, "max_depth": max_depth}
+    d["fog"] = {"type": "cube",
+                "to_world": mi.ScalarTransform4f().translate([0, 1, 0])
+                .scale(0.9),
+                "bsdf": {"type": "null"}, "interior": dict(FOG_MEDIUM)}
+    return d
+
+
+def smoke_density(side: int) -> np.ndarray:
+    """examples/03_volumetric.py's density blob on a side^3 grid."""
+    z, y, x = np.mgrid[0:side, 0:side, 0:side].astype(np.float32) / (
+        side - 1)
+    r = np.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2)
+    return (np.clip(1.0 - 3.0 * r, 0.0, 1.0) ** 2).astype(np.float32)
+
+
+def smoke_dict(mi, width: int, side: int, integrator: str = "volpath",
+               max_depth: int = 8, spp: int = 4):
+    """examples/03_volumetric.py's scene (a heterogeneous smoke of sigma_t
+    4 and albedo 0.9 with an HG phase of g 0.4 in a null cube, lit by an
+    area light and a dim environment) at width^2 with its density formula
+    on a side^3 grid."""
+    T = mi.ScalarTransform4f
+    return {
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": max_depth},
+        "sensor": {"type": "perspective", "fov": 40.0,
+                   "to_world": T().look_at(origin=[0, 0, -4],
+                                           target=[0, 0, 0], up=[0, 1, 0]),
+                   "film": {"width": width, "height": width,
+                            "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "smoke": {"type": "cube", "bsdf": {"type": "null"},
+                  "interior": {"type": "heterogeneous",
+                               "sigma_t": {"type": "rgb",
+                                           "value": [4.0, 4.0, 4.0]},
+                               "albedo": {"type": "rgb",
+                                          "value": [0.9, 0.9, 0.9]},
+                               "density": smoke_density(side),
+                               "phase": {"type": "hg", "g": 0.4}}},
+        "light": {"type": "rectangle",
+                  "to_world": T().translate([0, 2.2, 0])
+                  .rotate([1, 0, 0], 90).scale(1.2),
+                  "emitter": {"type": "area",
+                              "radiance": {"type": "rgb",
+                                           "value": [12, 12, 12]}}},
+        "env": {"type": "constant",
+                "radiance": {"type": "rgb", "value": 0.05}},
+    }
+
+
+def foggy_interior_dict(transform, n_tris: int = 120000, width: int = 256,
+                        integrator: str = "volpath"):
+    """interior_dict with the camera in a homogeneous medium (sigma_t 0.1,
+    albedo 0.8, HG g 0.3) that fills the room, under `integrator` at
+    max_depth 4: every NEE shadow ray becomes closest-hit segments."""
+    d = interior_dict(transform, n_tris, width)
+    d["integrator"] = {"type": integrator, "max_depth": 4}
+    d["sensor"]["medium"] = dict(INTERIOR_MEDIUM)
     return d
 
 
@@ -1868,10 +1965,10 @@ def _profile(run, wall_unprofiled: float, kernels: dict):
     """Device time by kernel over one call of `run` (a render, or a pass of
     a PRB step) under torch.profiler, recording CUDA activity only (a
     material pass launches up to ~190,000 kernels, and aggregating their
-    host-side events too takes tens of seconds); the idle share is taken
-    against the same work's unprofiled wall time, since the profiler slows
-    the host. `kernels` maps a label to the substring of the CUDA kernel
-    names it sums."""
+    host-side events too takes tens of seconds), summed from the trace's
+    kernel events; the idle share is taken against the same work's
+    unprofiled wall time, since the profiler slows the host. `kernels`
+    maps a label to the substring of the CUDA kernel names it sums."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1881,29 +1978,33 @@ def _profile(run, wall_unprofiled: float, kernels: dict):
         run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in events)
-    busy = busy_us / 1e6
+    # device time and launches per kernel name, from the trace's own
+    # events: key_averages() first builds a Python event per launch (~12 s
+    # per 100,000 launches)
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and e.duration_ns() > 0):
+            us, n = per.get(e.name(), (0.0, 0))
+            per[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    busy = sum(us for us, _ in per.values()) / 1e6
     print(f"# profile: device busy {busy:.4f} s in "
-          f"{sum(e.count for e in events)} kernel launches; wall {wall:.3f} "
-          f"s profiled (idle share {max(0.0, 1 - busy / wall):.3f}), "
-          f"{wall_unprofiled:.3f} s unprofiled (idle share "
+          f"{sum(n for _, n in per.values())} kernel launches; wall "
+          f"{wall:.3f} s profiled (idle share {max(0.0, 1 - busy / wall):.3f}"
+          f"), {wall_unprofiled:.3f} s unprofiled (idle share "
           f"{max(0.0, 1 - busy / wall_unprofiled):.3f})")
-    groups = {label: [e for e in events if key in e.key]
+    groups = {label: [k for k in per if key in k]
               for label, key in kernels.items()}
-    groups["other kernels"] = [e for e in events if not any(
-        key in e.key for key in kernels.values())]
+    groups["other kernels"] = [k for k in per if not any(
+        key in k for key in kernels.values())]
     by_label = {}
-    for label, group in groups.items():
-        ms = sum(e.device_time_total for e in group) / 1e3
-        n = sum(e.count for e in group)
+    for label, names in groups.items():
+        ms = sum(per[k][0] for k in names) / 1e3
+        n = sum(per[k][1] for k in names)
         by_label[label] = {"device_ms": ms, "launches": n}
         print(f"# profile: {label}: {ms:.2f} ms device in {n} launches")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
-        print(f"#   {e.device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
-              f"{e.key[:90]}")
+    for k, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"#   {us / 1e3:10.2f} ms  {n:7d}x  {k[:90]}")
     return {"device_busy_s": busy, "profiled_wall_s": wall,
             "idle_share": max(0.0, 1 - busy / wall_unprofiled),
             "profiled_kernels": by_label}
@@ -1931,6 +2032,7 @@ def phase_agreement(mi, accel: str):
 # ---------------------------------------------------------------------------
 
 CORNELL_SPP = 64
+GLOSSY_CORNELL_SPP = 16     # not 64: the script keeps to its time limit
 TERRAIN_PRB_SPP = 4
 
 
@@ -1982,26 +2084,27 @@ def _grad_step(scene, names, seed: int, spp: int, passes=None, between=None):
 def _bwd_ratio(scene, side: int = 64):
     """bench.py:83-105: the replay's ray count over the primal's on a
     side^2 wavefront of pixel-centre rays (one sample each), all of θ
-    differentiated."""
+    differentiated, under the scene's PRB integrator (prb or
+    prbvolpath)."""
     import torch
     from mitsuba3_tpu_torch import sensors
-    from mitsuba3_tpu_torch.ad import prb
     from mitsuba3_tpu_torch.core.vec import Vec2, Vec3
+    from mitsuba3_tpu_torch.integrators import get_integrator
     from mitsuba3_tpu_torch.render import sampler as sampler_mod
 
+    mod = get_integrator(scene.integrator)
     n = side * side
     idx = torch.arange(n, dtype=torch.int64, device=scene.device)
     rng = sampler_mod.seed(7, torch.zeros_like(idx), idx, 1)
     px = ((idx % side).to(torch.float32) + 0.5) / side
     py = ((idx // side).to(torch.float32) + 0.5) / side
     ray = sensors.sample_ray(scene.sensor, Vec2(px, py))
-    cfg = prb.PRBConfig(max_depth=scene.integrator.max_depth)
-    theta = {k: v for k, v in prb.extract_theta(scene).items()
-             if v is not None}
-    L, _, n_fwd, _ = prb._loop(scene, rng, ray, cfg, "primal")
-    _, _, n_bwd, grads = prb._loop(scene, rng, ray, cfg, "backward",
-                                   dL=Vec3.ones(n, scene.device), L_in=L,
-                                   theta=theta)
+    theta = {k: getattr(scene, k) for k in mod.DIFF_PARAM_NAMES
+             if getattr(scene, k) is not None}
+    L, _, n_fwd, _ = mod._loop(scene, rng, ray, scene.integrator, "primal")
+    _, _, n_bwd, grads = mod._loop(scene, rng, ray, scene.integrator,
+                                   "backward", dL=Vec3.ones(n, scene.device),
+                                   L_in=L, theta=theta)
     return n_fwd, n_bwd
 
 
@@ -2039,10 +2142,10 @@ def _agree_images(tag, img_g, img_c):
 
 
 def phase_cornell_prb(mi, card: str, make=None, tag: str = "cornell",
-                      nonzero=()):
+                      nonzero=(), spp: int = CORNELL_SPP):
     """bench.py's main path on the card: load_dict(cornell_box(512, 512,
     max_depth=8)) with prb (with the BSDFs ``make(mi, w, h, max_depth)``
-    gives, when given), a one-pass warm-up and one timed grad_step at 64 spp
+    gives, when given), a one-pass warm-up and one timed grad_step at `spp`
     (gradients of bsdf_params, em_radiance, textures and env_data),
     Mrays/s counted as bench.py counts it, one profiled pass; then a 32^2
     render on the card against the CPU. `nonzero` lists (slot type,
@@ -2059,11 +2162,11 @@ def phase_cornell_prb(mi, card: str, make=None, tag: str = "cornell",
     _check(n_fwd == n_bwd, f"replay issued {n_bwd} rays, primal {n_fwd}")
     bwd_ratio = n_bwd / max(n_fwd, 1)
 
-    _grad_step(scene, names, 0, CORNELL_SPP, passes=1)     # warm-up: a pass
+    _grad_step(scene, names, 0, spp, passes=1)     # warm-up: a pass
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    loss, rays, grads, n_passes = _grad_step(scene, names, 1, CORNELL_SPP)
+    loss, rays, grads, n_passes = _grad_step(scene, names, 1, spp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2077,18 +2180,18 @@ def phase_cornell_prb(mi, card: str, make=None, tag: str = "cornell",
            and grads["textures"] == (),
            f"{tag} prb: env_data or textures gradient where none can be")
     mrays = (1.0 + bwd_ratio) * rays / wall / 1e6
-    out = {"scene": f"{tag} 512x512 64spp max_depth 8, prb",
+    out = {"scene": f"{tag} 512x512 {spp}spp max_depth 8, prb",
            "bsdf_types": list(scene.bsdf_types),
            "forward_rays": rays, "bwd_ratio": bwd_ratio,
            "ratio_rays_64x64": [n_fwd, n_bwd], "wall_s": wall,
            "passes": n_passes, "mrays_per_s": mrays, "peak_bytes": peak,
            "loss": loss, "textures": "none loaded (empty tuple)"}
-    print(f"# {tag} fwd+PRB bwd 512x512 64spp: {rays} forward rays, "
+    print(f"# {tag} fwd+PRB bwd 512x512 {spp}spp: {rays} forward rays, "
           f"bwd_ratio {bwd_ratio:.6f} ({n_bwd}/{n_fwd} on 64x64), step "
           f"{wall:.3f} s in {n_passes} passes = {mrays:.3f} Mrays/s, peak "
           f"memory {peak / 2**30:.2f} GiB, last pass loss {loss:.6g} "
           f"[{card}]")
-    out.update(_profile(lambda: _grad_step(scene, names, 2, CORNELL_SPP,
+    out.update(_profile(lambda: _grad_step(scene, names, 2, spp,
                                            passes=1), wall / n_passes, {}))
     del scene, grads
     torch.cuda.empty_cache()
@@ -2636,7 +2739,7 @@ def phase_terrain_loop(mi, card: str):
 # Scene files: load_file of a user's XML with OBJ and PLY meshes
 # ---------------------------------------------------------------------------
 
-XML_CORNELL_SPP = 64
+XML_CORNELL_SPP = 16        # not 64: the script keeps to its time limit
 XML_PRB_SPP = 16
 XML_PRB_CROP = (384, 384, 64, 64)   # crop_width, crop_height, offset x, y
 
@@ -2663,10 +2766,11 @@ def phase_scene_files(mi, card: str):
     rendered at 512^2, 4 spp through K1 (a warm-up, a timed and a
     profiled render); the Cornell box as XML with OBJ walls, rendered by
     `path` with the orthogonal sampler, a thinlens sensor and the lanczos
-    filter at 512^2, 64 spp, max_depth 8 (a one-pass warm-up, the timed
-    render, a profiled pass), and a prb step at 16 spp with multijitter,
-    mitchell and a crop window (and a profiled pass) beside phase 6's
-    independent Gaussian step at 16 spp; then each of XML_COMBOS at 32^2,
+    filter at 512^2, XML_CORNELL_SPP spp, max_depth 8 (a one-pass
+    warm-up, the timed render, a profiled pass), and a prb step at 16
+    spp with multijitter, mitchell and a crop window (and a profiled
+    pass) beside phase 6's independent Gaussian step at 16 spp; then
+    each of XML_COMBOS at 32^2,
     16 spp, max_depth 4 and each of XML_METERS on a 4^2 film on the card
     against the CPU."""
     import tempfile
@@ -2986,7 +3090,241 @@ def phase_textures(mi, card: str):
     return out
 
 
-def main():
+MEDIA_FOG_SPP = 16          # the fog Cornell's PRB step, 512^2
+MEDIA_SMOKE_SIDE = 256      # the smoke's density grid, side^3
+MEDIA_SMOKE_SPP = 4
+MEDIA_CHECK_SIDE = 32       # card against CPU
+MEDIA_GRADS = ("medium_params", "bsdf_params", "em_radiance")
+
+
+def _media_fog_prb(mi, card: str):
+    """The fog Cornell (tests/test_regression.py's fog cube in bench.py's
+    Cornell box) at 512^2, MEDIA_FOG_SPP spp, max_depth 6 under
+    prbvolpath: a one-pass warm-up, one timed grad_step (gradients of the
+    medium rows, the BSDF rows and the emitter radiance), Mrays/s as
+    bench.py counts it, one profiled pass."""
+    import torch
+
+    scene = mi.load_dict(fog_cornell_dict(mi, 512, 512, 6, "prbvolpath"))
+    _check(scene.accel is None and scene.medium_types == (0,)
+           and scene.faces.shape[0] == 48,
+           "fog cornell: not the dense Cornell box with one homogeneous "
+           "medium")
+    t0 = time.perf_counter()
+    n_fwd, n_bwd = _bwd_ratio(scene)
+    _check(n_fwd == n_bwd, f"fog replay issued {n_bwd} rays, primal {n_fwd}")
+    t1 = time.perf_counter()
+    _grad_step(scene, MEDIA_GRADS, 0, MEDIA_FOG_SPP, passes=1)    # warm-up
+    torch.cuda.synchronize()
+    print(f"# media fog cornell: bwd_ratio on 64x64 {t1 - t0:.1f} s, "
+          f"warm-up pass {time.perf_counter() - t1:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, rays, grads, n_passes = _grad_step(scene, MEDIA_GRADS, 1,
+                                             MEDIA_FOG_SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _check_grads("fog cornell prbvolpath", grads, MEDIA_GRADS)
+    g_med = grads["medium_params"][0, 0:6]
+    _check(bool((g_med != 0).all()), f"fog cornell prbvolpath: a zero "
+           f"sigma_t or albedo gradient: {g_med.tolist()}")
+    bwd_ratio = n_bwd / max(n_fwd, 1)
+    mrays = (1.0 + bwd_ratio) * rays / wall / 1e6
+    out = {"scene": f"fog cornell 512x512 {MEDIA_FOG_SPP}spp max_depth 6, "
+                    "prbvolpath", "forward_rays": rays,
+           "bwd_ratio": bwd_ratio, "ratio_rays_64x64": [n_fwd, n_bwd],
+           "wall_s": wall, "passes": n_passes, "mrays_per_s": mrays,
+           "peak_bytes": peak, "loss": loss,
+           "medium_grad": g_med.tolist()}
+    print(f"# media fog cornell fwd+PRB bwd 512x512 {MEDIA_FOG_SPP}spp: "
+          f"{rays} forward rays, bwd_ratio {bwd_ratio:.6f}, step {wall:.3f}"
+          f" s in {n_passes} passes = {mrays:.3f} Mrays/s, peak memory "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    out.update(_profile(lambda: _grad_step(scene, MEDIA_GRADS, 2,
+                                           MEDIA_FOG_SPP, passes=1),
+                        wall / n_passes, {}))
+    return out
+
+
+def _media_foggy_interior(mi, card: str):
+    """interior120k with the camera in a homogeneous medium under volpath
+    (max_depth 4): a warm-up and two timed 256^2, 4 spp renders through
+    cellserve, K1's launches counted from zero just before them, its
+    device ms and bound by CUDA events (_K1Meter)."""
+    import torch
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    d = foggy_interior_dict(mi.ScalarTransform4f, INTERIOR_TRIS)
+    scene = mi.load_dict(d)
+    _check(isinstance(scene.accel, cellserve.CellServe)
+           and scene.sensor_medium == 0,
+           "foggy interior: not cellserve with the camera in a medium")
+    mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    rays = 0
+    with _K1Meter() as meter:
+        t0 = time.perf_counter()
+        for seed in (1, 2):
+            img, r = mi.render_with_stats(scene, seed=seed, spp=4,
+                                          max_wavefront=1 << 20)
+            rays += r
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(cellserve.LAUNCHES)
+    k1 = meter.summary()
+    peak = torch.cuda.max_memory_allocated()
+    _check(launches["closest"] > 0, f"foggy interior: K1 closest was not "
+           f"launched: {launches}")
+    _check(all(k1[m]["launches"] == launches[m] for m in launches),
+           f"foggy interior: K1 meter {k1} disagrees with {launches}")
+    w = d["sensor"]["film"]["width"]
+    _check(tuple(img.shape) == (w, w, 3) and bool(torch.isfinite(img).all())
+           and float(img.mean()) > 0,
+           "foggy interior: image misshaped, not finite or black")
+    mrays = rays / wall / 1e6
+    print(f"# media foggy interior120k 256x256 4spp volpath, 2 renders: "
+          f"{rays} rays in {wall:.3f} s = {mrays:.3f} Mrays/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, mean {float(img.mean()):.6f} [{card}]")
+    for mode, v in k1.items():
+        print(f"# media foggy interior K1 {mode}: {v['launches']} launches "
+              f"for {v['queries']} queries, {v['device_ms']:.2f} device ms,"
+              f" bound {v['bound_ms']:.3f} ms (2 renders) [{card}]")
+    if launches["anyhit"]:
+        print(f"# media foggy interior: K1 any-hit launched "
+              f"{launches['anyhit']} times")
+    return {"scene": "foggy interior120k 256x256 4spp max_depth 4, volpath "
+                     "(camera medium sigma_t 0.1, albedo 0.8, hg 0.3), "
+                     "cellserve", "rays": rays, "renders": 2,
+            "wall_s": wall, "mrays_per_s": mrays, "peak_bytes": peak,
+            "mean": float(img.mean()), "k1": k1, "k1_launches": launches}
+
+
+def _media_smoke(mi, card: str):
+    """examples/03_volumetric.py's smoke at 512^2, MEDIA_SMOKE_SPP spp,
+    max_depth 8, its density on a MEDIA_SMOKE_SIDE^3 grid, loaded once and
+    rendered under volpath, then volpathmis (the scene's integrator
+    replaced): a warm-up and a timed render each (the grid's cell table
+    built once for both: a wrapper counts media.build_cells), a profiled
+    volpath render."""
+    import torch
+    from mitsuba3_tpu_torch import media
+    from mitsuba3_tpu_torch.integrators import config_from_dict
+
+    out = {}
+    builds = []
+    real_build = media.build_cells
+
+    def counted(g):
+        builds.append(tuple(g.shape))
+        return real_build(g)
+
+    media.build_cells = counted
+    try:
+        t0 = time.perf_counter()
+        d = smoke_dict(mi, 512, MEDIA_SMOKE_SIDE, spp=MEDIA_SMOKE_SPP)
+        smoke = mi.load_dict(d)
+        torch.cuda.synchronize()
+        print(f"# media smoke: dict and load_dict "
+              f"{time.perf_counter() - t0:.1f} s")
+        for itype in ("volpath", "volpathmis"):
+            scene = smoke.replace(integrator=config_from_dict(
+                dict(d["integrator"], type=itype)))
+            mi.render(scene, seed=0, spp=1)                # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            img, rays = mi.render_with_stats(scene, seed=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            w = scene.film.width
+            _check(tuple(img.shape) == (w, w, 3)
+                   and bool(torch.isfinite(img).all())
+                   and float(img.mean()) > 0,
+                   f"smoke {itype}: image misshaped, not finite or black")
+            out[itype] = {"wall_s": wall, "rays": rays,
+                          "mrays_per_s": rays / wall / 1e6,
+                          "peak_bytes": peak, "mean": float(img.mean())}
+            print(f"# media smoke {MEDIA_SMOKE_SIDE}^3 512x512 "
+                  f"{MEDIA_SMOKE_SPP}spp {itype}: {rays} rays in {wall:.3f} "
+                  f"s = {rays / wall / 1e6:.3f} Mrays/s, peak memory "
+                  f"{peak / 2**30:.2f} GiB, mean {float(img.mean()):.6f} "
+                  f"[{card}]")
+            if itype == "volpath":
+                out[itype].update(_profile(lambda: mi.render(scene, seed=2),
+                                           wall, {}))
+        del smoke, scene
+        torch.cuda.empty_cache()
+    finally:
+        media.build_cells = real_build
+    side = MEDIA_SMOKE_SIDE
+    _check(builds == [(side, side, side)],
+           f"smoke: cell tables built {builds}, not once for the grid")
+    out["cell_table_builds"] = len(builds)
+    out["cell_table_bytes"] = (side - 1) ** 3 * 8 * 4
+    return out
+
+
+def _media_agreement(mi):
+    """Card against CPU at MEDIA_CHECK_SIDE^2: the fog Cornell (volpath,
+    4 spp; and its prbvolpath gradients at 16^2, 4 spp within 1e-3 of
+    the CPU's largest entry), the smoke on a 16^3 grid (volpath) and
+    make_interior(9000) with the camera medium through cellserve
+    (volpath); the CPU runs the plain versions, so K1 is held against its
+    plain version on media traffic."""
+    import torch
+
+    side = MEDIA_CHECK_SIDE
+    out = {}
+    for tag, d, spp in (
+            ("fog cornell volpath", fog_cornell_dict(mi, side, side, 6), 4),
+            ("smoke 16^3 volpath", smoke_dict(mi, side, 16), 4),
+            ("foggy interior 9000 volpath",
+             foggy_interior_dict(mi.ScalarTransform4f, 9000, side), 4)):
+        with _accel("cells"):
+            img_g = mi.render(mi.load_dict(d), seed=5, spp=spp)
+            img_c = mi.render(mi.load_dict(d, device="cpu"), seed=5, spp=spp)
+        out[tag] = _agree_images(f"{tag} ({side}x{side}, {spp} spp)",
+                                 img_g.cpu().numpy(), img_c.numpy())
+    d = fog_cornell_dict(mi, 16, 16, 4, "prbvolpath")
+    g = {}
+    for dev in ("cuda", "cpu"):
+        g[dev] = _grad_step(mi.load_dict(d, device=dev), MEDIA_GRADS, 3,
+                            4)[2]
+    for k in MEDIA_GRADS:
+        a, b = g["cuda"][k].cpu(), g["cpu"][k]
+        scale = float(b.abs().max())
+        _check(bool(torch.isfinite(a).all()) and torch.allclose(
+            a, b, rtol=0, atol=1e-3 * scale + 1e-12),
+            f"fog cornell prbvolpath: the card's {k} gradient differs from "
+            f"the CPU's by {float((a - b).abs().max())} (max {scale})")
+    out["fog cornell prbvolpath grads"] = "within 1e-3 of max"
+    return out
+
+
+def phase_media(mi, card: str):
+    """Participating media on the card (nothing falls back to the CPU):
+    the fog Cornell's fwd + PRB bwd step, the foggy interior120k through
+    K1, the smoke under volpath and volpathmis, then four scenes on the
+    card against the CPU."""
+    out = {}
+    for name, part in (("fog_cornell", _media_fog_prb),
+                       ("foggy_interior", _media_foggy_interior),
+                       ("smoke", _media_smoke),
+                       ("agreement", lambda m, _: _media_agreement(m))):
+        t0 = time.perf_counter()
+        out[name] = part(mi, card)
+        print(f"# media {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def main(only=None):
+    """The whole smoke test, or with `only` (``--phase media``) the kernel
+    build and that phase alone, without the final line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -3031,6 +3369,11 @@ def main():
         print(f"# phase {label}: {time.perf_counter() - t:.1f} s")
         return out
 
+    if only == "media":
+        media = timed("media", phase_media, mi, card)
+        print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"media": media, "card": card}))
+        return 0
     rows = timed("kernels K1", phase_kernels, mi, card)
     rows += timed("kernels K2 K3", phase_kernels_serve, mi, card)
     rows += timed("kernels K4", phase_kernels_tiled, mi, card)
@@ -3048,7 +3391,7 @@ def main():
                 timed("terrain64k PRB step", phase_terrain_prb, mi, card),
                 timed("glossy cornell fwd+PRB bwd", phase_cornell_prb, mi,
                       card, glossy_cornell_dict, "glossy cornell",
-                      ((2, [6, 7]),))]
+                      ((2, [6, 7]),), GLOSSY_CORNELL_SPP)]
     materials = [timed("every-BSDF cornell", phase_every_bsdf, mi, card)]
     rows += timed("kernels K1 glossy bounce", phase_kernels, mi, card,
                   glossy(terrain64k_dict), ".glossy", _bounce_rays)
@@ -3064,6 +3407,7 @@ def main():
              timed("terrain64k vertex loop", phase_terrain_loop, mi, card)]
     scene_files = timed("scene files", phase_scene_files, mi, card)
     textures = timed("textures", phase_textures, mi, card)
+    media = timed("media", phase_media, mi, card)
     k8_device = timed("K8 device times", phase_k8_device, card)
     rows += timed("kernels K5-K8", lambda: phase_kernels_attic(
         card, k8_device=k8_device))
@@ -3089,6 +3433,7 @@ def main():
     print(json.dumps({"loops": loops, "card": card}))
     print(json.dumps({"scene_files": scene_files, "card": card}))
     print(json.dumps({"textures": textures, "card": card}))
+    print(json.dumps({"media": media, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3097,5 +3442,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(k8_device_main() if sys.argv[1:] == ["--k8-device-ms"]
-             else main())
+    if sys.argv[1:] == ["--k8-device-ms"]:
+        sys.exit(k8_device_main())
+    if sys.argv[1:] == ["--phase", "media"]:
+        sys.exit(main(only="media"))
+    sys.exit(main())

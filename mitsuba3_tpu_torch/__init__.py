@@ -21,7 +21,10 @@ blendbsdf and twosided), area lights, point, spot and directional lights
 and a constant environment, such as ``cornell_box()``, rendered by the
 ``path`` integrator or
 differentiated by ``prb`` (path replay backpropagation: gradients of the
-scene's tables through ``torch.autograd``); small scenes use the dense
+scene's tables through ``torch.autograd``); participating media
+(homogeneous and heterogeneous, six phase functions) render under
+``volpath`` and ``volpathmis`` and differentiate under ``prbvolpath``;
+small scenes use the dense
 intersector, large ones the accel that ``MI3T_ACCEL`` names (cellserve,
 bvh_serve or bvh_tiled); see ``loader.py``.
 

@@ -46,6 +46,7 @@ from ..integrators.path import mis_weight
 from ..render import sampler as sampler_mod
 from ..render import texture as tex_mod
 from ..render.records import Ray
+from ..render.scene import _RefPoint
 from ..render.sampler import Sampler
 
 
@@ -69,12 +70,6 @@ def substitute_theta(scene, theta):
     return scene.replace(**theta)
 
 
-@struct
-class _RefPoint:
-    """Reference point of a delta-emitter evaluation."""
-    p: Vec3
-
-
 def _attached_em_weight(scene_t, ds) -> Vec3:
     """The NEE emitter weight re-evaluated attached to θ, over the
     detached pdf (prb.py:207-210 em_val_diff * detach(rcp(pdf)))."""
@@ -93,7 +88,8 @@ def _attached_em_weight(scene_t, ds) -> Vec3:
                     & (ds.emitter_index < n_area + n_delta))
         k = torch.clamp(ds.emitter_index - n_area, 0, n_delta - 1)
         ref_p = ds.p - ds.d * ds.dist
-        rad_d = scene_t._eval_delta_emitter(_RefPoint(p=ref_p), k)[3]
+        rad_d = scene_t._eval_delta_emitter(_RefPoint(p=ref_p, t=ds.dist),
+                                             k)[3]
         radiance = Vec3.where(is_delta, rad_d, radiance)
     return radiance * inv_pdf.detach()
 
@@ -383,11 +379,12 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
     return Vec3(L_out[:, 0], L_out[:, 1], L_out[:, 2]), valid, n_rays, grads
 
 
-def _flatten_theta(scene):
-    """The scene's θ as ((name, texture index or None) keys, tensors),
-    skipping entries that are None."""
+def _flatten_theta(scene, names=DIFF_PARAM_NAMES):
+    """The scene's θ (its tables `names`) as ((name, tuple index or None)
+    keys, tensors), skipping entries that are None."""
     keys, tensors = [], []
-    for name, value in extract_theta(scene).items():
+    for name in names:
+        value = getattr(scene, name)
         if isinstance(value, tuple):
             for i, v in enumerate(value):
                 keys.append((name, i))
@@ -410,12 +407,14 @@ def _unflatten_theta(keys, tensors) -> dict:
 
 class _Replay:
     """What one wavefront's PRB call needs besides θ: the scene, the
-    sampler state, the rays, the config, θ's keys, and (after the
+    sampler state, the rays, the config, θ's keys, the bounce loop
+    (``_loop`` here, ``prbvolpath._loop`` for volumes) and (after the
     forward) its ray count."""
 
-    def __init__(self, scene, rng, ray, cfg, keys):
+    def __init__(self, scene, rng, ray, cfg, keys, loop=None):
         self.scene, self.rng, self.ray, self.cfg = scene, rng, ray, cfg
         self.keys = keys
+        self.loop = loop or _loop
         self.n_rays = 0
 
 
@@ -426,8 +425,9 @@ class _PRBFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, run: _Replay, *tensors):
         theta = _unflatten_theta(run.keys, [t.detach() for t in tensors])
-        L, valid, run.n_rays, _ = _loop(substitute_theta(run.scene, theta),
-                                        run.rng, run.ray, run.cfg, "primal")
+        L, valid, run.n_rays, _ = run.loop(
+            substitute_theta(run.scene, theta), run.rng, run.ray, run.cfg,
+            "primal")
         L = torch.stack([L.x, L.y, L.z], dim=1)
         ctx.run = run
         ctx.save_for_backward(L, *tensors)
@@ -441,15 +441,16 @@ class _PRBFunction(torch.autograd.Function):
         tensors = [t.detach() for t in tensors]
         want = ctx.needs_input_grad[1:]
         theta = _unflatten_theta(run.keys, tensors)
-        # a tuple entry (the textures) is differentiated whole when any of
+        # a tuple entry (textures, grids) is differentiated whole when any of
         # its tensors is wanted: the replay's scene keeps every texture
         wanted = {name: theta[name] for (name, _), w in zip(run.keys, want)
                   if w}
         dL = dL.detach()
-        grads = _loop(substitute_theta(run.scene, theta), run.rng, run.ray,
-                      run.cfg, "backward",
-                      dL=Vec3(dL[:, 0], dL[:, 1], dL[:, 2]),
-                      L_in=Vec3(L[:, 0], L[:, 1], L[:, 2]), theta=wanted)[3]
+        grads = run.loop(substitute_theta(run.scene, theta), run.rng,
+                         run.ray, run.cfg, "backward",
+                         dL=Vec3(dL[:, 0], dL[:, 1], dL[:, 2]),
+                         L_in=Vec3(L[:, 0], L[:, 1], L[:, 2]),
+                         theta=wanted)[3]
         out = [None if not w else grads[name] if i is None
                else grads[name][i]
                for (name, i), w in zip(run.keys, want)]

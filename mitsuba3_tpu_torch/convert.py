@@ -4,10 +4,13 @@ A renderer's "weights" are its scene tables. ``arrays_from_scene`` reads
 the leaves a scene of the port needs (vertices, faces, the face tables
 with their vertex colors, area-emitter sampling tables, emitters,
 environment map and warp, BSDF rows, textures and their mip levels,
-sensor or a batch sensor's sub-sensors, accel arrays) into a flat dict of
-numpy arrays plus a dict of static fields (among them the textures'
-metadata, the film with its crop window, the sensor config and the
-sampler type). It
+medium rows, density grids, phase tables, world->grid affines and the
+faces' media, sensor or a batch sensor's sub-sensors, accel arrays) into
+a flat dict of numpy arrays plus a dict of static fields (among them the
+textures' metadata, the media's and phases' types, the sensor's medium,
+the film with its crop window, the sensor config, the sampler type and
+the integrator's config, a volumetric one's ``max_null_events`` and
+``shadow_segments`` included). It
 takes a JAX ``Scene`` or a port ``Scene`` alike, by attribute names, and
 imports nothing of JAX.
 ``scene_from_arrays`` builds the port's ``Scene`` from them on a device.
@@ -39,7 +42,6 @@ import torch
 from . import bsdfs
 from .core.distr2d import SlicedMarginal2D
 from .integrators import config_from_dict
-from .integrators.path import PathConfig
 from .ops.attic.bvh2 import BVH2
 from .ops.attic.bvh_pallas import BVHData
 from .ops.bvh_serve import BVHServe
@@ -53,7 +55,8 @@ SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
                 "face_emitter", "face_inv_total_area", "face_uv",
                 "face_normals", "face_colors", "em_radiance", "ef_face",
                 "ef_cdf", "env_data", "env_scale", "bsdf_params",
-                "de_params")
+                "de_params", "medium_params", "medium_to_grid", "face_medium")
+TUPLES = ("medium_grids", "phase_tables")   # tuples of arrays
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
 SENSOR_ARRAYS = ("origin", "axis_x", "axis_y", "axis_z", "tan_half_x",
                  "tan_half_y", "aperture_radius", "focus_distance")
@@ -72,7 +75,8 @@ ACCELS = {
 ATTIC = ("pallas", "bvh2")   # standalone accels only: no scene holds one
 SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
               "delta_emitter_types", "bsdf_types", "bsdf_flags",
-              "adapter_max_depth", "spp", "sampler_type", "texture_meta")
+              "adapter_max_depth", "spp", "sampler_type", "texture_meta",
+              "medium_types", "phase_types", "sensor_medium")
 
 
 def _np(x):
@@ -115,6 +119,9 @@ def arrays_from_scene(scene):
         value = getattr(scene, name)
         if value is not None:
             arrays[name] = _np(value)
+    for name in TUPLES:
+        for i, a in enumerate(getattr(scene, name)):
+            arrays[f"{name}.{i}"] = _np(a)
     for i, tex in enumerate(scene.textures):
         arrays[f"textures.{i}"] = _np(tex)
         for j, level in enumerate(scene.texture_mips[i]
@@ -136,7 +143,10 @@ def arrays_from_scene(scene):
         for w, f, mip, extra in scene.texture_meta)
     meta["film"] = _fields(scene.film, FilmConfig)
     meta["sensor_config"] = _fields(scene.sensor_config, SensorConfig)
-    meta["integrator"] = _fields(scene.integrator, PathConfig)
+    # the fields of the port's config of that type (a volumetric one's
+    # max_null_events and shadow_segments), not a JAX config's others
+    meta["integrator"] = _fields(scene.integrator, type(config_from_dict(
+        {"type": scene.integrator.type})))
     meta["accel"] = acc_meta
     return arrays, meta
 
@@ -209,8 +219,11 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
     else:
         sensor = SensorData(**group("sensor", SENSOR_ARRAYS))
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
-    leaves.setdefault("de_params", None)
-    leaves.setdefault("face_colors", None)
+    for name in ("de_params", "face_colors", "face_medium"):
+        leaves.setdefault(name, None)
+    for name in TUPLES:
+        leaves[name] = tuple(t(f"{name}.{i}") for i in range(sum(
+            a.startswith(f"{name}.") for a in arrays)))
     rows = np.asarray(arrays["bsdf_params"])
     n_tex = sum(name.startswith("textures.") for name in arrays)
     mips = tuple(tuple(t(f"texture_mips.{i}.{j}") for j in range(sum(

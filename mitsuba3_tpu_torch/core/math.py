@@ -8,6 +8,7 @@ import torch
 Pi = 3.141592653589793
 InvPi = 1.0 / Pi
 InvTwoPi = 1.0 / (2.0 * Pi)
+InvFourPi = 1.0 / (4.0 * Pi)
 TwoPi = 2.0 * Pi
 Epsilon = float(np.finfo(np.float32).eps) / 2
 RayEpsilon = Epsilon * 1500.0          # mirrors math::RayEpsilon (math.h)

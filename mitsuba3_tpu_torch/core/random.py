@@ -8,6 +8,8 @@ an unmasked int64 product of two 32-bit lanes would overflow.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .struct import struct
@@ -58,6 +60,31 @@ def bits_to_float01(bits):
     return f - 1.0
 
 
+def _output(old_hi, old_lo):
+    """PCG32's output function on a state: ((state >> 18) ^ state) >> 27,
+    rotated right by state >> 59."""
+    x_lo = old_lo ^ (((old_hi << 14) & M32) | (old_lo >> 18))
+    x_hi = old_hi ^ (old_hi >> 18)
+    xorshifted = (x_lo >> 27) | ((x_hi << 5) & M32)
+    rot = old_hi >> 27
+    return (xorshifted >> rot) | ((xorshifted << ((-rot) & 31)) & M32)
+
+
+@functools.lru_cache(maxsize=64)
+def _jump_tables(k: int, device):
+    """(A_hi, A_lo, C_hi, C_lo), each [k + 1] int64 on `device`: the
+    jump-ahead multipliers and increments of j = 0..k PCG32 steps."""
+    mult = (PCG32_MULT_HI << 32) | PCG32_MULT_LO
+    a, c = [1], [0]
+    for _ in range(k):
+        a.append(a[-1] * mult % (1 << 64))
+        c.append((c[-1] * mult + 1) % (1 << 64))
+    return tuple(torch.tensor([v >> 32 if hi else v & M32 for v in vals],
+                              dtype=torch.int64, device=device)
+                 for vals, hi in ((a, True), (a, False), (c, True),
+                                  (c, False)))
+
+
 @struct
 class PCG32:
     """SoA PCG32 state: one generator per lane, 32-bit halves in int64."""
@@ -86,18 +113,36 @@ class PCG32:
         old_hi, old_lo = self.state_hi, self.state_lo
         mh, ml = u64_mul(old_hi, old_lo, PCG32_MULT_HI, PCG32_MULT_LO)
         nh, nl = u64_add(mh, ml, self.inc_hi, self.inc_lo)
-        # output function on the OLD state: ((state >> 18) ^ state) >> 27,
-        # rotated right by state >> 59
-        x_lo = old_lo ^ (((old_hi << 14) & M32) | (old_lo >> 18))
-        x_hi = old_hi ^ (old_hi >> 18)
-        xorshifted = (x_lo >> 27) | ((x_hi << 5) & M32)
-        rot = old_hi >> 27
-        out = ((xorshifted >> rot)
-               | ((xorshifted << ((-rot) & 31)) & M32))
-        return self.replace(state_hi=nh, state_lo=nl), out
+        return self.replace(state_hi=nh, state_lo=nl), _output(old_hi, old_lo)
+
+    def next_uint32_block(self, k: int):
+        """k draws per lane at once -> (rng advanced k steps, bits [k, N]),
+        bit-equal to k calls of ``next_uint32``: the j-th state is
+        A_j state + C_j inc (mod 2^64), A_j = MULT^j and
+        C_j = MULT^(j-1) + ... + 1 (the LCG's jump-ahead)."""
+        a_hi, a_lo, c_hi, c_lo = _jump_tables(k, self.state_hi.device)
+        mh, ml = u64_mul(self.state_hi[None], self.state_lo[None],
+                         a_hi[:, None], a_lo[:, None])
+        ch, cl = u64_mul(self.inc_hi[None], self.inc_lo[None],
+                         c_hi[:, None], c_lo[:, None])
+        sh, sl = u64_add(mh, ml, ch, cl)           # states 0..k, [k+1, N]
+        return (self.replace(state_hi=sh[k], state_lo=sl[k]),
+                _output(sh[:k], sl[:k]))
+
+    def advance(self, k: int):
+        """The stream k draws ahead (the draws themselves skipped)."""
+        a_hi, a_lo, c_hi, c_lo = _jump_tables(k, self.state_hi.device)
+        mh, ml = u64_mul(self.state_hi, self.state_lo, a_hi[k], a_lo[k])
+        ch, cl = u64_mul(self.inc_hi, self.inc_lo, c_hi[k], c_lo[k])
+        sh, sl = u64_add(mh, ml, ch, cl)
+        return self.replace(state_hi=sh, state_lo=sl)
 
     def next_float32(self):
         rng, bits = self.next_uint32()
+        return rng, bits_to_float01(bits)
+
+    def next_float32_block(self, k: int):
+        rng, bits = self.next_uint32_block(k)
         return rng, bits_to_float01(bits)
 
 

@@ -86,8 +86,18 @@ class Vec3:
     def max_component(self):
         return torch.maximum(self.x, torch.maximum(self.y, self.z))
 
+    def min_component(self):
+        return torch.minimum(self.x, torch.minimum(self.y, self.z))
+
     def mean(self):
         return (self.x + self.y + self.z) * (1.0 / 3.0)
+
+    def maximum(self, v: float):
+        return Vec3(torch.clamp(self.x, min=v), torch.clamp(self.y, min=v),
+                    torch.clamp(self.z, min=v))
+
+    def exp(self):
+        return Vec3(torch.exp(self.x), torch.exp(self.y), torch.exp(self.z))
 
     def any_positive(self):
         return (self.x > 0.0) | (self.y > 0.0) | (self.z > 0.0)

@@ -1,5 +1,6 @@
 """Warp library — counterpart of ``mitsuba3_tpu/core/warp.py`` (the
-cosine-hemisphere warp the diffuse BSDF samples with).
+cosine-hemisphere warp the diffuse BSDF samples with, the uniform sphere
+of the isotropic phase function).
 
 Functions take and return SoA ``Vec2``/``Vec3`` of ``[N]`` tensors, like
 the JAX package's ``*_v`` variants.
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .math import InvPi, Pi, safe_div, safe_sqrt
+from .math import InvPi, Pi, TwoPi, safe_div, safe_sqrt
 from .vec import Vec2, Vec3
 
 
@@ -35,3 +36,10 @@ def square_to_cosine_hemisphere(s: Vec2) -> Vec3:
 
 def square_to_cosine_hemisphere_pdf(v: Vec3):
     return torch.clamp(v.z, min=0.0) * InvPi
+
+
+def square_to_uniform_sphere(s: Vec2) -> Vec3:
+    z = 1.0 - 2.0 * s.y
+    r = safe_sqrt(1.0 - z * z)
+    phi = TwoPi * s.x
+    return Vec3(r * torch.cos(phi), r * torch.sin(phi), z)

@@ -31,7 +31,17 @@ for the plugins the port carries:
   ``multijitter``, ``ldsampler`` and ``orthogonal``;
 - constant colors given as a number, an RGB triple, or an ``rgb``,
   ``uniform``, ``d65``, ``srgb`` or ``rawconstant`` spectrum;
-- the ``path`` and ``prb`` integrators;
+- participating media: ``homogeneous`` and ``heterogeneous`` (a density
+  grid given as an array, a ``gridvolume`` with ``data`` or a ``.vol``
+  ``filename`` and its ``to_world``) with the phase functions
+  ``isotropic``, ``hg``, ``rayleigh``, ``sggx``, ``tabphase`` and
+  ``blendphase`` (of two non-blend phases), named at the top level and
+  referenced by ``ref``, as a shape's ``interior``/``exterior`` (or
+  ``interior_medium``/``exterior_medium``) and as a sensor's ``medium``;
+  the rows, grids, phase tables and world->grid affines are the JAX
+  loader's;
+- the ``path``, ``prb``, ``volpath``, ``volpathmis`` and ``prbvolpath``
+  integrators;
 - scenes of at most 8192 faces keep the dense all-triangles test
   (``accel`` None, ``ops/intersect.py``); above that, the accel that
   ``MI3T_ACCEL`` names, as the JAX package reads it: ``auto`` (the
@@ -40,7 +50,7 @@ for the plugins the port carries:
   ``xla``, ``grid`` and ``none`` are not ported.
 
 Any other plugin raises ``NotImplementedError`` naming it: among them a
-``specfilm``, a sensor's ``medium``, an rfilter's parameters (which the
+``specfilm``, a batch sensor's ``medium``, an rfilter's parameters (which the
 JAX package ignores), the ``blackbody``, ``regular`` and ``irregular``
 spectra, a textured parameter outside ``TEXTURED`` (principled's
 ``base_color`` among them) and an image format that ``utils/image_io.py``
@@ -58,6 +68,8 @@ import torch
 
 from . import bsdfs as bsdfs_pkg
 from . import emitters as em_pkg
+from . import media as media_pkg
+from . import phase as phase_pkg
 from . import shapes as shapes_pkg
 from . import sensors as sensors_pkg
 from .core.transform import as_transform
@@ -134,6 +146,17 @@ _TEXTURE_TYPES = _COLOR_TEXTURES + ("gridvolume", "constvolume")
 _VOLUME_KEYS = {"gridvolume": ("type", "filename", "grid", "data",
                                "to_world"),
                 "constvolume": ("type", "value", "to_world")}
+MEDIUM_KEYS = {
+    "homogeneous": ("type", "sigma_t", "albedo", "scale", "phase",
+                    "sample_emitters"),
+    "heterogeneous": ("type", "sigma_t", "albedo", "scale", "phase",
+                      "sample_emitters", "density", "color"),
+}
+PHASE_KEYS = {"isotropic": ("type",), "hg": ("type", "g"),
+              "rayleigh": ("type",), "sggx": ("type", "S", "s"),
+              "tabphase": ("type", "values"),
+              "blendphase": ("type", "weight")}
+INTEGRATORS = ("path", "prb", "volpath", "volpathmis", "prbvolpath")
 ENV_KEYS = {"constant": ("type", "radiance", "scale"),
             "envmap": ("type", "filename", "data", "raw", "scale")}
 DELTA_KEYS = {
@@ -382,6 +405,110 @@ def _bsdf_row(spec: dict, add_bsdf, textures: list):
     return bsdfs_pkg.ROUGH_PLASTIC, params
 
 
+def _fill_phase(phase_spec: dict, row: np.ndarray, tables: list) -> int:
+    """Fill the phase slots of a medium row (media/__init__.py's layout) as
+    the JAX loader does; returns the phase type id."""
+    pname = phase_spec.get("type", "isotropic")
+    if pname not in PHASE_KEYS:
+        raise _not_ported(f"phase function {pname!r}")
+    nested = [v for v in phase_spec.values()
+              if isinstance(v, dict) and v.get("type") in PHASE_KEYS]
+    _check_keys({k: v for k, v in phase_spec.items()
+                 if not any(v is x for x in nested)}, PHASE_KEYS[pname],
+                f"{pname} phase")
+    ptype = phase_pkg.NAMES[pname]
+    row[7] = float(phase_spec.get("g", 0.0))
+    if pname == "sggx":
+        s = phase_spec.get("S", phase_spec.get("s"))
+        if isinstance(s, dict):  # constvolume-style {'value': [6 floats]}
+            s = s.get("value")
+        s = np.asarray(s if s is not None else [1, 1, 1, 0, 0, 0],
+                       np.float32).reshape(-1)
+        row[12:18] = s[:6]
+    elif pname == "tabphase":
+        vals = phase_spec.get("values")
+        if isinstance(vals, str):
+            vals = [float(v) for v in vals.replace(",", " ").split()]
+        tables.append(np.asarray(vals, np.float32))
+        row[18] = len(tables)
+    elif pname == "blendphase":
+        row[19] = float(phase_spec.get("weight", 0.5))
+        if len(nested) != 2:
+            raise ValueError("blendphase needs exactly two nested phases")
+        if any(nv["type"] == "blendphase" for nv in nested):
+            raise ValueError("nested blendphase unsupported")
+        # the nested phases share the row: copy the slots they use
+        for col, nv in ((20, nested[0]), (21, nested[1])):
+            sub = np.zeros_like(row)
+            row[col] = _fill_phase(nv, sub, tables)
+            row[7] = sub[7] if sub[7] else row[7]
+            row[12:19] = np.where(sub[12:19] != 0, sub[12:19], row[12:19])
+    return ptype
+
+
+def _medium_row(spec: dict, grids: list, tables: list):
+    """Lower a medium spec -> (medium type, phase type, row [N_MPARAMS],
+    world->grid [3, 4]), as the JAX loader does (homogeneous.cpp's
+    sigma_t, albedo and scale; heterogeneous.cpp's density grid with the
+    majorant scale * max density * max sigma_t). A grid is appended to
+    `grids`, a tabulated phase's values to `tables`."""
+    mtype = spec["type"]
+    _check_keys(spec, MEDIUM_KEYS[mtype], f"{mtype} medium")
+    row = np.zeros(media_pkg.N_MPARAMS, np.float32)
+    row[10] = 1.0 if spec.get("sample_emitters", True) else 0.0
+    row[6] = float(spec.get("scale", 1.0))
+    ptype = _fill_phase(spec.get("phase", {"type": "isotropic"}), row, tables)
+    row[3:6] = _rgb(spec.get("albedo"), (0.75, 0.75, 0.75))
+    to_grid = np.concatenate([np.eye(3, dtype=np.float32),
+                              np.zeros((3, 1), np.float32)], axis=1)
+    if mtype == "homogeneous":
+        row[0:3] = _rgb(spec.get("sigma_t"), (1.0, 1.0, 1.0))
+        return media_pkg.HOMOGENEOUS, ptype, row, to_grid
+    # heterogeneous: a [D, H, W] density grid (an array, or a gridvolume
+    # with data or a .vol file and its to_world) modulating the RGB
+    # extinction color (color, or sigma_t beside a density)
+    vol = spec.get("density", spec.get("sigma_t"))
+    grid = None
+    if isinstance(vol, dict) and vol.get("type") == "gridvolume":
+        _check_keys(vol, ("type", "filename", "data", "to_world"),
+                    "medium gridvolume")
+        mtx = np.eye(4)
+        if "filename" in vol:
+            from .utils.vol_io import read_vol
+            grid, bb_lo, bb_hi = read_vol(vol["filename"])
+            if grid.ndim == 4:
+                grid = grid.mean(axis=-1)
+            ext = np.maximum(bb_hi - bb_lo, 1e-9)
+            mtx = np.diag([ext[0], ext[1], ext[2], 1.0])
+            mtx[:3, 3] = bb_lo
+        else:
+            grid = np.asarray(vol.get("data"), np.float32)
+        tw = vol.get("to_world")
+        if tw is not None:
+            mtx = np.asarray(as_transform(tw).matrix, np.float64) @ mtx
+        to_grid = np.linalg.inv(mtx).astype(np.float32)[:3, :4]
+    elif isinstance(vol, dict) and vol.get("type") not in ("rgb",) + \
+            _CONSTANT_SPECTRA:
+        raise _not_ported(f"a {vol.get('type')!r} medium density")
+    elif vol is not None and not isinstance(vol, dict):
+        grid = np.asarray(vol, np.float32)
+    cspec = spec.get("color")
+    if cspec is None and "density" in spec and \
+            isinstance(spec.get("sigma_t"), dict):
+        cspec = spec.get("sigma_t")
+    color = _rgb(cspec, (1.0, 1.0, 1.0))
+    row[0:3] = color
+    if grid is not None:
+        if grid.ndim != 3:
+            raise ValueError("density grid must be [D, H, W]")
+        grids.append(grid)
+        row[9] = len(grids)
+        row[8] = row[6] * float(grid.max()) * float(color.max())
+    else:
+        row[8] = row[6] * float(color.max())
+    return media_pkg.HETEROGENEOUS, ptype, row, to_grid
+
+
 def _slot_flags(bsdf_types, bsdf_rows):
     """Resolved BSDFFlags per slot: an adapter takes the union of its
     nested chains (a mask adds Null), and the two-sided flag ([16]) adds
@@ -471,7 +598,7 @@ def _sensor(spec: dict, dev):
         for sub in subs:
             _check_keys(sub, _SENSOR_KEYS, f"{sub['type']} sensor in a batch")
     else:
-        _check_keys(spec, _SENSOR_KEYS, f"{stype} sensor")
+        _check_keys(spec, _SENSOR_KEYS + ("medium",), f"{stype} sensor")
     film = _film_config(spec.get("film", {}) or {})
     spp, sampler_type = _sampler_config(spec.get("sampler", {}) or {})
     build = (sensors_pkg.build_batch if stype == "batch"
@@ -585,6 +712,32 @@ def load_dict(d: dict, device=None) -> Scene:
             named_bsdf[name] = len(bsdf_types) - 1
         return len(bsdf_types) - 1
 
+    # media: named at the top level, a shape's interior/exterior, the
+    # sensor's medium
+    named_medium: dict[str, int] = {}
+    medium_types: list[int] = []
+    phase_types: list[int] = []
+    medium_rows: list[np.ndarray] = []
+    medium_to_grids: list[np.ndarray] = []
+    medium_grids: list[np.ndarray] = []
+    phase_tables: list[np.ndarray] = []
+    sensor_medium = -1
+
+    def add_medium(spec, name=None):
+        if spec.get("type") == "ref":
+            return named_medium[spec["id"]]
+        if spec.get("type") not in MEDIUM_KEYS:
+            raise _not_ported(f"medium type {spec.get('type')!r}")
+        mtype, ptype, row, to_grid = _medium_row(spec, medium_grids,
+                                                 phase_tables)
+        medium_types.append(mtype)
+        phase_types.append(ptype)
+        medium_rows.append(row)
+        medium_to_grids.append(to_grid)
+        if name is not None:
+            named_medium[name] = len(medium_types) - 1
+        return len(medium_types) - 1
+
     shape_items = []
     env_spec = None
     delta_specs = []
@@ -592,12 +745,16 @@ def load_dict(d: dict, device=None) -> Scene:
         if key == "type" or not isinstance(val, dict):
             continue
         vtype = val.get("type")
-        if key == "integrator" or vtype in ("path", "prb"):
+        if key == "integrator" or vtype in INTEGRATORS:
             integrator_cfg = integrator_from_dict(val)
         elif vtype in sensors_pkg.TYPES or vtype == "batch":
             film_cfg, spp, sampler_type, sensor = _sensor(val, dev)
+            if val.get("medium") is not None:
+                sensor_medium = add_medium(val["medium"])
         elif vtype in BSDF_NAMES:
             add_bsdf(val, name=key)
+        elif vtype in MEDIUM_KEYS:
+            add_medium(val, name=key)
         elif vtype in shapes_pkg.SHAPE_KEYS:
             shape_items.append(val)
         elif vtype in ENV_KEYS:
@@ -613,7 +770,7 @@ def load_dict(d: dict, device=None) -> Scene:
 
     # ---- lower shapes; area emitters take the first emitter slots ----
     all_verts, all_faces, face_uv, face_ns, face_vc = [], [], [], [], []
-    face_shape, face_bsdf, face_emitter = [], [], []
+    face_shape, face_bsdf, face_emitter, face_medium = [], [], [], []
     em_radiance, em_faces, em_areas = [], [], []
     v_off = f_off = 0
     any_colors = False
@@ -637,6 +794,14 @@ def load_dict(d: dict, device=None) -> Scene:
         face_vc.append(mesh.colors[mesh.faces] if mesh.colors is not None
                        else np.zeros((nf, 3, 3)))
         any_colors = any_colors or mesh.colors is not None
+        int_spec = spec.get("interior") or spec.get("interior_medium")
+        ext_spec = spec.get("exterior") or spec.get("exterior_medium")
+        if int_spec is not None or ext_spec is not None:
+            m_in = add_medium(int_spec) if int_spec is not None else -1
+            m_ex = add_medium(ext_spec) if ext_spec is not None else -1
+        else:
+            m_in = m_ex = -2    # NO_TRANSITION
+        face_medium.extend([(m_in, m_ex)] * nf)
         face_shape.extend([s_idx] * nf)
         face_bsdf.extend([b_idx] * nf)
         face_emitter.extend([e_idx] * nf)
@@ -653,6 +818,7 @@ def load_dict(d: dict, device=None) -> Scene:
     face_shape = np.asarray(face_shape, np.int32)
     face_bsdf = np.asarray(face_bsdf, np.int32)
     face_emitter = np.asarray(face_emitter, np.int32)
+    face_medium = np.asarray(face_medium, np.int32).reshape(-1, 2)
     n_faces = faces.shape[0]
 
     # emitter slots: [area emitters][delta emitters][environment]
@@ -694,6 +860,8 @@ def load_dict(d: dict, device=None) -> Scene:
         face_bsdf = np.concatenate([face_bsdf, np.zeros(pad, np.int32)])
         face_emitter = np.concatenate([face_emitter,
                                        np.full(pad, -1, np.int32)])
+        face_medium = np.concatenate(
+            [face_medium, np.full((pad, 2), -2, np.int32)], 0)
         face_inv_total_area = np.concatenate(
             [face_inv_total_area, np.zeros(pad, np.float32)])
         face_uv = np.concatenate(
@@ -739,6 +907,16 @@ def load_dict(d: dict, device=None) -> Scene:
             tuple(t(lv) for lv in tex_mod.build_mips(tx.data))
             if tx.meta[2] else () for tx in textures),
         face_colors=t(face_colors) if any_colors else None,
+        medium_params=t(np.stack(medium_rows, 0) if medium_rows else
+                        np.zeros((0, media_pkg.N_MPARAMS), np.float32)),
+        medium_grids=tuple(t(g) for g in medium_grids),
+        phase_tables=tuple(t(tb) for tb in phase_tables),
+        medium_to_grid=t(np.stack(medium_to_grids, 0) if medium_to_grids
+                         else np.zeros((0, 3, 4), np.float32)),
+        face_medium=t(face_medium),
+        medium_types=tuple(medium_types),
+        phase_types=tuple(phase_types),
+        sensor_medium=sensor_medium,
         n_emitters=n_emitters,
         n_area_emitters=n_area,
         env_emitter=env_index,

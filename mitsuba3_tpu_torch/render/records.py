@@ -25,6 +25,9 @@ class Ray:
             maxt = torch.full_like(o.x, float("inf"))
         return Ray(o=o, d=d, maxt=maxt)
 
+    def at(self, t):
+        return self.o + self.d * t
+
 
 @struct
 class PreliminaryIntersection:

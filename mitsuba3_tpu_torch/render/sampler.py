@@ -197,6 +197,29 @@ def next_1d(s: Sampler):
     return out, _bose(s, s.dim, u)
 
 
+def next_1d_block(s: Sampler, k: int):
+    """k consecutive ``next_1d`` draws at once -> (sampler, [k, N]),
+    bit-equal to the k calls: one jump-ahead of the PCG32 stream for the
+    independent sampler (a tracking loop's draws in a few operations
+    instead of k x 63), the calls themselves for the structured ones."""
+    if s.stype == "independent" or s.spp <= 1:
+        rng, u = s.rng.next_float32_block(k)
+        return s.replace(rng=rng, dim=s.dim + k), u
+    draws = []
+    for _ in range(k):
+        s, u = next_1d(s)
+        draws.append(u)
+    return s, torch.stack(draws)
+
+
+def advance(s: Sampler, k: int) -> Sampler:
+    """The sampler after k ``next_1d`` draws whose values are not needed:
+    every sampler type draws one PCG32 number per dimension."""
+    if k == 0:
+        return s
+    return s.replace(rng=s.rng.advance(k), dim=s.dim + k)
+
+
 def next_2d(s: Sampler):
     rng, ux = s.rng.next_float32()
     rng, uy = rng.next_float32()

@@ -1,10 +1,12 @@
 """Scene: flat SoA tables + dispatch hub — counterpart of
 ``mitsuba3_tpu/render/scene.py`` (the parts a triangle scene with the
 port's BSDFs and textures, area lights, point, spot and directional
-lights and an environment map reaches).
+lights, an environment map and participating media reaches).
 
 The JAX Scene's static fields are plain fields here; the per-face
-attribute table is built once from the leaves when the Scene is made.
+attribute table is built once from the leaves when the Scene is made. A
+scene with media adds the faces' (interior, exterior) medium columns to
+it; -2 (``NO_TRANSITION``) marks a face whose crossing keeps the medium.
 """
 from __future__ import annotations
 
@@ -37,7 +39,16 @@ A_P0, A_E1, A_E2 = 0, 3, 6       # xyz each
 A_UV = 9                         # uv0, uv1, uv2
 A_INV_AREA, A_EMITTER, A_BSDF, A_SHAPE = 15, 16, 17, 18
 A_NS = 19                        # per-corner shading normals, 9 columns
-A_VC = 28                        # per-corner vertex colors, 9 columns
+A_MED = 28                       # interior, exterior medium (with media)
+# then the per-corner vertex colors, 9 columns (Scene.a_vc)
+
+
+@struct
+class _RefPoint:
+    """A reference point of NEE from a medium vertex (or of a delta
+    emitter's re-evaluation); `t` gives the lane count."""
+    p: Vec3
+    t: torch.Tensor
 
 
 @struct
@@ -74,6 +85,16 @@ class Scene:
     texture_mips: tuple = ()          # per texture: a tuple of levels
     face_colors: torch.Tensor | None = None  # [F, 3, 3]; None: no mesh
     #                                   carries vertex colors
+    # participating media (media/, phase/)
+    medium_params: torch.Tensor | None = None  # [M, N_MPARAMS]
+    medium_grids: tuple = ()          # [D, H, W] density grids
+    phase_tables: tuple = ()          # [K] tabulated phase pdfs
+    medium_to_grid: torch.Tensor | None = None  # [M, 3, 4] world->grid
+    face_medium: torch.Tensor | None = None    # [F, 2] (interior,
+    #                                   exterior), -1 vacuum, -2 no change
+    medium_types: tuple = ()
+    phase_types: tuple = ()
+    sensor_medium: int = -1           # the camera rays' medium
     # static configuration
     n_emitters: int = 0
     n_area_emitters: int = 0
@@ -96,6 +117,15 @@ class Scene:
         self.face_table = self._face_table()
 
     @property
+    def has_media(self) -> bool:
+        return len(self.medium_types) > 0
+
+    @property
+    def a_vc(self) -> int:
+        """First vertex-color column of the face table."""
+        return A_MED + 2 if self.has_media else A_MED
+
+    @property
     def device(self) -> torch.device:
         return self.vertices.device
 
@@ -113,7 +143,8 @@ class Scene:
 
     def _face_table(self):
         """[F, 28] per-face attribute rows (columns A_*; int columns as
-        exact f32), [F, 37] with vertex colors."""
+        exact f32), then a scene with media's two medium columns and the
+        vertex colors' nine."""
         p0, e1, e2 = self.triangle_soa()
         uv = self.face_uv
         ns = self.face_normals
@@ -125,14 +156,20 @@ class Scene:
                 self.face_bsdf.to(torch.float32),
                 self.face_shape.to(torch.float32)]
         cols += [ns[:, i, j] for i in range(3) for j in range(3)]
+        if self.has_media:
+            fm = (self.face_medium.to(torch.float32)
+                  if self.face_medium is not None
+                  else torch.full((p0.x.shape[0], 2), -1.0,
+                                  device=p0.x.device))
+            cols += [fm[:, 0], fm[:, 1]]
         if self.face_colors is not None:
             vc = self.face_colors
             cols += [vc[:, i, j] for i in range(3) for j in range(3)]
         return torch.stack(cols, dim=1)
 
     def gather_face_attrs(self, prim):
-        """Per-lane face attributes as SoA rows [28 or 37, N] (one row take
-        per lane)."""
+        """Per-lane face attributes as SoA rows [K, N] (one row take per
+        lane)."""
         return take_rows(self.face_table, prim).T
 
     # ------------------------------------------------------------------
@@ -214,7 +251,7 @@ class Scene:
         vcolor = None
         if self.face_colors is not None:
             # the interpolated vertex attribute (mesh_attribute.cpp eval)
-            c0, c1, c2 = A_VC, A_VC + 3, A_VC + 6
+            c0, c1, c2 = self.a_vc, self.a_vc + 3, self.a_vc + 6
             vcolor = Vec3(a[c0] * w0 + a[c1] * b1 + a[c2] * b2,
                           a[c0 + 1] * w0 + a[c1 + 1] * b1 + a[c2 + 1] * b2,
                           a[c0 + 2] * w0 + a[c1 + 2] * b1 + a[c2 + 2] * b2)
@@ -228,7 +265,18 @@ class Scene:
             "emitter": torch.where(valid, as_int(a[A_EMITTER]), -1),
             "inv_total_area": a[A_INV_AREA],
         }
+        if self.has_media:
+            attrs["medium_interior"] = as_int(a[A_MED])
+            attrs["medium_exterior"] = as_int(a[A_MED + 1])
         return si, attrs
+
+    @staticmethod
+    def target_medium(si, attrs, d: Vec3):
+        """The medium on the far side when leaving a surface along world
+        direction d (interaction.h target_medium: entering the shape when
+        d points against the geometric normal)."""
+        return torch.where(si.n.dot(d) < 0.0, attrs["medium_interior"],
+                           attrs["medium_exterior"])
 
     # ------------------------------------------------------------------
     # Emitter sampling
@@ -247,6 +295,14 @@ class Scene:
         environment): the shadow-ray gate."""
         return bool(self.ef_face.shape[0] or self.env_emitter >= 0 or (
             self.de_params is not None and self.de_params.shape[0]))
+
+    def sample_emitter_direction_from(self, ref_p: Vec3, sample1,
+                                      sample2: Vec2):
+        """NEE direction sampling from any reference point (a surface or a
+        medium vertex) without a visibility test. Returns
+        (DirectionSample, unshadowed weight Vec3)."""
+        return self._sample_emitter_core(_RefPoint(p=ref_p, t=ref_p.x),
+                                         sample1, sample2)
 
     def sample_emitter_direction(self, si: SurfaceInteraction, sample1,
                                  sample2: Vec2, active=None,
@@ -454,3 +510,15 @@ class Scene:
     def gather_bsdf_params(self, bsdf_idx):
         """[N] bsdf slots -> SoA param rows [N_PARAMS, N]."""
         return take_rows(self.bsdf_params, bsdf_idx).T
+
+    def gather_medium_params(self, med_idx):
+        """[N] medium indices -> SoA param rows [N_MPARAMS, N] (one row
+        take per lane); vacuum lanes (index < 0) get a row of zeros, as
+        JAX's one-hot gather gives them."""
+        m_count = self.medium_params.shape[0]
+        if m_count == 0:
+            return torch.zeros((self.medium_params.shape[1],
+                                med_idx.shape[0]), device=med_idx.device)
+        rows = take_rows(self.medium_params,
+                         torch.clamp(med_idx, 0, m_count - 1))
+        return torch.where((med_idx >= 0)[:, None], rows, 0.0).T

@@ -17,8 +17,10 @@ import numpy as np
 from ..core.transform import Transform4f, as_transform
 
 # keys each shape type may carry; any other key names a feature that is
-# not ported (media, obj's flip_tex_coords)
-_COMMON = ("type", "bsdf", "emitter", "to_world")
+# not ported (obj's flip_tex_coords among them). The media keys are the
+# loader's: build_shape reads only the geometry
+_COMMON = ("type", "bsdf", "emitter", "to_world", "interior", "exterior",
+           "interior_medium", "exterior_medium")
 SHAPE_KEYS = {
     "mesh": _COMMON + ("vertices", "faces", "uvs", "normals",
                        "vertex_colors"),

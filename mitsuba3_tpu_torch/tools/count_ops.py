@@ -2,6 +2,7 @@
 
     python3 -m mitsuba3_tpu_torch.tools.count_ops [--size 16] [--spp 64]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --textured [--size 16]
+    python3 -m mitsuba3_tpu_torch.tools.count_ops --media [--size 16]
 
 Run from the repository root. For each sampler type, the scene is
 ``chip_smoke.cornell_xml``'s Cornell box (perspective sensor, Gaussian
@@ -18,6 +19,17 @@ cell). Prints one line per scene and the ratio to ``independent``.
 ``chip_smoke``'s textured Cornell (``textured_cornell_xml``, its image
 files at 64^2) and of the diffuse Cornell box, both with ``prb`` at
 ``max_depth`` 8, and prints their ratio.
+
+``--media`` counts one PRB pass (forward and backward, 2 of ``--spp``
+samples per pixel) of ``chip_smoke``'s fog Cornell under ``prbvolpath``
+(``max_depth`` 6; gradients of medium_params, bsdf_params and
+em_radiance) beside the diffuse Cornell's under ``prb`` at the same
+depth, then one forward pass of the smoke (``chip_smoke.smoke_dict`` on a
+16^3 grid, ``max_depth`` 8) under ``volpath`` and ``volpathmis``, and of
+the foggy interior (``foggy_interior_dict`` at 9,000 triangles, cellserve)
+under ``volpath``. A pass's operations barely depend on its lane count
+(the loops run a fixed number of steps), so the count at ``--size``
+predicts a full-size pass.
 """
 from __future__ import annotations
 
@@ -80,15 +92,45 @@ def count_textured(size: int, spp: int):
           f"{n_tex / n_dif:.2f}x")
 
 
+def count_media(size: int, spp: int):
+    import chip_smoke
+    import mitsuba3_tpu_torch as mt
+    from mitsuba3_tpu_torch.render import integrator as ri
+    names = ("medium_params", "bsdf_params", "em_radiance")
+    fog = mt.load_dict(chip_smoke.fog_cornell_dict(
+        mt, size, size, 6, "prbvolpath"), device="cpu")
+    n_fog = count_prb_pass(fog, spp, names)
+    diffuse = mt.load_dict(chip_smoke._prb_dict(mt.cornell_box(
+        size, size, spp=spp, max_depth=6)), device="cpu")
+    n_dif = count_prb_pass(diffuse, spp, names[1:])
+    print(f"PRB pass {size}x{size}, 2 of {spp} spp, max_depth 6: fog "
+          f"cornell (prbvolpath) {n_fog} ops, diffuse cornell (prb) {n_dif} "
+          f"ops, {n_fog / n_dif:.2f}x")
+    scenes = [(f"smoke 16^3 {it}", chip_smoke.smoke_dict(mt, size, 16, it))
+              for it in ("volpath", "volpathmis")]
+    scenes.append(("foggy interior 9000 volpath",
+                   chip_smoke.foggy_interior_dict(mt.ScalarTransform4f, 9000,
+                                                  size)))
+    for label, d in scenes:
+        scene = mt.load_dict(d, device="cpu")
+        with torch.no_grad(), _Count() as c:
+            ri.render_pass(scene, 7, 2, 0, spp, base_seed=7)
+        print(f"{label} pass {size}x{size}, 2 of {spp} spp: {c.n} ops")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=16)
     ap.add_argument("--spp", type=int, default=64)
     ap.add_argument("--textured", action="store_true")
+    ap.add_argument("--media", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     if args.textured:
         count_textured(args.size, args.spp)
+        return 0
+    if args.media:
+        count_media(args.size, args.spp)
         return 0
     import chip_smoke
     import mitsuba3_tpu_torch as mt

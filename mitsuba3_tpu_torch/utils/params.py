@@ -6,8 +6,11 @@ package's keys, with ``set_dirty`` batching. ``update()`` applies the
 pending writes, rebuilds the state derived from them (the environment's
 sampling tables after an ``env_data`` edit; the area-emitter tables and
 the accel after a ``vertices`` edit, as Scene::parameters_changed does;
-the BSDF dispatch's texture and type tables after a ``bsdf_params`` edit)
-and returns a new Scene; the Scene it started from is left as it was.
+the BSDF dispatch's texture and type tables after a ``bsdf_params`` edit;
+the majorant of the medium rows that own a density grid after a grid
+edit, heterogeneous.cpp:178; a new grid tensor gets a new cell table on
+its first lookup) and returns a new Scene; the Scene it started from is
+left as it was.
 
 The accel is geometry, not a parameter: it is rebuilt on the host from
 the vertices' values (``.detach().cpu()``), while gradients still reach
@@ -37,6 +40,10 @@ class SceneParameters:
             "env_scale": scene.env_scale,
             "sensor.to_world.origin": scene.sensor.origin,
         }
+        if scene.medium_params is not None and scene.medium_params.shape[0]:
+            self._values["medium_params"] = scene.medium_params
+            for i, grid in enumerate(scene.medium_grids):
+                self._values[f"medium{i}.density.data"] = grid
         if scene.de_params is not None:
             self._values["de_params"] = scene.de_params
         for i, tex in enumerate(scene.textures):
@@ -76,7 +83,9 @@ class SceneParameters:
                 self[k] = v
         s = self._scene
         tex = list(s.textures)
-        for k in self._dirty:
+        # grids after the medium rows: a grid edit re-derives its row's
+        # majorant from the rows as they end up (JAX's order is the set's)
+        for k in sorted(self._dirty, key=_is_grid):
             v = self._values[k]
             if k == "vertices":
                 s = _rebuild_geometry_derived(s.replace(vertices=v))
@@ -89,7 +98,9 @@ class SceneParameters:
             elif k.startswith("texture"):
                 tex[int(k[len("texture"):].split(".")[0])] = v
                 s = s.replace(textures=tuple(tex))
-            else:   # em_radiance, env_scale, de_params
+            elif _is_grid(k):
+                s = _replace_grid(s, int(k[len("medium"):].split(".")[0]), v)
+            else:   # em_radiance, env_scale, de_params, medium_params
                 s = s.replace(**{k: v})
         self._dirty.clear()
         self._scene = s
@@ -97,6 +108,25 @@ class SceneParameters:
 
     def scene(self):
         return self.update()
+
+
+def _is_grid(key: str) -> bool:
+    return key.startswith("medium") and key != "medium_params"
+
+
+def _replace_grid(scene, idx: int, grid):
+    """Density grid `idx` replaced, and the majorant bound [8] re-derived
+    on every medium row that owns grid slot idx + 1 (row order need not
+    follow grid order), with the JAX package's host arithmetic."""
+    grids = list(scene.medium_grids)
+    grids[idx] = grid
+    mp = scene.medium_params.detach().cpu().numpy().copy()
+    g_max = float(grid.detach().max())
+    for row in np.where(np.round(mp[:, 9]).astype(int) == idx + 1)[0]:
+        mp[row, 8] = mp[row, 6] * g_max * float(mp[row, 0:3].max())
+    return scene.replace(medium_grids=tuple(grids),
+                         medium_params=torch.as_tensor(
+                             mp, device=scene.medium_params.device))
 
 
 def _rebuild_dispatch_tables(scene):

@@ -13,8 +13,11 @@ the optimizers, LargeSteps and one ``update()`` rebuild on the card
 against the CPU; a render per sampler type from an XML file, and
 ``load_file``'s default device; texture lookups (every wrap and filter,
 the mip levels), the textured Cornell's render and the texture and
-environment gradients of it and of the small textured terrain. Run
-on a machine with a CUDA device::
+environment gradients of it and of the small textured terrain;
+participating media: the foggy interior through K1 on the card against
+the CPU, the smoke's 256^3 cell table built once per render, and the fog
+Cornell's prbvolpath gradients against the CPU's. Run on a machine with a
+CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -1204,3 +1207,65 @@ def test_texture_grads_on_card_match_cpu(cuda, tmp_path):
             assert a.shape == b.shape and torch.isfinite(a).all()
             scale = float(b.abs().max())
             assert torch.allclose(a, b, rtol=0, atol=1e-3 * scale + 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# Participating media on the card
+# ---------------------------------------------------------------------------
+
+def test_foggy_interior_on_card_matches_cpu(cuda, monkeypatch):
+    """The 9,000-triangle interior with the camera in a homogeneous medium
+    (chip_smoke.foggy_interior_dict, cellserve, volpath), 24^2, 4 spp: K1
+    closest launched, any-hit not (every shadow segment is a closest
+    query), the card's image against the CPU's per pixel."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+    d = chip_smoke.foggy_interior_dict(mt.ScalarTransform4f, 9000, width=24)
+    cs.LAUNCHES.update(closest=0, anyhit=0)
+    img_g = mt.render(mt.load_dict(d, device=cuda), seed=5, spp=4)
+    assert cs.LAUNCHES["closest"] > 0 and cs.LAUNCHES["anyhit"] == 0
+    img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=4)
+    img_g, img_c = img_g.cpu().numpy(), img_c.numpy()
+    assert np.isfinite(img_g).all() and img_g.mean() > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+def test_smoke_cell_table_built_once_on_card(cuda, monkeypatch):
+    """examples/03_volumetric.py's smoke on a 256^3 grid (16^2, 2 spp,
+    volpath): its cell table (255^3 x 8 floats, 0.53 GB) is built once for
+    the render, however many tracking steps read it, so the pass's peak
+    memory stays within the grid, the table and 512 MiB."""
+    from mitsuba3_tpu_torch import media
+    builds = []
+    real = media.build_cells
+    monkeypatch.setattr(media, "build_cells",
+                        lambda g: builds.append(g.shape) or real(g))
+    scene = mt.load_dict(chip_smoke.smoke_dict(mt, 16, 256, spp=2),
+                         device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    img = mt.render(scene, seed=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert builds == [(256, 256, 256)]
+    assert torch.isfinite(img).all() and float(img.mean()) > 0
+    assert peak < 255 ** 3 * 8 * 4 + (512 << 20), peak
+
+
+def test_fog_prbvolpath_grads_on_card_match_cpu(cuda):
+    """The fog Cornell under prbvolpath (16^2, max_depth 4, 4 spp): the
+    medium rows', BSDF rows' and emitter radiance's gradients on the card
+    finite and within 1e-3 of the CPU's largest entry."""
+    d = chip_smoke.fog_cornell_dict(mt, 16, 16, 4, "prbvolpath")
+    names = chip_smoke.MEDIA_GRADS
+    g_card = chip_smoke._grad_step(mt.load_dict(d, device=cuda), names, 5,
+                                   4)[2]
+    g_cpu = chip_smoke._grad_step(mt.load_dict(d, device="cpu"), names, 5,
+                                  4)[2]
+    for k in names:
+        a, b = g_card[k].cpu(), g_cpu[k]
+        assert torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert scale > 0 and torch.allclose(a, b, rtol=0,
+                                            atol=1e-3 * scale)

@@ -298,7 +298,8 @@ def test_eval_delta_emitter_matches_jax(np_rng):
                   t=jnp.asarray(t)), jnp.asarray(k))
     t_out = t_scene._eval_delta_emitter(
         prb._RefPoint(p=TVec3(*(torch.as_tensor(np.ascontiguousarray(
-            p[:, i])) for i in range(3)))), torch.as_tensor(k))
+            p[:, i])) for i in range(3))), t=torch.as_tensor(t)),
+        torch.as_tensor(k))
     for tv, jv in zip(t_out[:3] + t_out[4:], j_out[:3] + j_out[4:]):
         close(tv, jv, FLOAT_TOL)
     # the spot lanes' falloff, recomputed from the port's own outputs
