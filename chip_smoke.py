@@ -129,8 +129,25 @@ Phases:
    Cornell (and its gradients), the smoke on 16^3 and the 9,000-triangle
    foggy interior on the card against the CPU. Run it alone with
    ``python3 chip_smoke.py --phase media``;
-17. JSON lines of render, query, PRB, material, interior, loop, scene-file,
-   texture, media and per-kernel numbers.
+17. integrators and lights (after the media): ``direct`` on terrain64k
+   (512^2, 4 spp, cellserve: a timed and a profiled render, K1 closest
+   and any-hit launches counted from zero, its device ms and bound by
+   CUDA events) and ``depth`` there (hit pixels equal to an ``aov`` depth
+   channel); ``aov`` (all eight AOVs and a nested path, 20 channels) on
+   interior120k at 256^2, its RGB equal to a plain ``path`` render;
+   ``moment`` around ``path`` on bench.py's Cornell (512^2, 64 spp), its
+   RGB equal to ``path``'s, and the three Z-tests of
+   tests/test_regression.py through it; the light tracer on that Cornell
+   (512^2, 16 spp: 8 passes of 2^19 light paths), its channel means
+   within 8 % of the path render's; the sphere-lit Cornell's PRB step
+   (cone NEE; 512^2, 4 spp), ``path`` renders of a directionalarea and
+   a projector Cornell (512^2, 16 spp), terrain64k under sunsky and
+   timed_sunsky
+   (512^2, 4 spp through K1); ten scenes on the card against the CPU at
+   32^2. Run it alone with ``python3 chip_smoke.py --phase
+   integrators``;
+18. JSON lines of render, query, PRB, material, interior, loop, scene-file,
+   texture, media, integrator and per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -3322,9 +3339,505 @@ def phase_media(mi, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Integrators and lights: direct, aov, depth, moment, the light tracer;
+# sphere, directionalarea and projector lights, sunsky
+# ---------------------------------------------------------------------------
+
+ALL_AOVS = ("dd:depth,p:position,uv:uv,gn:geo_normal,sn:sh_normal,"
+            "a:albedo,pi:prim_index,si:shape_index")
+CORNELL_RADIANCE = [18.387, 13.9873, 6.75357]
+INTEG_CORNELL_SPP = 64      # the moment and path renders, 512^2
+PTRACER_SPP = 16            # 8 passes of 2^19 light paths at 512^2
+PTRACER_RTOL = 0.08         # tests/test_render.py:106
+LIGHTS_SPP = 16             # the light scenes' path renders
+# the sphere-lit Cornell's PRB step: not 16, which took 57.4 s (its 4,002
+# faces keep the dense test, 7.2 s a pass); the phase keeps to its 90 s
+SPHERE_PRB_SPP = 4
+PROJECTOR_SIDE = 512        # the projector's bitmap irradiance, side^2
+INTEG_CHECK_SIDE = 32       # card against CPU
+Z_SCENES = ("cornell_diffuse", "cornell_glossy", "fog_cube")
+Z_SPP, Z_REF_SPP, Z_SEED = 256, 1024, 3   # tests/test_regression.py
+
+
+def sphere_cornell_dict(mi, width: int, height: int, max_depth: int,
+                        integrator: str = "path"):
+    """``mi.cornell_box`` with its ceiling light replaced by an emitting
+    sphere (radius 0.18 below the ceiling, the ceiling light's radiance):
+    a tessellated sphere whose NEE samples its cone."""
+    d = mi.cornell_box(width, height, max_depth=max_depth)
+    d["integrator"] = {"type": integrator, "max_depth": max_depth}
+    d["light"] = {"type": "sphere", "center": [0.0, 0.72, 0.0],
+                  "radius": 0.18, "bsdf": {"type": "ref", "id": "white"},
+                  "emitter": {"type": "area", "radiance": {
+                      "type": "rgb", "value": CORNELL_RADIANCE}}}
+    return d
+
+
+def directionalarea_cornell_dict(mi, width: int, height: int,
+                                 max_depth: int, integrator: str = "path"):
+    """``mi.cornell_box`` whose ceiling light is a ``directionalarea``
+    emitter (it lights only along its normal: the light tracer sees it,
+    the path tracer does not), with a disk area light (tessellated) on the
+    back wall."""
+    d = mi.cornell_box(width, height, max_depth=max_depth)
+    d["integrator"] = {"type": integrator, "max_depth": max_depth}
+    d["light"] = dict(d["light"], emitter={
+        "type": "directionalarea",
+        "radiance": {"type": "rgb", "value": CORNELL_RADIANCE}})
+    d["fill"] = {"type": "disk",
+                 "to_world": mi.ScalarTransform4f().translate(
+                     [0.0, 0.35, -0.99]).scale(0.25),
+                 "emitter": {"type": "area", "radiance": {
+                     "type": "rgb", "value": [6.0, 6.0, 6.0]}}}
+    return d
+
+
+def projector_irradiance(side: int) -> np.ndarray:
+    """The projector's bitmap: a smooth color pattern with noise, from a
+    seed."""
+    rng = np.random.default_rng(11)
+    y, x = np.mgrid[0:side, 0:side].astype(np.float32) / side
+    img = np.stack([0.6 + 0.4 * np.sin(6.0 * x), 0.6 + 0.4 * np.cos(5.0 * y),
+                    0.5 + 0.3 * np.sin(4.0 * (x + y))], -1)
+    return (img + 0.1 * rng.uniform(size=img.shape)).astype(np.float32)
+
+
+def projector_cornell_dict(mi, width: int, height: int, max_depth: int,
+                           side: int, integrator: str = "path"):
+    """``mi.cornell_box`` lit by a projector under its ceiling (60 degree
+    fov, scale 30) casting a side^2 bitmap onto the floor, in place of the
+    ceiling light."""
+    d = mi.cornell_box(width, height, max_depth=max_depth)
+    d["integrator"] = {"type": integrator, "max_depth": max_depth}
+    del d["light"]
+    d["projector"] = {
+        "type": "projector", "fov": 60.0, "scale": 30.0,
+        "irradiance": {"type": "bitmap", "data": projector_irradiance(side)},
+        "to_world": mi.ScalarTransform4f().look_at(
+            origin=[0.0, 0.95, 0.2], target=[0.0, -1.0, 0.0],
+            up=[0.0, 0.0, 1.0])}
+    return d
+
+
+def sunsky_dict(make_dict, transform, timed: bool = False, **kw):
+    """`make_dict(transform, **kw)` (a terrain) with its constant
+    environment replaced by ``sunsky`` (turbidity 3) or ``timed_sunsky``
+    (10:30 on the defaults' day and place), beside its directional sun."""
+    d = make_dict(transform, **kw)
+    d["env"] = ({"type": "timed_sunsky", "hour": 10.5, "scale": 2.0}
+                if timed else {"type": "sunsky", "turbidity": 3.0,
+                               "scale": 2.0})
+    return d
+
+
+def z_scene_dict(mi, name: str):
+    """tests/test_regression.py's three Z-test scenes (32^2) as dicts of
+    package `mi`."""
+    if name == "cornell_diffuse":
+        return mi.cornell_box(32, 32, max_depth=4)
+    if name == "cornell_glossy":
+        return glossy_cornell_dict(mi, 32, 32, 4)
+    return fog_cornell_dict(mi, 32, 32, 6)
+
+
+def moment_mean_var(mi, d: dict, spp: int, seed: int, device=None):
+    """tests/test_regression.py:50-62 on the port: the scene under
+    ``{"type": "moment", "nested": <its integrator>}``, rendered; returns
+    (mean RGB, mean XYZ, per-pixel XYZ variance) as numpy arrays."""
+    d = dict(d)
+    d["integrator"] = {"type": "moment", "nested": d.get(
+        "integrator", {"type": "path", "max_depth": 4})}
+    img = mi.render(mi.load_dict(d, device=device), spp=spp,
+                    seed=seed).cpu().numpy()
+    mean_xyz = img[..., 3:6]
+    return img[..., 0:3], mean_xyz, np.maximum(img[..., 6:9]
+                                               - mean_xyz ** 2, 0.0)
+
+
+def _filter_var_factor(radius: float = 2.0):
+    """tests/test_regression.py's variance factor of the Gaussian filter's
+    pixel means, with the port's filter."""
+    import torch
+    from mitsuba3_tpu_torch.render.film import rfilter_eval
+    j = torch.as_tensor((np.arange(4096) + 0.5) / 4096.0, dtype=torch.float32)
+    a = b = 0.0
+    for dd in range(-int(np.ceil(radius)), int(np.ceil(radius)) + 1):
+        w = rfilter_eval("gaussian", dd + 0.5 - j, radius, 0.5).numpy()
+        a += w.mean()
+        b += (w * w).mean()
+    return (b / (a * a)) ** 2
+
+
+def z_test(mean_a, var_a, n_a, mean_ref, var_ref, n_ref, significance=0.01):
+    """tests/test_regression.py's per-pixel two-sample Z-test with Sidak
+    correction (test_renders.py:159-232). Returns (failing pixels,
+    pixels)."""
+    from scipy.ndimage import maximum_filter
+    from scipy.stats import norm
+    c = _filter_var_factor()
+    size = (3, 3, 1)
+    var_a_n = maximum_filter(var_a, size=size)
+    var_ref_n = maximum_filter(var_ref, size=size)
+    spread_a = maximum_filter(mean_a, size=size) - mean_a
+    spread_ref = maximum_filter(mean_ref, size=size) - mean_ref
+    se = np.sqrt(c * ((var_a_n + spread_a ** 2) / n_a
+                      + (var_ref_n + spread_ref ** 2) / n_ref) + 1e-10)
+    p = 2.0 * (1.0 - norm.cdf(np.abs(mean_a - mean_ref) / se))
+    alpha = 1.0 - (1.0 - significance) ** (1.0 / p.size)
+    return int((p < alpha).sum()), int(p.size)
+
+
+def _timed_render(mi, scene, seeds, spp, **kw):
+    """Renders at `seeds` after a warm-up at seed 0: (last image, rays,
+    wall s, peak bytes)."""
+    import torch
+    mi.render_with_stats(scene, seed=0, spp=spp, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rays = 0
+    t0 = time.perf_counter()
+    for seed in seeds:
+        img, r = mi.render_with_stats(scene, seed=seed, spp=spp, **kw)
+        rays += r
+    torch.cuda.synchronize()
+    return img, rays, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+
+
+def _integ_direct_depth(mi, card: str):
+    """`direct` on terrain64k (512^2, 4 spp, one emitter and one BSDF
+    sample, cellserve): a warm-up, a timed and a profiled render, K1's
+    closest and any-hit launches counted from zero, its device ms and
+    bound by CUDA events; then `depth` on the same scene, whose hit pixels
+    must equal an `aov` depth channel of the same seed."""
+    import torch
+    from mitsuba3_tpu_torch.integrators import config_from_dict
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    d = dict(terrain64k_dict(mi.ScalarTransform4f),
+             integrator={"type": "direct"})
+    w = d["sensor"]["film"]["width"]
+    scene = mi.load_dict(d)
+    _check(isinstance(scene.accel, cellserve.CellServe),
+           "direct terrain64k: not cellserve")
+    mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _K1Meter() as meter:
+        t0 = time.perf_counter()
+        img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                         max_wavefront=1 << 20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(cellserve.LAUNCHES)
+    k1 = meter.summary()
+    peak = torch.cuda.max_memory_allocated()
+    _check(launches["closest"] > 0 and launches["anyhit"] > 0,
+           f"direct terrain64k: K1 not launched in both modes: {launches}")
+    _check(all(k1[m]["launches"] == launches[m] for m in launches),
+           f"direct terrain64k: K1 meter {k1} disagrees with {launches}")
+    _check(tuple(img.shape) == (w, w, 3)
+           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           "direct terrain64k: image misshaped, not finite or black")
+    mrays = rays / wall / 1e6
+    print(f"# integrators direct terrain64k 512x512 4spp: {rays} rays in "
+          f"{wall:.3f} s = {mrays:.3f} Mrays/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, mean {float(img.mean()):.6f} [{card}]")
+    for mode, v in k1.items():
+        print(f"# integrators direct K1 {mode}: {v['launches']} launches, "
+              f"{v['device_ms']:.2f} device ms, bound {v['bound_ms']:.3f} ms"
+              f" [{card}]")
+    out = {"scene": "terrain64k 512x512 4spp, direct (1 emitter + 1 BSDF "
+                    "sample), cellserve", "rays": rays, "wall_s": wall,
+           "mrays_per_s": mrays, "peak_bytes": peak,
+           "mean": float(img.mean()), "k1": k1, "k1_launches": launches}
+    _, labels = _accel_kernels("cells")
+    out.update(_profile(lambda: mi.render_with_stats(
+        scene, seed=2, spp=4, max_wavefront=1 << 20), wall, labels))
+
+    depth = scene.replace(integrator=config_from_dict({"type": "depth"}))
+    aov = scene.replace(integrator=config_from_dict(
+        {"type": "aov", "aovs": "dd:depth"}))
+    t0 = time.perf_counter()
+    img_d = mi.render(depth, seed=3, spp=4, max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    img_a = mi.render(aov, seed=3, spp=4, max_wavefront=1 << 20)
+    hit = img_a[..., 0] > 0
+    _check(bool(hit.any()) and all(bool(torch.equal(img_d[..., c][hit],
+                                                    img_a[..., 0][hit]))
+                                   for c in range(3)),
+           "depth terrain64k: hit pixels differ from the aov depth channel")
+    print(f"# integrators depth terrain64k 512x512 4spp: {wall_d:.3f} s, "
+          f"{int(hit.sum())} hit pixels equal to the aov depth channel "
+          f"[{card}]")
+    out["depth"] = {"wall_s": wall_d, "hit_pixels": int(hit.sum()),
+                    "equal_to_aov": True}
+    del scene, depth, aov
+    torch.cuda.empty_cache()
+    return out
+
+
+def _integ_aov(mi, card: str):
+    """`aov` on interior120k: all eight AOVs and a nested `path`
+    (max_depth 4), 20 channels, 256^2, 4 spp, cellserve: a warm-up and a
+    timed render, K1's launches; the last three channels must equal a
+    plain `path` render at the same seed (aov draws no random number)."""
+    import torch
+    from mitsuba3_tpu_torch.integrators import config_from_dict
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    d = interior_dict(mi.ScalarTransform4f, INTERIOR_TRIS)
+    d["integrator"] = {"type": "aov", "aovs": ALL_AOVS,
+                       "integrator": {"type": "path", "max_depth": 4}}
+    w = d["sensor"]["film"]["width"]
+    scene = mi.load_dict(d)
+    mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                     max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cellserve.LAUNCHES)
+    _check(tuple(img.shape) == (w, w, 20)
+           and bool(torch.isfinite(img).all()),
+           f"aov interior120k: image {tuple(img.shape)} not {w}x{w}x20 or "
+           f"not finite")
+    _check(launches["closest"] > 0, f"aov interior120k: K1 closest not "
+           f"launched: {launches}")
+    path = mi.render(scene.replace(integrator=config_from_dict(
+        {"type": "path", "max_depth": 4})), seed=1, spp=4,
+        max_wavefront=1 << 20)
+    diff = float((img[..., 17:] - path).abs().max())
+    _check(bool(torch.equal(img[..., 17:], path)),
+           f"aov interior120k: its RGB differs from path's by {diff}")
+    print(f"# integrators aov interior120k 256x256 4spp (8 AOVs + path, 20 "
+          f"channels): {rays} rays in {wall:.3f} s = "
+          f"{rays / wall / 1e6:.3f} Mrays/s, K1 launches {launches}; RGB "
+          f"equal to path's [{card}]")
+    del scene
+    torch.cuda.empty_cache()
+    return {"scene": "interior120k 256x256 4spp, aov (8 AOVs) + path "
+                     "max_depth 4, cellserve", "channels": 20, "rays": rays,
+            "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
+            "k1_launches": launches, "rgb_equal_to_path": True}
+
+
+def _integ_moment_ptracer(mi, card: str):
+    """bench.py's Cornell (512^2, max_depth 8): `moment` around `path` at
+    INTEG_CORNELL_SPP, whose RGB must equal the `path` render of the same
+    seed; the three Z-tests of tests/test_regression.py through the
+    port's moment against tests/data/ref_*.npz; the light tracer at
+    PTRACER_SPP (wall, light paths/s, peak memory), its per-channel mean
+    within PTRACER_RTOL of the path render's."""
+    import torch
+
+    d = mi.cornell_box(512, 512, max_depth=8)
+    path = mi.load_dict(d)
+    d_m = dict(d, integrator={"type": "moment", "nested": d["integrator"]})
+    moment = mi.load_dict(d_m)
+    t0 = time.perf_counter()
+    img_m = mi.render(moment, seed=1, spp=INTEG_CORNELL_SPP)
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    img_p = mi.render(path, seed=1, spp=INTEG_CORNELL_SPP)
+    _check(tuple(img_m.shape) == tuple(img_p.shape[:2]) + (9,)
+           and bool(torch.equal(img_m[..., :3], img_p)),
+           f"moment cornell: RGB differs from path's by "
+           f"{float((img_m[..., :3] - img_p).abs().max())}")
+    print(f"# integrators moment cornell 512x512 {INTEG_CORNELL_SPP}spp: "
+          f"{wall_m:.3f} s, RGB equal to path's [{card}]")
+    out = {"moment": {"wall_s": wall_m, "rgb_equal_to_path": True}}
+
+    z = {}
+    data = os.path.join(ROOT, "tests", "data")
+    for name in Z_SCENES:
+        ref = np.load(os.path.join(data, f"ref_{name}.npz"))
+        _, mean_xyz, var_xyz = moment_mean_var(
+            mi, z_scene_dict(mi, name), Z_SPP, Z_SEED)
+        fails, n_pix = z_test(mean_xyz, var_xyz, Z_SPP, ref["mean_xyz"],
+                              ref["var_xyz"], Z_REF_SPP)
+        _check(fails <= max(3, n_pix // 500),
+               f"Z-test {name}: {fails} of {n_pix} pixels fail")
+        z[name] = {"fails": fails, "pixels": n_pix}
+    print(f"# integrators Z-tests through moment (32x32, {Z_SPP} spp, seed "
+          f"{Z_SEED}): {z} [{card}]")
+    out["z_tests"] = z
+
+    pt = mi.load_dict(dict(d, integrator={"type": "ptracer",
+                                          "max_depth": 8}))
+    mi.render(pt, seed=0, spp=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img_t = mi.render(pt, seed=1, spp=PTRACER_SPP)
+    torch.cuda.synchronize()
+    wall_t = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    paths = img_t.shape[0] * img_t.shape[1] * PTRACER_SPP
+    m_t = img_t.mean(dim=(0, 1)).cpu().numpy()
+    m_p = img_p.mean(dim=(0, 1)).cpu().numpy()
+    rel = np.abs(m_t / m_p - 1.0)
+    _check(bool(torch.isfinite(img_t).all()) and bool((rel <= PTRACER_RTOL)
+                                                      .all()),
+           f"ptracer cornell: channel means {m_t} not within "
+           f"{PTRACER_RTOL} of path's {m_p}")
+    print(f"# integrators ptracer cornell 512x512 {PTRACER_SPP}spp "
+          f"max_depth 8: {paths} light paths in {wall_t:.3f} s = "
+          f"{paths / wall_t / 1e6:.3f} M paths/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; means {m_t} vs path's {m_p} (rel "
+          f"{rel.max():.4f}) [{card}]")
+    out["ptracer"] = {"light_paths": paths, "wall_s": wall_t,
+                      "mpaths_per_s": paths / wall_t / 1e6,
+                      "peak_bytes": peak, "mean": m_t.tolist(),
+                      "path_mean": m_p.tolist(),
+                      "max_rel_to_path": float(rel.max())}
+    del path, moment, pt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _integ_lights(mi, card: str):
+    """The sphere-lit Cornell's PRB step (512^2, SPHERE_PRB_SPP;
+    em_radiance's gradient finite and nonzero), `path` renders of the
+    directionalarea and projector Cornells (512^2, LIGHTS_SPP; a
+    PROJECTOR_SIDE^2 bitmap), terrain64k under sunsky and timed_sunsky
+    (512^2, 4 spp, K1 launched in both modes)."""
+    import torch
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    out = {}
+    scene = mi.load_dict(_prb_dict(sphere_cornell_dict(mi, 512, 512, 8)))
+    _check(len(scene.em_sphere_slots) == 1, "sphere cornell: no sphere "
+           "emitter slot")
+    names = ("bsdf_params", "em_radiance")
+    _grad_step(scene, names, 0, SPHERE_PRB_SPP, passes=1)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, rays, grads, n_passes = _grad_step(scene, names, 1,
+                                             SPHERE_PRB_SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_grads("sphere cornell prb", grads, ("em_radiance",))
+    print(f"# integrators sphere cornell PRB step 512x512 "
+          f"{SPHERE_PRB_SPP}spp: {rays} forward rays, {wall:.3f} s in "
+          f"{n_passes} passes [{card}]")
+    out["sphere_cornell_prb"] = {
+        "faces": int((scene.face_shape >= 0).sum()), "forward_rays": rays,
+        "wall_s": wall, "passes": n_passes,
+        "em_radiance_grad": grads["em_radiance"][0].tolist()}
+    del scene
+    for tag, d in (("directionalarea cornell", directionalarea_cornell_dict(
+            mi, 512, 512, 8)), ("projector cornell", projector_cornell_dict(
+            mi, 512, 512, 8, PROJECTOR_SIDE))):
+        img, rays, wall, _ = _timed_render(mi, mi.load_dict(d), (1,),
+                                           LIGHTS_SPP)
+        _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+               f"{tag}: image not finite or black")
+        print(f"# integrators {tag} path 512x512 {LIGHTS_SPP}spp: {rays} "
+              f"rays in {wall:.3f} s = {rays / wall / 1e6:.3f} Mrays/s, "
+              f"mean {float(img.mean()):.6f} [{card}]")
+        out[tag] = {"rays": rays, "wall_s": wall,
+                    "mrays_per_s": rays / wall / 1e6,
+                    "mean": float(img.mean())}
+    for timed in (False, True):
+        tag = "timed_sunsky" if timed else "sunsky"
+        scene = mi.load_dict(sunsky_dict(terrain64k_dict,
+                                         mi.ScalarTransform4f, timed))
+        for k in cellserve.LAUNCHES:
+            cellserve.LAUNCHES[k] = 0
+        img, rays, wall, _ = _timed_render(mi, scene, (1,), 4,
+                                           max_wavefront=1 << 20)
+        launches = dict(cellserve.LAUNCHES)
+        _check(all(v > 0 for v in launches.values()),
+               f"{tag} terrain64k: K1 not launched in both modes: "
+               f"{launches}")
+        _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+               f"{tag} terrain64k: image not finite or black")
+        print(f"# integrators {tag} terrain64k 512x512 4spp: {rays} rays "
+              f"in {wall:.3f} s = {rays / wall / 1e6:.3f} Mrays/s, env "
+              f"{tuple(scene.env_data.shape)}, K1 launches {launches} "
+              f"(warm-up and timed) [{card}]")
+        out[f"{tag} terrain64k"] = {"rays": rays, "wall_s": wall,
+                                    "mrays_per_s": rays / wall / 1e6,
+                                    "k1_launches": launches}
+        del scene
+    torch.cuda.empty_cache()
+    return out
+
+
+def _integ_agreement(mi):
+    """Card against CPU at INTEG_CHECK_SIDE^2 (4 spp, seed 5): direct,
+    aov (every AOV and a nested path), moment and the light tracer on the
+    Cornell box; the sphere, directionalarea (path and light tracer) and
+    projector Cornells; the small terrain under sunsky and timed_sunsky.
+    The light tracer's splat is atomic on the card, so its sums differ in
+    rounding: every image is held to the same tolerance (isclose 1e-3 on
+    > 99.5 % of values, means rtol 1e-3)."""
+    side = INTEG_CHECK_SIDE
+    T = mi.ScalarTransform4f
+
+    def cornell(integrator):
+        return dict(mi.cornell_box(side, side, max_depth=4),
+                    integrator=integrator)
+
+    cases = [
+        ("direct cornell", cornell({"type": "direct"})),
+        ("aov cornell", cornell({"type": "aov", "aovs": ALL_AOVS,
+                                 "integrator": {"type": "path",
+                                                "max_depth": 4}})),
+        ("moment cornell", cornell({"type": "moment", "nested": {
+            "type": "path", "max_depth": 4}})),
+        ("ptracer cornell", cornell({"type": "ptracer", "max_depth": 4})),
+        ("sphere cornell", sphere_cornell_dict(mi, side, side, 4)),
+        ("directionalarea cornell", directionalarea_cornell_dict(
+            mi, side, side, 4)),
+        ("directionalarea cornell ptracer", directionalarea_cornell_dict(
+            mi, side, side, 4, "ptracer")),
+        ("projector cornell", projector_cornell_dict(mi, side, side, 4,
+                                                     side)),
+        ("sunsky small terrain", sunsky_dict(small_terrain_dict, T,
+                                             width=side)),
+        ("timed_sunsky small terrain", sunsky_dict(
+            small_terrain_dict, T, True, width=side))]
+    out = {}
+    for tag, d in cases:
+        with _accel("cells"):
+            img_g = mi.render(mi.load_dict(d), seed=5, spp=4)
+            img_c = mi.render(mi.load_dict(d, device="cpu"), seed=5, spp=4)
+        out[tag] = _agree_images(f"{tag} ({side}x{side}, 4 spp)",
+                                 img_g.cpu().numpy(), img_c.numpy())
+    return out
+
+
+def phase_integrators(mi, card: str):
+    """The other integrators and the new lights on the card (nothing falls
+    back to the CPU): direct and depth on terrain64k, aov on interior120k,
+    moment, the Z-tests and the light tracer on the Cornell box, the
+    sphere, directionalarea and projector Cornells and the sunsky
+    terrains, then the card against the CPU."""
+    out = {}
+    for name, part in (("direct_depth", _integ_direct_depth),
+                       ("aov", _integ_aov),
+                       ("moment_ptracer", _integ_moment_ptracer),
+                       ("lights", _integ_lights),
+                       ("agreement", lambda m, _: _integ_agreement(m))):
+        t0 = time.perf_counter()
+        out[name] = part(mi, card)
+        print(f"# integrators {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(only=None):
-    """The whole smoke test, or with `only` (``--phase media``) the kernel
-    build and that phase alone, without the final line."""
+    """The whole smoke test, or with `only` (``--phase media`` or
+    ``--phase integrators``) the kernel build and that phase alone,
+    without the final line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -3369,10 +3882,11 @@ def main(only=None):
         print(f"# phase {label}: {time.perf_counter() - t:.1f} s")
         return out
 
-    if only == "media":
-        media = timed("media", phase_media, mi, card)
+    if only is not None:
+        phase = {"media": phase_media, "integrators": phase_integrators}[only]
+        result = timed(only, phase, mi, card)
         print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
-        print(json.dumps({"media": media, "card": card}))
+        print(json.dumps({only: result, "card": card}))
         return 0
     rows = timed("kernels K1", phase_kernels, mi, card)
     rows += timed("kernels K2 K3", phase_kernels_serve, mi, card)
@@ -3408,6 +3922,7 @@ def main(only=None):
     scene_files = timed("scene files", phase_scene_files, mi, card)
     textures = timed("textures", phase_textures, mi, card)
     media = timed("media", phase_media, mi, card)
+    integrators = timed("integrators", phase_integrators, mi, card)
     k8_device = timed("K8 device times", phase_k8_device, card)
     rows += timed("kernels K5-K8", lambda: phase_kernels_attic(
         card, k8_device=k8_device))
@@ -3434,6 +3949,7 @@ def main(only=None):
     print(json.dumps({"scene_files": scene_files, "card": card}))
     print(json.dumps({"textures": textures, "card": card}))
     print(json.dumps({"media": media, "card": card}))
+    print(json.dumps({"integrators": integrators, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3444,6 +3960,6 @@ def main(only=None):
 if __name__ == "__main__":
     if sys.argv[1:] == ["--k8-device-ms"]:
         sys.exit(k8_device_main())
-    if sys.argv[1:] == ["--phase", "media"]:
-        sys.exit(main(only="media"))
+    if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3:
+        sys.exit(main(only=sys.argv[2]))
     sys.exit(main())

@@ -17,9 +17,11 @@ triangle scenes (meshes, rectangles, cubes, mesh files) with every
 sampler, sensor and reconstruction filter and the crop window,
 constant-parameter BSDFs (diffuse, conductor, roughconductor, plastic,
 roughplastic, dielectric, thindielectric, roughdielectric, null, mask,
-blendbsdf and twosided), area lights, point, spot and directional lights
-and a constant environment, such as ``cornell_box()``, rendered by the
-``path`` integrator or
+blendbsdf and twosided), area lights (on meshes and tessellated spheres,
+disks and cylinders; cone-sampled on spheres), directionalarea, point,
+spot, directional and projector lights and a constant, image or sun and
+sky environment, such as ``cornell_box()``, rendered by the ``path``,
+``direct``, ``aov``, ``depth``, ``moment`` or ``ptracer`` integrator or
 differentiated by ``prb`` (path replay backpropagation: gradients of the
 scene's tables through ``torch.autograd``); participating media
 (homogeneous and heterogeneous, six phase functions) render under

@@ -8,15 +8,17 @@ medium rows, density grids, phase tables, world->grid affines and the
 faces' media, sensor or a batch sensor's sub-sensors, accel arrays) into
 a flat dict of numpy arrays plus a dict of static fields (among them the
 textures' metadata, the media's and phases' types, the sensor's medium,
-the film with its crop window, the sensor config, the sampler type and
-the integrator's config, a volumetric one's ``max_null_events`` and
-``shadow_segments`` included). It
+the film with its crop window, the sensor config, the sampler type, the
+sphere emitters' and directionalarea emitters' slots and the
+integrator's config, a volumetric one's ``max_null_events`` and
+``shadow_segments`` and the nested config of a ``moment`` or an ``aov``
+included, as specs ``integrators.config_from_dict`` reads). The sphere
+emitters' cone rows (``em_sphere``) are an array like the others. It
 takes a JAX ``Scene`` or a port ``Scene`` alike, by attribute names, and
 imports nothing of JAX.
 ``scene_from_arrays`` builds the port's ``Scene`` from them on a device.
-Sphere emitters' cone-sampling rows (the JAX ``em_sphere``) and a
-specfilm's response functions (``srfs``) are not ported: a scene that has
-them is refused.
+A specfilm's response functions (``srfs``) are not ported: a scene that
+has them is refused.
 
 The accel is None for the dense all-triangles test (kind ``"dense"``,
 no arrays), or one of cellserve (``MI3T_ACCEL`` auto or cells), bvh_serve
@@ -41,7 +43,8 @@ import torch
 
 from . import bsdfs
 from .core.distr2d import SlicedMarginal2D
-from .integrators import config_from_dict
+from . import emitters
+from .integrators import config_from_dict, config_to_dict
 from .ops.attic.bvh2 import BVH2
 from .ops.attic.bvh_pallas import BVHData
 from .ops.bvh_serve import BVHServe
@@ -55,7 +58,8 @@ SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
                 "face_emitter", "face_inv_total_area", "face_uv",
                 "face_normals", "face_colors", "em_radiance", "ef_face",
                 "ef_cdf", "env_data", "env_scale", "bsdf_params",
-                "de_params", "medium_params", "medium_to_grid", "face_medium")
+                "de_params", "medium_params", "medium_to_grid", "face_medium",
+                "em_sphere")
 TUPLES = ("medium_grids", "phase_tables")   # tuples of arrays
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
 SENSOR_ARRAYS = ("origin", "axis_x", "axis_y", "axis_z", "tan_half_x",
@@ -76,7 +80,8 @@ ATTIC = ("pallas", "bvh2")   # standalone accels only: no scene holds one
 SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
               "delta_emitter_types", "bsdf_types", "bsdf_flags",
               "adapter_max_depth", "spp", "sampler_type", "texture_meta",
-              "medium_types", "phase_types", "sensor_medium")
+              "medium_types", "phase_types", "sensor_medium",
+              "em_sphere_slots", "em_directional")
 
 
 def _np(x):
@@ -107,9 +112,6 @@ def pack_occupancy(occ, n_groups: int) -> np.ndarray:
 def arrays_from_scene(scene):
     """(arrays, meta) of `scene`: arrays maps dotted leaf names to numpy
     arrays, meta holds the static fields."""
-    if getattr(scene, "em_sphere", None) is not None:
-        raise NotImplementedError(
-            "sphere emitters (em_sphere) are not ported to mitsuba3_tpu_torch")
     if getattr(scene.film, "srfs", ()):
         raise NotImplementedError(
             "specfilm response functions (srfs) are not ported to "
@@ -137,7 +139,9 @@ def arrays_from_scene(scene):
         else accel_arrays(scene.accel)
     arrays.update({f"accel.{name}": a for name, a in acc_arrays.items()})
 
-    meta = {name: getattr(scene, name) for name in SCENE_META}
+    meta = {name: tuple(getattr(scene, name)) if name in (
+        "em_sphere_slots", "em_directional") else getattr(scene, name)
+        for name in SCENE_META}
     meta["texture_meta"] = tuple(
         (str(w), str(f), bool(mip), tuple(float(x) for x in extra))
         for w, f, mip, extra in scene.texture_meta)
@@ -145,8 +149,7 @@ def arrays_from_scene(scene):
     meta["sensor_config"] = _fields(scene.sensor_config, SensorConfig)
     # the fields of the port's config of that type (a volumetric one's
     # max_null_events and shadow_segments), not a JAX config's others
-    meta["integrator"] = _fields(scene.integrator, type(config_from_dict(
-        {"type": scene.integrator.type})))
+    meta["integrator"] = config_to_dict(scene.integrator)
     meta["accel"] = acc_meta
     return arrays, meta
 
@@ -219,7 +222,7 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
     else:
         sensor = SensorData(**group("sensor", SENSOR_ARRAYS))
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
-    for name in ("de_params", "face_colors", "face_medium"):
+    for name in ("de_params", "face_colors", "face_medium", "em_sphere"):
         leaves.setdefault(name, None)
     for name in TUPLES:
         leaves[name] = tuple(t(f"{name}.{i}") for i in range(sum(
@@ -243,6 +246,9 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
             meta["bsdf_types"], rows, np.asarray(arrays["face_bsdf"])[
                 np.asarray(arrays["face_shape"]) >= 0]),
         **{name: meta[name] for name in SCENE_META},
+        projector_textures=emitters.projector_textures(
+            meta["delta_emitter_types"], np.asarray(arrays.get(
+                "de_params", np.zeros((0, emitters.DE_ROW), np.float32)))),
         film=FilmConfig(**meta["film"]),
         sensor_config=sensor_cfg,
         integrator=config_from_dict(meta["integrator"]))

@@ -1,6 +1,7 @@
 """Warp library — counterpart of ``mitsuba3_tpu/core/warp.py`` (the
 cosine-hemisphere warp the diffuse BSDF samples with, the uniform sphere
-of the isotropic phase function).
+of the isotropic phase function, the uniform cone of a sphere light's
+NEE).
 
 Functions take and return SoA ``Vec2``/``Vec3`` of ``[N]`` tensors, like
 the JAX package's ``*_v`` variants.
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .math import InvPi, Pi, TwoPi, safe_div, safe_sqrt
+from .math import InvPi, InvTwoPi, Pi, TwoPi, safe_div, safe_sqrt, sqr
 from .vec import Vec2, Vec3
 
 
@@ -43,3 +44,18 @@ def square_to_uniform_sphere(s: Vec2) -> Vec3:
     r = safe_sqrt(1.0 - z * z)
     phi = TwoPi * s.x
     return Vec3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def square_to_uniform_cone(s: Vec2, cos_cutoff) -> Vec3:
+    """Uniform direction in the cone around +z with cos(theta) >=
+    cos_cutoff (warp.h)."""
+    cos_theta = 1.0 - (1.0 - cos_cutoff) * s.y
+    sin_theta = safe_sqrt(1.0 - sqr(cos_theta))
+    phi = TwoPi * s.x
+    return Vec3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                cos_theta)
+
+
+def square_to_uniform_cone_pdf(v: Vec3, cos_cutoff):
+    return torch.where(v.z >= cos_cutoff, InvTwoPi / (1.0 - cos_cutoff),
+                       0.0)

@@ -1,9 +1,11 @@
 """Emitter plugins — counterpart of ``mitsuba3_tpu/emitters/__init__.py``.
 
-The environment emitter is the scene-level constant map
-(``emitters/envmap.py``); delta emitters are rows of ``scene.de_params``.
-The port carries point, spot and directional emitters; the projector
-is not ported.
+Area emitters (``area`` and ``directionalarea``) live on scene faces
+(``face_emitter`` and ``em_radiance``; a sphere's also in ``em_sphere``
+for cone sampling); the environment emitter is the scene-level map
+(``emitters/envmap.py``: constant, envmap, and ``sunsky``/``timed_sunsky``
+baked by ``emitters/sunsky.py``); delta emitters (point, spot,
+directional, projector) are rows of ``scene.de_params``.
 """
 
 # delta emitter type ids (static `delta_emitter_types` entries)
@@ -18,3 +20,12 @@ PROJECTOR = 3
 #   [12] texture slot + 1 (projector), [13:16] axis_x, [16:19] axis_y,
 #   [19] tan(fov/2) (projector)
 DE_ROW = 20
+
+
+def projector_textures(de_types, de_rows) -> tuple:
+    """The texture ids (k + 1 for ``scene.textures[k]``) that the projector
+    rows of ``de_params`` name, sorted: the textures a delta-emitter
+    lookup can reach."""
+    return tuple(sorted({int(round(float(row[12])))
+                         for t, row in zip(de_types, de_rows)
+                         if t == PROJECTOR and round(float(row[12])) > 0}))

@@ -2,10 +2,14 @@
 for the plugins the port carries:
 
 - ``mesh`` shapes given as ``vertices``/``faces`` arrays (with optional
-  per-vertex ``uvs`` and shading ``normals``), ``rectangle``, ``cube``
-  and the mesh files ``obj``, ``ply`` and ``serialized``, each with a
-  BSDF (inline, named at the top level, or a ``ref`` to a named one) and
-  optionally an ``area`` emitter of constant radiance;
+  per-vertex ``uvs`` and shading ``normals``), ``rectangle``, ``cube``,
+  the mesh files ``obj``, ``ply`` and ``serialized``, and the
+  tessellated ``sphere``, ``disk`` and ``cylinder`` (where the JAX loader
+  tessellates them: an emitter attached, ``flip_normals``, or a to_world
+  that is not rigid with a uniform scale), each with a BSDF (inline,
+  named at the top level, or a ``ref`` to a named one) and optionally an
+  ``area`` or ``directionalarea`` emitter of constant radiance (a
+  sphere's also in ``em_sphere``, cone-sampled by NEE);
 - the BSDFs ``diffuse``, ``conductor``, ``roughconductor``, ``plastic``,
   ``roughplastic``, ``dielectric``, ``thindielectric``,
   ``roughdielectric``, ``null``, ``mask``, ``blendbsdf``, ``normalmap``
@@ -20,8 +24,11 @@ for the plugins the port carries:
   ``opacity`` and a blendbsdf's ``weight`` from a bitmap or a
   checkerboard; a normalmap's or bumpmap's texture (read raw); with the
   textures' metadata and, for ``mipmap`` bitmaps, their mip levels;
-- ``point``, ``spot`` and ``directional`` emitters and a ``constant`` or
-  ``envmap`` environment (an image file or a ``data`` array);
+- ``point``, ``spot``, ``directional`` and ``projector`` emitters (a
+  projector's irradiance a color, a ``bitmap`` or a ``checkerboard``) and
+  a ``constant``, ``envmap`` (an image file or a ``data`` array),
+  ``sunsky`` or ``timed_sunsky`` environment (``emitters/sunsky.py``,
+  baked into an envmap at load);
 - the sensors ``perspective``, ``thinlens``, ``orthographic``,
   ``radiancemeter``, ``irradiancemeter``, ``distant`` and ``batch`` (of
   perspective, thinlens and orthographic sub-sensors), with an ``hdrfilm``
@@ -40,8 +47,9 @@ for the plugins the port carries:
   ``interior_medium``/``exterior_medium``) and as a sensor's ``medium``;
   the rows, grids, phase tables and world->grid affines are the JAX
   loader's;
-- the ``path``, ``prb``, ``volpath``, ``volpathmis`` and ``prbvolpath``
-  integrators;
+- the ``path``, ``prb``, ``volpath``, ``volpathmis``, ``prbvolpath``,
+  ``direct``, ``aov``, ``depth``, ``moment`` and ``ptracer`` integrators
+  (an ``aov``'s and a ``moment``'s nested integrator among them);
 - scenes of at most 8192 faces keep the dense all-triangles test
   (``accel`` None, ``ops/intersect.py``); above that, the accel that
   ``MI3T_ACCEL`` names, as the JAX package reads it: ``auto`` (the
@@ -49,9 +57,11 @@ for the plugins the port carries:
   device, ``serve`` gives ``bvh_serve`` and ``tiled`` gives ``bvh_tiled``;
   ``xla``, ``grid`` and ``none`` are not ported.
 
-Any other plugin raises ``NotImplementedError`` naming it: among them a
-``specfilm``, a batch sensor's ``medium``, an rfilter's parameters (which the
-JAX package ignores), the ``blackbody``, ``regular`` and ``irregular``
+Any other plugin raises ``NotImplementedError`` naming it: among them an
+analytic sphere, disk or cylinder, the ``stokes``, ``volprim_rf_basic``,
+``prb_projective`` and ``direct_projective`` integrators, a ``specfilm``,
+a batch sensor's ``medium``, an rfilter's parameters (which the JAX
+package ignores), the ``blackbody``, ``regular`` and ``irregular``
 spectra, a textured parameter outside ``TEXTURED`` (principled's
 ``base_color`` among them) and an image format that ``utils/image_io.py``
 does not read. XML scene files lower to the same dicts
@@ -74,6 +84,7 @@ from . import shapes as shapes_pkg
 from . import sensors as sensors_pkg
 from .core.transform import as_transform
 from .emitters import envmap as env_mod
+from .emitters import sunsky
 from .integrators import config_from_dict as integrator_from_dict
 from .integrators.path import PathConfig
 from .ops import bvh_serve, bvh_tiled, cellserve
@@ -156,14 +167,21 @@ PHASE_KEYS = {"isotropic": ("type",), "hg": ("type", "g"),
               "rayleigh": ("type",), "sggx": ("type", "S", "s"),
               "tabphase": ("type", "values"),
               "blendphase": ("type", "weight")}
-INTEGRATORS = ("path", "prb", "volpath", "volpathmis", "prbvolpath")
+INTEGRATORS = ("path", "prb", "volpath", "volpathmis", "prbvolpath",
+               "direct", "aov", "depth", "moment", "ptracer")
+_SUNSKY_KEYS = ("type", "turbidity", "sun_scale", "sky_scale", "scale")
 ENV_KEYS = {"constant": ("type", "radiance", "scale"),
-            "envmap": ("type", "filename", "data", "raw", "scale")}
+            "envmap": ("type", "filename", "data", "raw", "scale"),
+            "sunsky": _SUNSKY_KEYS + ("sun_direction",),
+            "timed_sunsky": _SUNSKY_KEYS + ("year", "month", "day", "hour",
+                                            "minute", "second", "latitude",
+                                            "longitude", "timezone")}
 DELTA_KEYS = {
     "point": ("type", "position", "intensity", "to_world"),
     "spot": ("type", "position", "direction", "intensity", "to_world",
              "cutoff_angle", "beam_width"),
     "directional": ("type", "direction", "irradiance", "to_world"),
+    "projector": ("type", "irradiance", "scale", "fov", "to_world"),
 }
 
 
@@ -607,13 +625,47 @@ def _sensor(spec: dict, dev):
             build(spec, film.full_width, film.full_height, dev))
 
 
-def _delta_row(espec: dict):
-    """Lower a point, spot or directional emitter -> (type id, de_params
-    row), as the JAX loader does. A ``to_world`` places a point or spot
-    light at its image of the origin (``position`` is then ignored) and
-    gives a spot or directional emitter its +z axis."""
+def _projector_row(espec: dict, textures: list):
+    """Lower a projector (projector.cpp) -> its de_params row, as the JAX
+    loader does: the position and the unit x, y, z axes of its to_world,
+    the irradiance (a color times ``scale``, or ``scale`` and a bitmap or
+    checkerboard appended to `textures`, its index + 1 in [12]) and
+    tan(fov / 2)."""
+    row = np.zeros(em_pkg.DE_ROW, np.float32)
+    tw = espec.get("to_world")
+    if tw is not None:
+        mtx = as_transform(tw).matrix
+        row[0:3] = mtx[:3, 3]
+        row[13:16] = mtx[:3, 0] / max(np.linalg.norm(mtx[:3, 0]), 1e-12)
+        row[16:19] = mtx[:3, 1] / max(np.linalg.norm(mtx[:3, 1]), 1e-12)
+        row[6:9] = mtx[:3, 2] / max(np.linalg.norm(mtx[:3, 2]), 1e-12)
+    else:
+        row[13:16] = [1, 0, 0]
+        row[16:19] = [0, 1, 0]
+        row[6:9] = [0, 0, 1]
+    row[3:6] = float(espec.get("scale", 1.0))
+    irr = espec.get("irradiance")
+    if isinstance(irr, dict) and irr.get("type") in _IMAGE_TEXTURES:
+        textures.append(load_texture_spec(irr))
+        row[12] = len(textures)
+    elif isinstance(irr, dict) and irr.get("type") in _TEXTURE_TYPES:
+        raise _not_ported(f"a {irr['type']} texture as a projector's "
+                          f"irradiance")
+    elif irr is not None:
+        row[3:6] = _rgb(irr, (1, 1, 1)) * float(espec.get("scale", 1.0))
+    row[19] = np.tan(np.deg2rad(float(espec.get("fov", 45.0))) / 2)
+    return row
+
+
+def _delta_row(espec: dict, textures: list):
+    """Lower a point, spot, directional or projector emitter -> (type id,
+    de_params row), as the JAX loader does. A ``to_world`` places a point
+    or spot light at its image of the origin (``position`` is then
+    ignored) and gives a spot or directional emitter its +z axis."""
     etype = espec["type"]
     _check_keys(espec, DELTA_KEYS[etype], f"{etype} emitter")
+    if etype == "projector":
+        return em_pkg.PROJECTOR, _projector_row(espec, textures)
     row = np.zeros(em_pkg.DE_ROW, np.float32)
     tw = espec.get("to_world")
     tw = as_transform(tw) if tw is not None else None
@@ -661,11 +713,30 @@ def _accel_builder():
 
 
 def _area_radiance(espec: dict) -> np.ndarray:
-    """The radiance row of a shape's ``area`` emitter."""
-    if espec.get("type") != "area":
+    """The radiance row of a shape's ``area`` or ``directionalarea``
+    emitter."""
+    if espec.get("type") not in ("area", "directionalarea"):
         raise _not_ported(f"shape emitter type {espec.get('type')!r}")
-    _check_keys(espec, ("type", "radiance"), "area emitter")
+    _check_keys(espec, ("type", "radiance"), f"{espec['type']} emitter")
     return _rgb(espec.get("radiance"), (1, 1, 1))
+
+
+def _env_data(env_spec: dict) -> np.ndarray:
+    """The environment's [H, W, 3] radiance map, as the JAX loader makes
+    it."""
+    etype = env_spec["type"]
+    if etype == "constant":
+        rad = _rgb(env_spec.get("radiance"), (1.0, 1.0, 1.0))
+        return np.broadcast_to(rad, (4, 8, 3)).astype(np.float32)
+    if etype == "sunsky":
+        return sunsky.build_sunsky_envmap(env_spec)
+    if etype == "timed_sunsky":
+        return sunsky.build_timed_sunsky_envmap(env_spec)
+    if "filename" in env_spec or "data" in env_spec:
+        return load_texture_spec({"type": "bitmap", **{
+            k: v for k, v in env_spec.items()
+            if k in ("filename", "data", "raw")}}).data
+    return np.ones((4, 8, 3), np.float32)
 
 
 def _emitter_sampling(em_faces, em_areas, n_faces: int, n_emitters: int):
@@ -772,6 +843,7 @@ def load_dict(d: dict, device=None) -> Scene:
     all_verts, all_faces, face_uv, face_ns, face_vc = [], [], [], [], []
     face_shape, face_bsdf, face_emitter, face_medium = [], [], [], []
     em_radiance, em_faces, em_areas = [], [], []
+    em_sphere, em_directional = [], []   # per area emitter; its slots
     v_off = f_off = 0
     any_colors = False
     for s_idx, spec in enumerate(shape_items):
@@ -785,6 +857,9 @@ def load_dict(d: dict, device=None) -> Scene:
             em_radiance.append(_area_radiance(spec["emitter"]))
             em_faces.append(list(range(f_off, f_off + nf)))
             em_areas.append(mesh.face_areas())
+            if spec["emitter"]["type"] == "directionalarea":
+                em_directional.append(e_idx)
+            em_sphere.append(shapes_pkg.sphere_center_radius(spec))
         all_verts.append(mesh.vertices)
         all_faces.append(mesh.faces + v_off)
         face_uv.append(mesh.uvs[mesh.faces] if mesh.uvs is not None
@@ -823,7 +898,7 @@ def load_dict(d: dict, device=None) -> Scene:
 
     # emitter slots: [area emitters][delta emitters][environment]
     n_area = len(em_radiance)
-    lowered = [_delta_row(e) for e in delta_specs]
+    lowered = [_delta_row(e, textures) for e in delta_specs]
     de_types = tuple(tid for tid, _ in lowered)
     de_rows = [row for _, row in lowered]
     n_delta = len(de_rows)
@@ -831,15 +906,7 @@ def load_dict(d: dict, device=None) -> Scene:
     env_index = n_area + n_delta if has_env else -1
     n_emitters = n_area + n_delta + (1 if has_env else 0)
     if has_env:
-        if env_spec["type"] == "constant":
-            rad = _rgb(env_spec.get("radiance"), (1.0, 1.0, 1.0))
-            env_data = np.broadcast_to(rad, (4, 8, 3)).astype(np.float32)
-        elif "filename" in env_spec or "data" in env_spec:
-            env_data = load_texture_spec({"type": "bitmap", **{
-                k: v for k, v in env_spec.items()
-                if k in ("filename", "data", "raw")}}).data
-        else:
-            env_data = np.ones((4, 8, 3), np.float32)
+        env_data = _env_data(env_spec)
         env_scale = float(env_spec.get("scale", 1.0))
         # the environment holds an em_radiance slot too (unused for eval)
         em_radiance.append(np.zeros(3, np.float32))
@@ -914,6 +981,14 @@ def load_dict(d: dict, device=None) -> Scene:
         medium_to_grid=t(np.stack(medium_to_grids, 0) if medium_to_grids
                          else np.zeros((0, 3, 4), np.float32)),
         face_medium=t(face_medium),
+        em_sphere=(t(np.stack([r if r is not None
+                               else np.zeros(4, np.float32)
+                               for r in em_sphere], 0))
+                   if any(r is not None for r in em_sphere) else None),
+        em_sphere_slots=tuple(i for i, r in enumerate(em_sphere)
+                              if r is not None),
+        em_directional=tuple(em_directional),
+        projector_textures=em_pkg.projector_textures(de_types, de_rows),
         medium_types=tuple(medium_types),
         phase_types=tuple(phase_types),
         sensor_medium=sensor_medium,

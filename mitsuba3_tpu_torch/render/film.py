@@ -134,9 +134,16 @@ def splat_ordered(film: FilmConfig, jitter, values, sppc: int, h_local: int,
     Returns (image [h_local + 2*halo, w, C], weight [h_local + 2*halo, w]).
     Horizontal spill is clipped (border discard, like the reference's
     film border). Differentiable in `values`: each filter tap is a
-    per-pixel sum placed on the canvas by an out-of-place pad."""
+    per-pixel sum placed on the canvas by an out-of-place pad. A pixel's
+    samples are added one by one in sample order, so a channel's sums do
+    not depend on how many channels `values` has (a reduction kernel's
+    order on the card does): aov's and moment's RGB equal path's."""
     def per_pixel(x):
-        return x.reshape(h_local, w, sppc, -1).sum(dim=2)
+        x = x.reshape(h_local, w, sppc, -1)
+        out = x[:, :, 0]
+        for k in range(1, sppc):
+            out = out + x[:, :, k]
+        return out
 
     if film.rfilter == "box":
         return per_pixel(values), torch.full(

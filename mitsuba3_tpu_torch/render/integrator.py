@@ -18,8 +18,8 @@ import torch
 
 from .. import sensors
 from ..core.random import M32
-from ..core.vec import Vec2
-from ..integrators import get_integrator
+from ..core.vec import Vec2, Vec3
+from ..integrators import get_integrator, n_channels
 from . import film as film_mod
 from . import sampler as sampler_mod
 
@@ -72,11 +72,12 @@ def _gen_camera_rays(scene, seed_value: int, sppc: int, pass_idx: int,
 
 
 def _finalize_splat(scene, L, jitter, sppc: int):
-    """Splat one pass onto the film. Returns (image [H, W, 3], weight
-    [H, W])."""
+    """Splat one pass onto the film. Returns (image [H, W, C], weight
+    [H, W]); L is a Vec3 or an [N, C] tensor (aov, moment)."""
     w, h = scene.film.width, scene.film.height
     halo = film_mod.halo_rows(scene.film)
-    image, weight = film_mod.splat_ordered(scene.film, jitter, L.to_array(),
+    values = L.to_array() if isinstance(L, Vec3) else L
+    image, weight = film_mod.splat_ordered(scene.film, jitter, values,
                                            sppc, h, w)
     return image[halo:halo + h], weight[halo:halo + h]
 
@@ -105,12 +106,14 @@ def plan_passes(scene, spp=None, max_wavefront=1 << 19):
 
 
 def render_with_stats(scene, seed=0, spp=None, max_wavefront=1 << 19):
-    """Forward render -> (image [H, W, 3] on the scene's device, total
-    ray-query count as an int). Under ``prb`` the image carries autograd
-    history to any parameter table of `scene` that requires grad."""
+    """Forward render -> (image [H, W, C] on the scene's device, C = 3 but
+    under aov and moment, total ray-query count as an int). Under ``prb``
+    the image carries autograd history to any parameter table of `scene`
+    that requires grad."""
     sppc, n_passes = plan_passes(scene, spp, max_wavefront)
     w, h = scene.film.width, scene.film.height
-    image = torch.zeros((h, w, 3), dtype=torch.float32, device=scene.device)
+    image = torch.zeros((h, w, n_channels(scene.integrator)),
+                        dtype=torch.float32, device=scene.device)
     weight = torch.zeros((h, w), dtype=torch.float32, device=scene.device)
     rays = 0
     for i in range(n_passes):
@@ -125,5 +128,11 @@ def render_with_stats(scene, seed=0, spp=None, max_wavefront=1 << 19):
 
 
 def render(scene, seed=0, spp=None, max_wavefront=1 << 19):
-    """Forward render -> developed image [H, W, 3] (mi.render)."""
+    """Forward render -> developed image [H, W, C] (mi.render). The light
+    tracer splats to the film itself (``ptracer.render_ptracer``), at
+    `spp` or 16 light paths per pixel of the full film, as the JAX
+    package's ``render`` sends it."""
+    if scene.integrator.type == "ptracer":
+        from ..integrators.ptracer import render_ptracer
+        return render_ptracer(scene, seed=seed, spp=spp or 16)
     return render_with_stats(scene, seed, spp, max_wavefront)[0]

@@ -73,6 +73,9 @@ class SurfaceInteraction:
         sgn = torch.where(self.n.dot(d) >= 0.0, eps, -eps)
         return self.p + self.n * sgn
 
+    def spawn_ray(self, d: Vec3) -> Ray:
+        return Ray.make(self.offset_p(d), d)
+
     def spawn_ray_to(self, p: Vec3) -> Ray:
         """Shadow ray toward p with maxt short of the endpoint."""
         o = self.offset_p(p - self.p)

@@ -64,7 +64,20 @@ def seed(seed_value: int, sample_idx, pixel_id, spp: int,
     hash of the structured samplers."""
     if stype not in TYPES:
         raise ValueError(f"unknown sampler type {stype!r}")
-    key = (mul_spp(pixel_id, spp) + sample_idx) & M32
+    return _seeded(seed_value, (mul_spp(pixel_id, spp) + sample_idx) & M32,
+                   sample_idx, pixel_id, spp, stype, base_seed)
+
+
+def seed_lanes(seed_value: int, n: int, device) -> Sampler:
+    """The anonymous seeding of JAX's ``seed(seed, n)`` (no sample index or
+    pixel id), as the light tracer seeds its paths: an independent sampler
+    whose streams are keyed by the lane index."""
+    key = torch.arange(n, dtype=torch.int64, device=device)
+    return _seeded(seed_value, key, None, None, 0, "independent", 0)
+
+
+def _seeded(seed_value, key, sample_idx, pixel_id, spp: int, stype: str,
+            base_seed: int) -> Sampler:
     v0, v1 = sample_tea_32(torch.full_like(key, int(seed_value) & M32), key)
     zeros = torch.zeros_like(v0)
     rng = PCG32.seed(zeros, v0, zeros, v1)

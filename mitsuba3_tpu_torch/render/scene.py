@@ -1,7 +1,8 @@
 """Scene: flat SoA tables + dispatch hub — counterpart of
 ``mitsuba3_tpu/render/scene.py`` (the parts a triangle scene with the
-port's BSDFs and textures, area lights, point, spot and directional
-lights, an environment map and participating media reaches).
+port's BSDFs and textures, area lights (cone-sampled on spheres,
+directionalarea), point, spot, directional and projector lights, an
+environment map and participating media reaches).
 
 The JAX Scene's static fields are plain fields here; the per-face
 attribute table is built once from the leaves when the Scene is made. A
@@ -17,6 +18,7 @@ import torch
 
 from .. import emitters as em_pkg
 from ..core import math as m
+from ..core import warp
 from ..core.distr import pick
 from ..core.frame import Frame
 from ..core.gather import take_rows
@@ -27,6 +29,7 @@ from ..ops import bvh_serve, bvh_tiled, cellserve
 from ..ops import intersect as ops_intersect
 from ..render.film import FilmConfig
 from ..sensors import SensorConfig, SensorData
+from . import texture as tex_mod
 from .records import (DirectionSample, PreliminaryIntersection, Ray,
                       SurfaceInteraction)
 
@@ -95,6 +98,14 @@ class Scene:
     medium_types: tuple = ()
     phase_types: tuple = ()
     sensor_medium: int = -1           # the camera rays' medium
+    # sphere area emitters: (cx, cy, cz, r) per area emitter (r = 0 for
+    # the others), None without one; NEE cone-samples those slots
+    em_sphere: torch.Tensor | None = None
+    em_sphere_slots: tuple = ()
+    em_directional: tuple = ()        # directionalarea emitter slots
+    # texture ids (k + 1) the projector rows of de_params name
+    # (emitters.projector_textures; update() redoes it)
+    projector_textures: tuple = ()
     # static configuration
     n_emitters: int = 0
     n_area_emitters: int = 0
@@ -341,8 +352,61 @@ class Scene:
         pdf_sa = m.safe_div(a[A_INV_AREA] / e_total * dist2, cos_emitter)
         pdf_sa = torch.where(cos_emitter > 0.0, pdf_sa, 0.0)
         em_idx = torch.round(a[A_EMITTER]).to(torch.int32)
-        return (d, p, ng, pdf_sa, self.gather_em_radiance(em_idx), em_idx,
-                m.safe_sqrt(dist2), Vec2(b1, b2), face)
+        radiance = self.gather_em_radiance(em_idx)
+        # NEE toward a directionalarea emitter contributes 0: it emits
+        # along its normal only (directionalarea.cpp)
+        for slot in self.em_directional:
+            radiance = radiance.mask(em_idx != slot)
+        dist = m.safe_sqrt(dist2)
+        if self.em_sphere_slots:
+            cone = self._sample_sphere_cone(si.p, em_idx, sample2, e_total)
+            use, d_c, p_c, ng_c, dist_c, pdf_c = cone
+            d = Vec3.where(use, d_c, d)
+            p = Vec3.where(use, p_c, p)
+            ng = Vec3.where(use, ng_c, ng)
+            dist = torch.where(use, dist_c, dist)
+            pdf_sa = torch.where(use, pdf_c, pdf_sa)
+        return (d, p, ng, pdf_sa, radiance, em_idx, dist, Vec2(b1, b2), face)
+
+    def _sphere_cone(self, ref_p: Vec3, em_idx, e_total: int):
+        """Per lane: (is a sphere emitter's slot seen from outside it,
+        center, radius, |center - ref_p|^2, sin^2 and cos of the cone's
+        half-angle, the cone's NEE pdf)."""
+        sp = take_rows(self.em_sphere,
+                       torch.clamp(em_idx, 0, self.em_sphere.shape[0] - 1))
+        is_sph = torch.zeros_like(em_idx, dtype=torch.bool)
+        for slot in self.em_sphere_slots:
+            is_sph = is_sph | (em_idx == slot)
+        c = Vec3(sp[:, 0], sp[:, 1], sp[:, 2])
+        r_sph = sp[:, 3]
+        dc2 = (c - ref_p).squared_norm()
+        outside = m.safe_sqrt(dc2) > r_sph * 1.0005
+        sin2max = torch.clamp(r_sph * r_sph / torch.clamp(dc2, min=1e-20),
+                              0.0, 1.0)
+        cosmax = m.safe_sqrt(1.0 - sin2max)
+        # 2 pi (1 - cos) as sin^2 / (1 + cos), for stability
+        solid = (2.0 * m.Pi) * sin2max / (1.0 + cosmax)
+        pdf = m.safe_div(1.0, e_total * torch.clamp(solid, min=1e-12))
+        return is_sph & outside, c, r_sph, dc2, cosmax, pdf
+
+    def _sample_sphere_cone(self, ref_p: Vec3, em_idx, sample2: Vec2,
+                            e_total: int):
+        """Cone sampling of a sphere emitter's subtended solid angle
+        (sphere.cpp sample_direction): the point lies on the true sphere,
+        which its inscribed tessellation never occludes. Returns (lanes
+        that use it, d, p, n, dist, solid-angle pdf)."""
+        use, c, r_sph, dc2, cosmax, pdf = self._sphere_cone(ref_p, em_idx,
+                                                            e_total)
+        to_c = c - ref_p
+        dir_c = to_c * torch.rsqrt(torch.clamp(dc2, min=1e-20))
+        local = warp.square_to_uniform_cone(sample2, cosmax)
+        d = Frame.from_normal(dir_c).to_world(local)
+        b_half = d.dot(to_c)
+        disc = b_half * b_half - (dc2 - r_sph * r_sph)
+        t_near = b_half - m.safe_sqrt(torch.clamp(disc, min=0.0))
+        p = ref_p + d * t_near
+        ng = (p - c) * m.safe_div(1.0, r_sph)
+        return use, d, p, ng, t_near, pdf
 
     def _sample_emitter_core(self, si, sample1, sample2: Vec2):
         """The unit interval of `sample1` is split into the area emitters'
@@ -464,6 +528,28 @@ class Scene:
             falloff = torch.where(cos_theta > r[9],
                                   torch.clamp(beam, min=0.0), 0.0)
             rad = Vec3.where(t == em_pkg.SPOT, rad * falloff, rad)
+        if em_pkg.PROJECTOR in types:
+            # projector.cpp: the emitter-space direction maps to film uv
+            # through tan(fov / 2); the irradiance texture (row [12], id
+            # + 1; 0 = white) is looked up bilinearly with repeat wrap
+            ax_x = Vec3(r[13], r[14], r[15])
+            ax_y = Vec3(r[16], r[17], r[18])
+            tanf = torch.clamp(r[19], min=1e-6)
+            dl = -d
+            lz = torch.clamp(dl.dot(axis), min=1e-6)
+            lx = dl.dot(ax_x) / (lz * tanf)
+            ly = dl.dot(ax_y) / (lz * tanf)
+            inside = ((lx.abs() <= 1.0) & (ly.abs() <= 1.0)
+                      & (dl.dot(axis) > 0.0))
+            uv = Vec2((lx + 1.0) * 0.5, (ly + 1.0) * 0.5)
+            one = torch.ones_like(lz)
+            tex_rgb = Vec3(one, one, one)
+            tex_id = torch.round(r[12]).to(torch.int32)
+            for kk in self.projector_textures:
+                val = tex_mod.eval_bilinear(self.textures[kk - 1], uv)
+                tex_rgb = Vec3.where(tex_id == kk, val, tex_rgb)
+            proj = (rad * tex_rgb).mask(inside)
+            rad = Vec3.where(t == em_pkg.PROJECTOR, proj, rad)
         return d, p, -d, rad, dist
 
     def pdf_emitter_direction_hit(self, prev_p: Vec3, si: SurfaceInteraction,
@@ -479,8 +565,14 @@ class Scene:
         pdf_area = attrs["inv_total_area"] / max(self.n_emitters, 1)
         pdf_sa = m.safe_div(pdf_area * dist2, cos_emitter)
         pdf_sa = torch.where(cos_emitter > 0.0, pdf_sa, 0.0)
-        emissive = attrs["emitter"] >= 0
-        return torch.where(emissive & si.is_valid(), pdf_sa, 0.0)
+        em_idx = attrs["emitter"]
+        if self.em_sphere_slots:
+            # NEE cone-samples sphere emitters seen from outside: the MIS
+            # pdf of a BSDF hit on one is the cone's density
+            use, *_, pdf_cone = self._sphere_cone(
+                prev_p, em_idx, max(self.n_emitters, 1))
+            pdf_sa = torch.where(use, pdf_cone, pdf_sa)
+        return torch.where((em_idx >= 0) & si.is_valid(), pdf_sa, 0.0)
 
     def pdf_emitter_direction_miss(self, d: Vec3):
         """Solid-angle NEE pdf for a ray that escaped to the environment."""
@@ -494,6 +586,10 @@ class Scene:
             return Vec3.zeros(si.t.shape[0], si.t.device)
         em_idx = attrs["emitter"]
         emissive = (em_idx >= 0) & si.is_valid()
+        # a directionalarea emitter radiates along its exact normal only,
+        # which no sampled ray hits (directionalarea.cpp eval = 0)
+        for slot in self.em_directional:
+            emissive = emissive & (em_idx != slot)
         front = si.wi.z > 0.0
         radiance = self.gather_em_radiance(torch.clamp(em_idx, min=0))
         return radiance.mask(emissive & front)

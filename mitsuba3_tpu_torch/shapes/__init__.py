@@ -1,14 +1,21 @@
 """Host-side shape -> triangle-mesh lowering — counterpart of
 ``mitsuba3_tpu/shapes/__init__.py`` for the in-memory ``mesh`` (with
 optional per-vertex uvs, normals and colors), the ``rectangle``, the
-``cube`` and the mesh files ``obj``, ``ply`` and ``serialized`` (``loaders.py``,
-``serialized_io.py``).
+``cube``, the mesh files ``obj``, ``ply`` and ``serialized`` (``loaders.py``,
+``serialized_io.py``), and the ``sphere``, ``disk`` and ``cylinder``
+tessellations that the JAX loader falls back to when it cannot make the
+shape analytic (an emitter attached, ``flip_normals``, or a to_world that
+is not rigid with a uniform scale; ``analytic`` says which). The analytic
+shapes themselves are not ported.
 
 Shapes become world-space triangle arrays (NumPy, float64) while the scene
 dict is lowered; the loader concatenates them into the scene's face table.
 Canonical geometry matches the reference plugins: the rectangle is
 [-1,1]^2 in the XY plane with a +Z normal (src/shapes/rectangle.cpp), the
-cube [-1,1]^3 with outward normals (src/shapes/cube.cpp).
+cube [-1,1]^3 with outward normals (src/shapes/cube.cpp), the sphere a
+32 x 64 lat-long unit sphere, the disk a 64-gon in the XY plane, the
+cylinder an open 64-gon tube of unit radius over z in [0, 1]. As in the
+JAX package, ``flip_normals`` flips nothing.
 """
 from __future__ import annotations
 
@@ -29,7 +36,11 @@ SHAPE_KEYS = {
     "obj": _COMMON + ("filename",),
     "ply": _COMMON + ("filename",),
     "serialized": _COMMON + ("filename", "shape_index"),
+    "sphere": _COMMON + ("center", "radius", "flip_normals"),
+    "disk": _COMMON + ("flip_normals",),
+    "cylinder": _COMMON + ("radius", "p0", "p1", "flip_normals"),
 }
+IMPLICIT = ("sphere", "disk", "cylinder")
 
 
 class MeshData:
@@ -90,6 +101,110 @@ def make_cube() -> MeshData:
     return MeshData(np.array(verts), np.array(faces, np.int32), np.array(uvs))
 
 
+def make_sphere_mesh(subdiv_theta: int = 32,
+                     subdiv_phi: int = 64) -> MeshData:
+    """Lat-long triangulated unit sphere, its vertices as normals."""
+    th = np.linspace(0.0, np.pi, subdiv_theta + 1)
+    ph = np.linspace(0.0, 2 * np.pi, subdiv_phi, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    verts = np.stack([np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp),
+                      np.cos(tt)], axis=-1).reshape(-1, 3)
+    faces = []
+    for i in range(subdiv_theta):
+        for j in range(subdiv_phi):
+            a = i * subdiv_phi + j
+            b = i * subdiv_phi + (j + 1) % subdiv_phi
+            c = (i + 1) * subdiv_phi + j
+            d = (i + 1) * subdiv_phi + (j + 1) % subdiv_phi
+            if i > 0:
+                faces.append([a, c, b])
+            if i < subdiv_theta - 1:
+                faces.append([b, c, d])
+    return MeshData(verts, np.array(faces, np.int32), normals=verts.copy())
+
+
+def make_disk(subdiv: int = 64) -> MeshData:
+    """Unit disk in the XY plane, +Z normal (src/shapes/disk.cpp); uv is
+    polar (r, phi / 2pi) like the reference parameterization."""
+    angles = np.linspace(0.0, 2 * np.pi, subdiv, endpoint=False)
+    verts = [np.zeros(3)] + [[np.cos(a), np.sin(a), 0.0] for a in angles]
+    uvs = [[0.0, 0.0]] + [[1.0, a / (2 * np.pi)] for a in angles]
+    faces = [[0, 1 + i, 1 + (i + 1) % subdiv] for i in range(subdiv)]
+    n = np.tile([0.0, 0.0, 1.0], (len(verts), 1))
+    return MeshData(np.array(verts), np.array(faces, np.int32),
+                    np.array(uvs), n)
+
+
+def make_cylinder(subdiv: int = 64) -> MeshData:
+    """Open cylinder: unit radius, z in [0, 1], outward normals
+    (src/shapes/cylinder.cpp canonical frame)."""
+    angles = np.linspace(0.0, 2 * np.pi, subdiv, endpoint=False)
+    ring = np.stack([np.cos(angles), np.sin(angles)], axis=-1)
+    zeros, ones = np.zeros((subdiv, 1)), np.ones((subdiv, 1))
+    verts = np.concatenate([np.concatenate([ring, zeros], -1),
+                            np.concatenate([ring, ones], -1)], 0)
+    normals = np.concatenate([np.concatenate([ring, zeros], -1)] * 2, 0)
+    u = angles / (2 * np.pi)
+    uvs = np.concatenate([np.stack([u, np.zeros(subdiv)], -1),
+                          np.stack([u, np.ones(subdiv)], -1)], 0)
+    faces = []
+    for i in range(subdiv):
+        j = (i + 1) % subdiv
+        faces.append([i, j, subdiv + i])
+        faces.append([j, subdiv + j, subdiv + i])
+    return MeshData(verts, np.array(faces, np.int32), uvs, normals)
+
+
+def _uniform_scale(spec: dict):
+    """(4x4 matrix, scale) of the shape's to_world if its columns have one
+    length, else None (the JAX loader's scale test)."""
+    tw = spec.get("to_world")
+    m = np.eye(4) if tw is None else np.asarray(as_transform(tw).matrix,
+                                                np.float64)
+    lens = np.linalg.norm(m[:3, :3], axis=0)
+    s = float(lens.mean())
+    if s <= 0 or np.abs(lens - s).max() > 1e-5 * max(s, 1e-6):
+        return None
+    return m, s
+
+
+def analytic(spec: dict) -> bool:
+    """True where the JAX loader makes a sphere, disk or cylinder an
+    analytic primitive (``_try_analytic``: no emitter, no
+    ``flip_normals``, a rigid uniform-scale to_world, a cylinder of
+    nonzero length): those are not ported. The others are tessellated
+    here as there."""
+    if spec.get("type") not in IMPLICIT or spec.get("emitter") is not None \
+            or spec.get("flip_normals"):
+        return False
+    fit = _uniform_scale(spec)
+    if fit is None:
+        return False
+    m, s = fit
+    rot = m[:3, :3] / s
+    if np.abs(rot.T @ rot - np.eye(3)).max() > 1e-4:
+        return False
+    if spec["type"] == "cylinder":
+        p0 = np.asarray(spec.get("p0", [0, 0, 0]), np.float64)
+        p1 = np.asarray(spec.get("p1", [0, 0, 1]), np.float64)
+        return bool(np.linalg.norm(m[:3, :3] @ (p1 - p0)) > 0)
+    return True
+
+
+def sphere_center_radius(spec: dict):
+    """World-space (cx, cy, cz, r) float32 of a sphere under a
+    uniform-scale to_world, else None (JAX's ``_sphere_center_radius``:
+    the scale test only)."""
+    fit = _uniform_scale(spec) if spec.get("type") == "sphere" else None
+    if fit is None:
+        return None
+    m, s = fit
+    c = m[:3, :3] @ np.asarray(spec.get("center", [0, 0, 0]),
+                               np.float64) + m[:3, 3]
+    return np.asarray([c[0], c[1], c[2], s * float(spec.get("radius", 1.0))],
+                      np.float32)
+
+
 def build_shape(spec: dict) -> MeshData:
     """Lower a scene-dict shape spec to a world-space MeshData."""
     stype = spec["type"]
@@ -100,10 +215,38 @@ def build_shape(spec: dict) -> MeshData:
         raise NotImplementedError(
             f"{stype} properties {extra} are not ported (a {stype} takes "
             f"{', '.join(SHAPE_KEYS[stype][1:])})")
+    if analytic(spec):
+        raise NotImplementedError(
+            f"an analytic {stype!r} shape (no emitter, no flip_normals, a "
+            f"rigid uniform-scale to_world) is not ported to "
+            f"mitsuba3_tpu_torch: ROADMAP queue 1 item 5 (ops/analytic.py)")
     if stype == "rectangle":
         mesh = make_rectangle()
     elif stype == "cube":
         mesh = make_cube()
+    elif stype == "disk":
+        mesh = make_disk()
+    elif stype == "cylinder":
+        mesh = make_cylinder()
+        r = float(spec.get("radius", 1.0))
+        p0 = np.asarray(spec.get("p0", [0, 0, 0]), np.float64)
+        axis = np.asarray(spec.get("p1", [0, 0, 1]), np.float64) - p0
+        length = np.linalg.norm(axis)
+        if length > 0:
+            z = axis / length
+            x = np.cross([0.0, 1.0, 0.01], z)
+            x /= max(np.linalg.norm(x), 1e-12)
+            y = np.cross(z, x)
+            m = np.eye(4)
+            m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = (x * r, y * r,
+                                                      z * length, p0)
+            mesh = mesh.transformed(Transform4f(m))
+    elif stype == "sphere":
+        mesh = make_sphere_mesh()
+        center, radius = spec.get("center"), spec.get("radius")
+        if center is not None or radius is not None:
+            mesh = mesh.transformed(Transform4f().translate(
+                center or [0, 0, 0]).scale(radius or 1.0))
     elif stype in ("obj", "ply"):
         from .loaders import load_mesh_file
         mesh = load_mesh_file(spec["filename"], stype)

@@ -3,6 +3,7 @@
     python3 -m mitsuba3_tpu_torch.tools.count_ops [--size 16] [--spp 64]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --textured [--size 16]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --media [--size 16]
+    python3 -m mitsuba3_tpu_torch.tools.count_ops --integrators [--size 16]
 
 Run from the repository root. For each sampler type, the scene is
 ``chip_smoke.cornell_xml``'s Cornell box (perspective sensor, Gaussian
@@ -30,6 +31,15 @@ the foggy interior (``foggy_interior_dict`` at 9,000 triangles, cellserve)
 under ``volpath``. A pass's operations barely depend on its lane count
 (the loops run a fixed number of steps), so the count at ``--size``
 predicts a full-size pass.
+
+``--integrators`` counts one forward pass (2 of ``--spp`` samples per
+pixel) of bench.py's Cornell box (``max_depth`` 8) under ``path``,
+``direct``, ``aov`` (``chip_smoke.ALL_AOVS`` around a ``path``) and
+``moment`` (around ``path``), of ``chip_smoke``'s sphere-lit,
+directionalarea and projector Cornells under ``path``, of the small
+terrain (8,978 faces, cellserve) under ``path``, ``direct`` and
+``depth``, and one light-tracer pass of 2 light paths per pixel
+(``ptracer._trace_pass``, ``max_depth`` 8) on the Cornell box.
 """
 from __future__ import annotations
 
@@ -118,14 +128,52 @@ def count_media(size: int, spp: int):
         print(f"{label} pass {size}x{size}, 2 of {spp} spp: {c.n} ops")
 
 
+def count_integrators(size: int, spp: int):
+    import chip_smoke
+    import mitsuba3_tpu_torch as mt
+    from mitsuba3_tpu_torch.integrators import ptracer
+    from mitsuba3_tpu_torch.render import integrator as ri
+    cornell = mt.cornell_box(size, size, spp=spp, max_depth=8)
+    path = cornell["integrator"]
+    terrain = chip_smoke.small_terrain_dict(mt.ScalarTransform4f, size)
+    scenes = [(f"cornell {t['type']}", dict(cornell, integrator=t)) for t in (
+        path, {"type": "direct"},
+        {"type": "aov", "aovs": chip_smoke.ALL_AOVS, "integrator": path},
+        {"type": "moment", "nested": path})]
+    scenes += [
+        ("sphere cornell path", chip_smoke.sphere_cornell_dict(
+            mt, size, size, 8)),
+        ("directionalarea cornell path",
+         chip_smoke.directionalarea_cornell_dict(mt, size, size, 8)),
+        ("projector cornell path", chip_smoke.projector_cornell_dict(
+            mt, size, size, 8, size))]
+    scenes += [(f"small terrain {t}", dict(terrain, integrator={
+        "type": t, "max_depth": 4})) for t in ("path", "direct", "depth")]
+    for label, d in scenes:
+        scene = mt.load_dict(d, device="cpu")
+        with torch.no_grad(), _Count() as c:
+            ri.render_pass(scene, 7, 2, 0, spp, base_seed=7)
+        print(f"{label} pass {size}x{size}, 2 of {spp} spp: {c.n} ops")
+    scene = mt.load_dict(dict(cornell, integrator={"type": "ptracer",
+                                                   "max_depth": 8}),
+                         device="cpu")
+    with torch.no_grad(), _Count() as c:
+        ptracer._trace_pass(scene, 7, 2 * size * size, scene.integrator)
+    print(f"cornell ptracer pass, {2 * size * size} light paths: {c.n} ops")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=16)
     ap.add_argument("--spp", type=int, default=64)
     ap.add_argument("--textured", action="store_true")
     ap.add_argument("--media", action="store_true")
+    ap.add_argument("--integrators", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
+    if args.integrators:
+        count_integrators(args.size, args.spp)
+        return 0
     if args.textured:
         count_textured(args.size, args.spp)
         return 0

@@ -7,10 +7,12 @@ pending writes, rebuilds the state derived from them (the environment's
 sampling tables after an ``env_data`` edit; the area-emitter tables and
 the accel after a ``vertices`` edit, as Scene::parameters_changed does;
 the BSDF dispatch's texture and type tables after a ``bsdf_params`` edit;
+the textures the projector rows name after a ``de_params`` edit;
 the majorant of the medium rows that own a density grid after a grid
 edit, heterogeneous.cpp:178; a new grid tensor gets a new cell table on
 its first lookup) and returns a new Scene; the Scene it started from is
-left as it was.
+left as it was. A sphere emitter's cone row (``em_sphere``) stays as
+loaded after a ``vertices`` edit, as in the JAX package.
 
 The accel is geometry, not a parameter: it is rebuilt on the host from
 the vertices' values (``.detach().cpu()``), while gradients still reach
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import bsdfs
+from .. import emitters as em_pkg
 from ..emitters import envmap as env_mod
 from ..ops import bvh_serve, bvh_tiled, cellserve
 
@@ -100,7 +103,11 @@ class SceneParameters:
                 s = s.replace(textures=tuple(tex))
             elif _is_grid(k):
                 s = _replace_grid(s, int(k[len("medium"):].split(".")[0]), v)
-            else:   # em_radiance, env_scale, de_params, medium_params
+            elif k == "de_params":
+                s = s.replace(de_params=v, projector_textures=(
+                    em_pkg.projector_textures(s.delta_emitter_types,
+                                              v.detach().cpu().numpy())))
+            else:   # em_radiance, env_scale, medium_params
                 s = s.replace(**{k: v})
         self._dirty.clear()
         self._scene = s

@@ -18,12 +18,11 @@ from mitsuba3_tpu.core.vec import Vec3 as Vec3J
 from mitsuba3_tpu.render.records import Ray as RayJ
 from mitsuba3_tpu import shapes as shapes_j
 
+import chip_smoke
 import mitsuba3_tpu_torch as mt
 from mitsuba3_tpu_torch.convert import arrays_from_scene, scene_from_arrays
 from mitsuba3_tpu_torch.core import distr as distr_t
 from mitsuba3_tpu_torch.core.vec import Vec2, Vec3
-from mitsuba3_tpu_torch.render import film as film_t
-from mitsuba3_tpu_torch.render import integrator as ri
 from mitsuba3_tpu_torch.render.records import Ray
 from mitsuba3_tpu_torch import shapes as shapes_t
 from test_regression import DATA, REF_SPP, TEST_SPP, _z_test
@@ -257,35 +256,13 @@ def test_cornell_render_matches_jax(cornell):
         assert abs(rays_t - rays_j) <= 1e-3 * rays_j
 
 
-def _srgb_to_xyz(c):
-    """Linear sRGB -> CIE XYZ (the moment integrator's matrix)."""
-    m = torch.tensor([[0.412453, 0.357580, 0.180423],
-                      [0.212671, 0.715160, 0.072169],
-                      [0.019334, 0.119193, 0.950227]])
-    return c @ m.T
-
-
-def _moment_render(scene, spp, seed):
-    """The moment integrator's (mean XYZ, per-pixel variance) of the port's
-    path tracer: XYZ and its square per sample, splatted like the image."""
-    sppc, n_passes = ri.plan_passes(scene, spp)
-    w, h = scene.film.width, scene.film.height
-    halo = film_t.halo_rows(scene.film)
-    acc = wgt = 0.0
-    for i in range(n_passes):
-        rng, ray, jitter = ri._gen_camera_rays(
-            scene, ri.pass_seed(seed, i), sppc, i, sppc * n_passes)
-        L = ri.get_integrator(scene.integrator).sample(
-            scene, rng, ray, scene.integrator)[0].to_array()
-        xyz = _srgb_to_xyz(L)
-        img, wt = film_t.splat_ordered(scene.film, jitter,
-                                       torch.cat([xyz, xyz * xyz], 1),
-                                       sppc, h, w)
-        acc = acc + img[halo:halo + h]
-        wgt = wgt + wt[halo:halo + h]
-    out = film_t.develop(acc, wgt).numpy()
-    mean = out[..., :3]
-    return mean, np.maximum(out[..., 3:] - mean ** 2, 0.0)
+def _moment_render(d, spp, seed):
+    """(mean XYZ, per-pixel XYZ variance) of the scene dict `d` rendered
+    by the port's moment integrator around its own integrator on the CPU,
+    read as tests/test_regression.py:50-62 reads it."""
+    _, mean_xyz, var_xyz = chip_smoke.moment_mean_var(mt, d, spp, seed,
+                                                      device="cpu")
+    return mean_xyz, var_xyz
 
 
 def test_cornell_z_test_against_reference():
@@ -293,8 +270,8 @@ def test_cornell_z_test_against_reference():
     port's 32^2 Cornell (max_depth 4) at 256 spp against the stored 1024
     spp reference of the JAX package, with its outlier allowance."""
     ref = np.load(os.path.join(DATA, "ref_cornell_diffuse.npz"))
-    scene = mt.load_dict(mt.cornell_box(32, 32, max_depth=4), device="cpu")
-    mean, var = _moment_render(scene, TEST_SPP, seed=3)
+    mean, var = _moment_render(mt.cornell_box(32, 32, max_depth=4),
+                               TEST_SPP, seed=3)
     fails, n_pix = _z_test(mean, var, TEST_SPP, ref["mean_xyz"],
                            ref["var_xyz"], REF_SPP)
     assert fails <= max(3, n_pix // 500), (fails, n_pix)

@@ -16,8 +16,10 @@ the mip levels), the textured Cornell's render and the texture and
 environment gradients of it and of the small textured terrain;
 participating media: the foggy interior through K1 on the card against
 the CPU, the smoke's 256^3 cell table built once per render, and the fog
-Cornell's prbvolpath gradients against the CPU's. Run on a machine with a
-CUDA device::
+Cornell's prbvolpath gradients against the CPU's; the light tracer's
+atomic splat against the CPU, aov's RGB equal to path's, direct through
+K1 in both modes, and a sphere-lit Cornell's PRB step. Run on a machine
+with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -1269,3 +1271,76 @@ def test_fog_prbvolpath_grads_on_card_match_cpu(cuda):
         scale = float(b.abs().max())
         assert scale > 0 and torch.allclose(a, b, rtol=0,
                                             atol=1e-3 * scale)
+
+
+def test_ptracer_atomic_splat_on_card_matches_cpu(cuda):
+    """The light tracer's splat is an atomic index_add_ on the card, its
+    order of summation not fixed: the Cornell box (24^2, 8 light paths a
+    pixel in two passes, max_depth 4) on the card against the CPU, isclose
+    rtol 1e-3, atol 1e-3 on > 99.5 % of values, means within 1e-3; two
+    card runs agree to 1e-5 of the largest value."""
+    from mitsuba3_tpu_torch.integrators.ptracer import render_ptracer
+    d = dict(mt.cornell_box(24, 24, max_depth=4),
+             integrator={"type": "ptracer", "max_depth": 4})
+    img_g = render_ptracer(mt.load_dict(d, device=cuda), seed=5, spp=8,
+                           max_wavefront=2304)
+    img_g2 = render_ptracer(mt.load_dict(d, device=cuda), seed=5, spp=8,
+                            max_wavefront=2304)
+    img_c = render_ptracer(mt.load_dict(d, device="cpu"), seed=5, spp=8,
+                           max_wavefront=2304)
+    img_g, img_g2, img_c = (img_g.cpu().numpy(), img_g2.cpu().numpy(),
+                            img_c.numpy())
+    assert np.isfinite(img_g).all() and img_g.mean() > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+    np.testing.assert_allclose(img_g2, img_g, rtol=0,
+                               atol=1e-5 * np.abs(img_g).max())
+
+
+def test_aov_rgb_on_card_equals_path(cuda):
+    """aov (every AOV and a nested path) on the card: its last three
+    channels equal the path render of the same seed, value for value;
+    its image against the CPU's."""
+    path = {"type": "path", "max_depth": 4}
+    d = dict(mt.cornell_box(24, 24, max_depth=4), integrator={
+        "type": "aov", "aovs": chip_smoke.ALL_AOVS, "integrator": path})
+    img = mt.render(mt.load_dict(d, device=cuda), seed=5, spp=4)
+    ref = mt.render(mt.load_dict(dict(d, integrator=path), device=cuda),
+                    seed=5, spp=4)
+    assert tuple(img.shape) == (24, 24, 20)
+    assert torch.equal(img[..., 17:], ref)
+    img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=4).numpy()
+    assert np.isclose(img.cpu().numpy(), img_c, rtol=1e-3,
+                      atol=1e-3).mean() > 0.995
+
+
+def test_direct_above_8192_faces_launches_k1(cuda, monkeypatch):
+    """direct on the small terrain (8,978 faces, cellserve) on the card:
+    K1 launched for closest queries (the primary and BSDF rays) and
+    any-hit ones (NEE shadow rays); the image against the CPU's."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+    d = dict(chip_smoke.small_terrain_dict(mt.ScalarTransform4f),
+             integrator={"type": "direct"})
+    cs.LAUNCHES.update(closest=0, anyhit=0)
+    img_g = mt.render(mt.load_dict(d, device=cuda), seed=5, spp=4)
+    assert cs.LAUNCHES["closest"] > 0 and cs.LAUNCHES["anyhit"] > 0
+    img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=4).numpy()
+    img_g = img_g.cpu().numpy()
+    assert np.isfinite(img_g).all() and img_g.mean() > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+
+
+def test_sphere_light_prb_step_on_card(cuda):
+    """A PRB step of the sphere-lit Cornell (16^2, 4 spp, max_depth 3)
+    on the card: every gradient finite, em_radiance's nonzero and within
+    1e-3 of the largest entry of the CPU's."""
+    d = chip_smoke.sphere_cornell_dict(mt, 16, 16, 3, "prb")
+    names = ("bsdf_params", "em_radiance")
+    grads = {dev: chip_smoke._grad_step(mt.load_dict(d, device=dev), names,
+                                        3, 4)[2] for dev in (cuda, "cpu")}
+    for k in names:
+        a, b = grads[cuda][k].cpu(), grads["cpu"][k]
+        assert bool(torch.isfinite(a).all())
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert torch.allclose(a, b, rtol=0, atol=1e-3 * scale)

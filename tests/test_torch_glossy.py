@@ -79,9 +79,8 @@ def test_glossy_cornell_z_test_against_reference():
     stored 1024 spp reference of the JAX package, with its outlier
     allowance."""
     ref = np.load(os.path.join(DATA, "ref_cornell_glossy.npz"))
-    scene = mt.load_dict(chip_smoke.glossy_cornell_dict(mt, 32, 32, 4),
-                         device="cpu")
-    mean, var = _moment_render(scene, TEST_SPP, seed=3)
+    mean, var = _moment_render(chip_smoke.glossy_cornell_dict(mt, 32, 32, 4),
+                               TEST_SPP, seed=3)
     fails, n_pix = _z_test(mean, var, TEST_SPP, ref["mean_xyz"],
                            ref["var_xyz"], REF_SPP)
     assert fails <= max(3, n_pix // 500), (fails, n_pix)

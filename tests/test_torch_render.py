@@ -177,11 +177,16 @@ def _sensor(d, **changes):
 
 BASE = chip_smoke.small_terrain_dict(mt.ScalarTransform4f)
 UNPORTED = {
+    # an analytic sphere or disk (no emitter): ROADMAP item 5
     "shape": (_with(BASE, ball={"type": "sphere"}), "'sphere'"),
     "bsdf": (_with(BASE, terrain=dict(BASE["terrain"], bsdf={
         "type": "principled"})), "'principled'"),
-    "emitter": (_with(BASE, lamp={"type": "projector"}), "'projector'"),
-    "integrator": (_with(BASE, integrator={"type": "direct"}), "'direct'"),
+    # a spectral SPD emitter (ROADMAP item 7)
+    "emitter": (_with(BASE, lamp={"type": "rectangle", "emitter": {
+        "type": "area", "radiance": {"type": "blackbody",
+                                     "temperature": 3000.0}}}),
+        "'blackbody'"),
+    "integrator": (_with(BASE, integrator={"type": "stokes"}), "'stokes'"),
     "specfilm": (_sensor(BASE, film={"type": "specfilm", "width": 8,
                                      "height": 8}), "'specfilm'"),
     # a perspective sensor's medium is ported (tests/test_torch_media.py);
@@ -198,8 +203,7 @@ UNPORTED = {
                 r"bitmap properties \['format'\]"),
     "disk_shape": (_with(BASE, lid={"type": "disk"}), "'disk'"),
     "area_emitter_type": (_with(BASE, panel={
-        "type": "rectangle", "emitter": {"type": "directionalarea"}}),
-        "'directionalarea'"),
+        "type": "rectangle", "emitter": {"type": "spot"}}), "'spot'"),
 }
 
 

@@ -115,9 +115,8 @@ def test_fog_cube_z_test_against_reference():
     stored 1024 spp reference of the JAX package, with its outlier
     allowance."""
     ref = np.load(os.path.join(DATA, "ref_fog_cube.npz"))
-    scene = mt.load_dict(chip_smoke.fog_cornell_dict(mt, 32, 32, 6),
-                         device="cpu")
-    mean, var = _moment_render(scene, TEST_SPP, seed=3)
+    mean, var = _moment_render(chip_smoke.fog_cornell_dict(mt, 32, 32, 6),
+                               TEST_SPP, seed=3)
     fails, n_pix = _z_test(mean, var, TEST_SPP, ref["mean_xyz"],
                            ref["var_xyz"], REF_SPP)
     assert fails <= max(3, n_pix // 500), (fails, n_pix)
