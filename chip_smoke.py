@@ -61,7 +61,9 @@ Phases:
 11. kernels K5-K8 (the attic intersectors), each against its plain version
    at full width on the terrain queries of ``benchmarks/bench_bvh.py``
    (65,522 triangles, 2^19 primary rays): K5 as bvh_pallas packs the rays
-   (closest and any-hit), K6 as the first bvh_queue cull, K7 as its first
+   (closest and any-hit; but for the primary closest row, K5 is held on
+   the first 65,536 rays, its full-width time kept as ``kernel_ms``), K6
+   as the first bvh_queue cull, K7 as its first
    serve after the sort and the schedule, K8 as the first bvh2 round's
    serve on the 2^19 bounce rays; K5 (unsorted and sorted) and K7 also
    on the bounce rays, each in its own row; closest hits bit-equal in t,
@@ -146,8 +148,23 @@ Phases:
    (512^2, 4 spp through K1); ten scenes on the card against the CPU at
    32^2. Run it alone with ``python3 chip_smoke.py --phase
    integrators``;
-18. JSON lines of render, query, PRB, material, interior, loop, scene-file,
-   texture, media, integrator and per-kernel numbers.
+18. materials (after the integrators): a hair ball (HAIR_STRANDS strands
+   from a seed, a linearcurve file the loader tessellates into 196,608
+   faces) in hair of eumelanin 1.3 and of a sigma_a, `path` at 512^2, 4
+   spp, max_depth 8 through cellserve (K1 closest and any-hit launches
+   counted from zero, device ms and bound by CUDA events, a profiled
+   render) and its PRB step at 256^2 (sigma_a gradient finite and
+   nonzero); principled terrain64k with the textured terrain's EXR as its
+   base_color through K1 (both modes) and its PRB step (metallic,
+   roughness, clearcoat and texture gradients nonzero); the materials
+   Cornell (principled, principledthin, two measured tables read from
+   .bsdf files through load_file of an XML scene, a half_diffuse
+   registered in torch) at 512^2, 16 spp and its PRB step at 4 spp; the
+   Cornell, a principled small terrain and a tessellated bsplinecurve
+   hair scene on the card against the CPU at 32^2. Run it alone with
+   ``python3 chip_smoke.py --phase materials``;
+19. JSON lines of render, query, PRB, material, interior, loop, scene-file,
+   texture, media, integrator, slice-material and per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -196,6 +213,7 @@ K = 128
 BVH_SIDE = 182
 BVH_RAYS = 1 << 19
 HOLD_RAYS = 32768
+K5_HELD_RAYS = 65536   # K5's rows but the primary closest one: rays held
 LIBRARY_NOTE = ("none: no single PyTorch call computes this function")
 # the name of K8's kernel function, which the profiler's tables carry
 K8_KERNEL = "bvh2_serve_kernel"
@@ -425,12 +443,15 @@ def glossy_cornell_dict(mi, width: int, height: int, max_depth: int):
 
 
 def every_bsdf_dict(mi, width: int, height: int, max_depth: int):
-    """The Cornell box with every BSDF type the port loads: a dielectric
-    small box, a Beckmann roughdielectric large box, a blendbsdf back wall
-    (diffuse and an anisotropic GGX copper roughconductor), a
-    twosided(mask(roughplastic)) floor, an aluminium conductor ceiling, a
-    nonlinear plastic green wall, a thindielectric red wall and a null
-    rectangle inside the box."""
+    """The Cornell box with every BSDF type the port loads on a surface
+    (hair takes curves): a dielectric small box, a Beckmann
+    roughdielectric large box, a blendbsdf back wall (diffuse and an
+    anisotropic GGX copper roughconductor), a twosided(mask(roughplastic))
+    floor, an aluminium conductor ceiling, a nonlinear plastic green wall,
+    a thindielectric red wall, a null rectangle inside the box, and three
+    panels before the back wall (EVERY_BSDF_PANELS): principled,
+    principledthin and measured (an isotropic GGX table of 4 x 16^2,
+    measured_fields)."""
     T = mi.ScalarTransform4f
     d = mi.cornell_box(width, height, max_depth=max_depth)
     d["small-box"]["bsdf"] = {"type": "dielectric", "int_ior": 1.5}
@@ -458,7 +479,21 @@ def every_bsdf_dict(mi, width: int, height: int, max_depth: int):
                  "to_world": T().translate([0.25, 0.1, 0.6]).rotate(
                      [0, 1, 0], 30).scale(0.3),
                  "bsdf": {"type": "null"}}
+    for k, bsdf in enumerate((
+            {"type": "principled", "metallic": 0.4, "roughness": 0.35,
+             "anisotropic": 0.3, "clearcoat": 0.6, "sheen": 0.3,
+             "base_color": {"type": "rgb", "value": [0.8, 0.5, 0.3]}},
+            {"type": "principledthin", "spec_trans": 0.6, "diff_trans": 0.5,
+             "roughness": 0.4},
+            {"type": "measured", "tables": measured_fields(1, 4, 16)})):
+        d[EVERY_BSDF_PANELS[k]] = {
+            "type": "rectangle", "bsdf": bsdf, "to_world": T().translate(
+                [-0.6 + 0.6 * k, 0.55, -0.7]).scale(0.18)}
     return d
+
+
+EVERY_BSDF_PANELS = ("principled panel", "principledthin panel",
+                     "measured panel")
 
 
 def every_bsdf_diffuse_box_dict(mi, width: int, height: int,
@@ -1472,11 +1507,25 @@ def phase_kernels_attic(card: str, kernels=("K5", "K6", "K7", "K8"),
                       bp.pack_rays(ob, db, mt_b)))
         packs.append((".bounce_sorted", ("pallas_sorted",), "bounce",
                       bp.pack_rays(*bp._sorted(acc, ob, db, mt_b)[:3])))
-    for suffix, accels, kind, (o3, d3, mt) in packs:
-        npad = mt.shape[0]
+    for suffix, accels, kind, full in packs:
         for closest, mode in ((True, "closest"), (False, "anyhit")):
             tag = f"K5 {mode}{suffix.replace('.', ' ')}"
+            # the primary closest row is held at full width, the others on
+            # their first K5_HELD_RAYS rays (whole tiles: the tiles walk
+            # independently), which takes their plain versions ~110 s less
+            sub = not (closest and not suffix)
+            o3, d3, mt = ((a[..., :K5_HELD_RAYS].contiguous()
+                           for a in full) if sub else full)
+            npad = mt.shape[0]
             kout = bp.traverse(acc, o3, d3, mt, closest)
+            if sub:
+                k_full = _cuda_ms(lambda: bp.traverse(acc, *full, closest),
+                                  10)
+                kfull = bp.traverse(acc, *full, closest)
+                _check(all(torch.equal(a[:npad], b)
+                           for a, b in zip(kfull, kout)),
+                       f"{tag}: the full-width kernel's first {npad} lanes "
+                       f"differ from the kernel's on them alone")
             pout, work, p_ms = held(tag, lambda w: bp.traverse_plain(
                 acc, o3, d3, mt, closest, stats=w))
             if closest:
@@ -1500,6 +1549,13 @@ def phase_kernels_attic(card: str, kernels=("K5", "K6", "K7", "K8"),
                 p_ms, work["box_tests"] * OPS_PER_NODE
                 + work["tests"] * OPS_PER_TEST, nbytes, card, accel="pallas",
                 rays=kind, queries=[[a, kind] for a in accels], **work))
+            if sub:
+                rows[-1].update(
+                    kernel_ms=k_full, held_rays=npad,
+                    note=f"ms, plain_ms and bound_ms are for the first "
+                         f"{npad} rays, where the kernel is held against "
+                         f"its plain version; kernel_ms is the kernel's "
+                         f"time at the full width of {full[2].shape[0]}")
     packs = acc = None
 
     # K6: the first cull of a bvh_queue query
@@ -2229,8 +2285,9 @@ EVERY_BSDF_PRB_SPP = 16
 
 
 def phase_every_bsdf(mi, card: str):
-    """The every-BSDF Cornell (every_bsdf_dict: 11 BSDF types, a
-    twosided(mask(roughplastic)) floor, a null rectangle) with the path
+    """The every-BSDF Cornell (every_bsdf_dict: 14 BSDF types, a
+    twosided(mask(roughplastic)) floor, a null rectangle, principled,
+    principledthin and measured panels) with the path
     integrator at 512^2, 8 spp, max_depth 8: a one-pass warm-up, one
     timed render (Mrays/s as bench.py counts a forward render, peak
     memory), one profiled pass; a PRB step at 128^2, 16 spp (gradients
@@ -2242,7 +2299,7 @@ def phase_every_bsdf(mi, card: str):
     from mitsuba3_tpu_torch.render import integrator as ri
 
     scene = mi.load_dict(every_bsdf_dict(mi, 512, 512, 8))
-    _check(set(scene.bsdf_types) == set(range(11))
+    _check(set(scene.bsdf_types) == set(range(11)) | {12, 15, 18}
            and scene.adapter_max_depth == 1,
            f"every-BSDF: types {scene.bsdf_types}, adapter depth "
            f"{scene.adapter_max_depth}")
@@ -3834,10 +3891,548 @@ def phase_integrators(mi, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Materials: principled, principledthin, measured, a user's BSDF and hair
+# ---------------------------------------------------------------------------
+
+MEASURED_RES = 64            # the measured tables' warp side
+MAT_CORNELL_SPP = 16         # the materials Cornell's path render, 512^2
+MAT_PRB_SPP = 4
+MAT_CHECK_SIDE = 32          # card against CPU
+HAIR_STRANDS = 1024
+HAIR_POINTS = 17             # 16 segments a strand
+HAIR_RADIUS = 0.004
+HAIR_SIDES = 6
+HAIR_PRB_SIDE = 256
+PRINCIPLED_TERRAIN_BSDF = {"type": "principled", "metallic": 0.4,
+                           "roughness": 0.35, "anisotropic": 0.3,
+                           "clearcoat": 0.6, "sheen": 0.3}
+
+
+def measured_fields(n_phi: int = 1, n_ti: int = 8, res: int = MEASURED_RES,
+                    alpha: float = 0.35) -> dict:
+    """An RGL-style measured table set made from a GGX lobe, as
+    tests/test_measured.py's _ggx_tables and _aniso_tables make it: the
+    vndf slice of each incident direction holds the visible-normal
+    density in the (theta2u, phi2u) square, times that square's measure.
+    One phi_i entry gives an isotropic set; more give an anisotropic one
+    over phi_i in [-pi, 0] (symmetry reduction 2), whose roughness and
+    stretch depend on the azimuth."""
+    aniso = n_phi > 1
+    phi_i = (np.linspace(-np.pi, 0.0, n_phi) if aniso
+             else np.zeros(1)).astype(np.float32)
+    theta_i = np.linspace(0.0, np.pi / 2 * 0.96, n_ti).astype(np.float32)
+    u = (np.arange(res) + 0.5) / res
+    theta_m = u ** 2 * (np.pi / 2)
+    phi_m = (2 * u - 1) * np.pi
+    st, ct = np.sin(theta_m), np.cos(theta_m)
+    mx = np.cos(phi_m)[:, None] * st[None, :]
+    my = np.sin(phi_m)[:, None] * st[None, :]
+    mz = np.broadcast_to(ct[None, :], (res, res))
+    jac_u = st[None, :] * (np.pi * u)[None, :] * (2 * np.pi)
+    c2 = np.clip(mz, 1e-5, 1.0) ** 2
+    vndf = np.zeros((n_phi, n_ti, res, res), np.float32)
+    for p, pi_ in enumerate(phi_i):
+        a = 0.25 + 0.2 * abs(np.sin(pi_)) if aniso else alpha
+        d = 1.0 / (np.pi * a ** 2 * c2 ** 2 * (1 + (1 - c2) / c2 / a ** 2)
+                   ** 2)
+        if aniso:
+            d = d * (1.0 + 0.6 * mx ** 2 - 0.3 * my ** 2 + 0.35)
+        for i, ti in enumerate(theta_i):
+            wi = (np.sin(ti) * np.cos(pi_), np.sin(ti) * np.sin(pi_),
+                  np.cos(ti))
+            cos_wi_m = np.maximum(wi[0] * mx + wi[1] * my + wi[2] * mz, 0)
+            vndf[p, i] = d * cos_wi_m * jac_u + 1e-8
+    sx, sy = np.meshgrid(u, u)
+    rgb = np.zeros((n_phi, n_ti, 3, res, res), np.float32)
+    for c, (a, b) in enumerate(((0.9, 0.1), (0.5, 0.4), (0.2, 0.7))):
+        rgb[:, :, c] = a * (0.3 + 0.7 * sx) + b * sy
+    ndf = (1.0 / (np.pi * alpha ** 2 * c2 ** 2 * (1 + (1 - c2) / c2
+                                                  / alpha ** 2) ** 2))
+    return {"phi_i": phi_i, "theta_i": theta_i, "vndf": vndf,
+            "luminance": vndf * 0.8 + 0.05, "rgb": rgb,
+            "ndf": (ndf + 1e-8).astype(np.float32),
+            "sigma": (0.25 + 0.5 * np.outer(u, u)).astype(np.float32)}
+
+
+def write_measured(dirpath: str, res: int = MEASURED_RES):
+    """The materials Cornell's two .bsdf files, written by the port's own
+    tensor_io: (isotropic path, anisotropic path); 8 theta_i slices, and
+    4 x 8 (phi_i, theta_i) slices."""
+    from mitsuba3_tpu_torch.utils import tensor_io
+    paths = []
+    for name, n_phi in (("iso.bsdf", 1), ("aniso.bsdf", 4)):
+        paths.append(os.path.join(dirpath, name))
+        tensor_io.write(paths[-1], **measured_fields(n_phi, 8, res))
+    return tuple(paths)
+
+
+def half_diffuse_module():
+    """A user's BSDF written in torch on the port's records: Lambertian
+    reflection of the row's [0:3] (half_diffuse_lower halves the spec's
+    reflectance into it), sampled by the cosine warp, two-sided by the
+    row's flag [16]: it renders as diffuse at half the reflectance."""
+    import types
+
+    import torch
+    from mitsuba3_tpu_torch.core import math as m
+    from mitsuba3_tpu_torch.core.vec import Vec3
+    from mitsuba3_tpu_torch.core.warp import square_to_cosine_hemisphere
+    from mitsuba3_tpu_torch.render.records import BSDFSample
+
+    def side(params, si):
+        return torch.where((params[16] > 0.5) & (si.wi.z < 0.0), -1.0, 1.0)
+
+    def sample(scene, bsdf_idx, si, s1, s2):
+        params = scene.gather_bsdf_params(bsdf_idx)
+        sgn = side(params, si)
+        active = si.wi.z * sgn > 0.0
+        wo = square_to_cosine_hemisphere(s2)
+        pdf = wo.z * m.InvPi
+        bs = BSDFSample(
+            wo=Vec3(wo.x, wo.y, wo.z * sgn),
+            pdf=torch.where(active, pdf, 0.0), eta=torch.ones_like(pdf),
+            sampled_type=torch.full_like(pdf, 0x0002, dtype=torch.int32),
+            sampled_component=torch.zeros_like(pdf, dtype=torch.int32))
+        return bs, Vec3(params[0], params[1], params[2]).mask(active)
+
+    def eval_pdf(scene, bsdf_idx, si, wo):
+        params = scene.gather_bsdf_params(bsdf_idx)
+        sgn = side(params, si)
+        cos_o = wo.z * sgn
+        active = (si.wi.z * sgn > 0.0) & (cos_o > 0.0)
+        factor = m.InvPi * torch.clamp(cos_o, min=0.0)
+        value = Vec3(params[0], params[1], params[2]) * factor
+        return value.mask(active), torch.where(active, factor, 0.0)
+
+    return types.SimpleNamespace(FLAGS=0x0002 | 0x2000, sample=sample,
+                                 eval_pdf=eval_pdf)
+
+
+def half_diffuse_lower(spec) -> np.ndarray:
+    """half_diffuse's row: half the spec's reflectance in [0:3]
+    (tests/test_custom_plugins.py:40)."""
+    r = spec.get("reflectance", {"type": "rgb", "value": 0.5})
+    val = r["value"] if isinstance(r, dict) else r
+    return 0.5 * np.broadcast_to(np.asarray(val, np.float32), (3,))
+
+
+def register_half_diffuse(mt) -> int:
+    """Register half_diffuse with the port `mt`; returns its type id."""
+    return mt.register_bsdf("half_diffuse", half_diffuse_module(),
+                            half_diffuse_lower)
+
+
+def materials_cornell_dict(mi, width: int, height: int, max_depth: int,
+                           iso, aniso):
+    """bench.py's Cornell box in the slice's materials (`mi` the port or
+    the JAX package, with half_diffuse registered): a principled floor
+    (metallic, clearcoat, anisotropic), a principled left wall (sheen,
+    flatness; a checkerboard base_color), a principledthin small box
+    (spec_trans 0.6, diff_trans 0.5), a measured back wall (`iso`) and
+    tall box (`aniso`), each a measured spec (a .bsdf filename or its
+    tables), and a half_diffuse right wall."""
+    d = mi.cornell_box(width, height, max_depth=max_depth)
+    d["floor"]["bsdf"] = {
+        "type": "principled", "metallic": 0.7, "roughness": 0.3,
+        "anisotropic": 0.5, "clearcoat": 0.8, "clearcoat_gloss": 0.6,
+        "base_color": {"type": "rgb", "value": [0.85, 0.75, 0.6]}}
+    d["red-wall"]["bsdf"] = {
+        "type": "principled", "roughness": 0.6, "sheen": 0.8,
+        "sheen_tint": 0.5, "flatness": 0.7, "spec_tint": 0.3,
+        "base_color": {"type": "checkerboard", "color0": [0.6, 0.05, 0.05],
+                       "color1": [0.3, 0.3, 0.3]}}
+    d["small-box"]["bsdf"] = {
+        "type": "principledthin", "spec_trans": 0.6, "diff_trans": 0.5,
+        "roughness": 0.4, "eta": 1.4,
+        "base_color": {"type": "rgb", "value": [0.7, 0.8, 0.9]}}
+    d["back"]["bsdf"] = {"type": "measured", **iso}
+    d["large-box"]["bsdf"] = {"type": "measured", **aniso}
+    d["green-wall"]["bsdf"] = {"type": "half_diffuse", "reflectance": {
+        "type": "rgb", "value": [0.21, 0.75, 0.15]}}
+    return d
+
+
+def materials_cornell_xml(mt, dirpath: str, width: int, height: int,
+                          max_depth: int) -> str:
+    """The materials Cornell as a user's scene file: its two measured
+    tables written as .bsdf files, the scene as XML by the port's
+    ``write_file``. Returns the XML file's path."""
+    from mitsuba3_tpu_torch.utils import xml as xml_mod
+    iso, aniso = write_measured(dirpath)
+    d = materials_cornell_dict(mt, width, height, max_depth,
+                               {"filename": iso}, {"filename": aniso})
+    path = os.path.join(dirpath, f"materials_cornell_{width}x{height}.xml")
+    xml_mod.write_file(d, path)
+    return path
+
+
+def hair_strands(n_strands: int = HAIR_STRANDS,
+                 n_points: int = HAIR_POINTS, seed: int = 3) -> np.ndarray:
+    """[n_strands, n_points, 3] hair: roots on the upper part of a scalp
+    sphere (radius 0.5), each strand leaving along its normal and drooping
+    under gravity, with a little noise."""
+    rng = np.random.default_rng(seed)
+    phi = rng.uniform(0.0, 2 * np.pi, n_strands)
+    y = rng.uniform(-0.2, 0.95, n_strands)
+    r = np.sqrt(1.0 - y * y)
+    normal = np.stack([r * np.cos(phi), y, r * np.sin(phi)], -1)
+    length = rng.uniform(0.5, 0.8, n_strands)
+    seg = length / (n_points - 1)
+    pts = np.zeros((n_strands, n_points, 3))
+    pts[:, 0] = 0.5 * normal
+    d = normal.copy()
+    for k in range(1, n_points):
+        d = d + np.array([0.0, -0.18, 0.0]) + 0.05 * rng.standard_normal(
+            (n_strands, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        pts[:, k] = pts[:, k - 1] + seg[:, None] * d
+    return pts
+
+
+def write_curve_file(path: str, strands, radius: float):
+    """Strands as a curve text file (linearcurve.cpp: ``x y z radius``
+    lines, a blank line between curves)."""
+    with open(path, "w") as f:
+        for s in strands:
+            f.write("\n".join(f"{x!r} {y!r} {z!r} {radius!r}"
+                              for x, y, z in s.tolist()) + "\n\n")
+    return path
+
+
+def hair_dict(mi, curve_path: str, width: int, bsdf: dict,
+              curve: str = "linearcurve", n_sides: int = HAIR_SIDES,
+              tessellate=None, spp: int = 4, max_depth: int = 8):
+    """A hair ball (a curve file, `bsdf` on every strand) lit by a point
+    light and a constant environment, seen by a 45-degree camera."""
+    T = mi.ScalarTransform4f
+    shape = {"type": curve, "filename": curve_path, "n_sides": n_sides,
+             "bsdf": bsdf}
+    if tessellate is not None:
+        shape["tessellate"] = tessellate
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": max_depth},
+        "sensor": {"type": "perspective", "fov": 45.0,
+                   "to_world": T().look_at(origin=[0.0, 0.4, 2.6],
+                                           target=[0.0, 0.0, 0.0],
+                                           up=[0, 1, 0]),
+                   "film": {"width": width, "height": width,
+                            "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "hair": shape,
+        "light": {"type": "point", "position": [1.5, 2.0, 2.0],
+                  "intensity": {"type": "rgb", "value": [12.0, 11.0, 10.0]}},
+        "env": {"type": "constant",
+                "radiance": {"type": "rgb", "value": 0.15}}}
+
+
+def principled_terrain_dict(make_dict, transform, root=None, **kw):
+    """`make_dict(transform, **kw)` (terrain64k_dict or small_terrain_dict)
+    in PRINCIPLED_TERRAIN_BSDF; with `root`, its base_color is
+    ``terrain.exr`` under `root` (write_terrain_textures; mipmapped, to_uv
+    a scale of 4, over planar uvs from x and y)."""
+    d = make_dict(transform, **kw)
+    bsdf = dict(PRINCIPLED_TERRAIN_BSDF)
+    terrain = dict(d["terrain"], bsdf=bsdf)
+    if root is not None:
+        v = np.asarray(terrain["vertices"], np.float64)
+        lo, hi = v[:, :2].min(0), v[:, :2].max(0)
+        terrain["uvs"] = (v[:, :2] - lo) / (hi - lo)
+        bsdf["base_color"] = {
+            "type": "bitmap", "filename": os.path.join(root, "terrain.exr"),
+            "mipmap": True, "to_uv": transform().scale([4.0, 4.0, 1.0])}
+    d["terrain"] = terrain
+    return d
+
+
+HAIR_EUMELANIN = {"type": "hair", "eumelanin": 1.3}
+HAIR_SIGMA_A = {"type": "hair", "sigma_a": {"type": "rgb",
+                                            "value": [0.25, 0.45, 0.9]}}
+
+
+def _mat_hair(mi, card: str, tmp: str):
+    """The hair ball: HAIR_STRANDS strands of HAIR_POINTS points written as
+    a linearcurve file and tessellated by the loader (16,384 cones are
+    above the 512 that JAX makes analytic), in hair of eumelanin 1.3 and
+    then of a sigma_a, lit by a point light and a constant environment:
+    `path` at 512^2, 4 spp, max_depth 8 through cellserve; a warm-up, a
+    timed render with K1's launches counted from zero (closest and any-hit
+    must launch) and its device ms and bound by CUDA events (_K1Meter),
+    and for the first a profiled render (the second is not warmed up: it
+    runs the first's operations); then a PRB step of the sigma_a
+    ball at HAIR_PRB_SIDE^2, 4 spp (no warm-up of its own), whose sigma_a
+    gradient must be finite and nonzero."""
+    import torch
+    from mitsuba3_tpu_torch import bsdfs
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    path = write_curve_file(os.path.join(tmp, "hair_ball.txt"),
+                            hair_strands(HAIR_STRANDS, HAIR_POINTS),
+                            HAIR_RADIUS)
+    out = {}
+    n_faces = HAIR_STRANDS * (HAIR_POINTS - 1) * HAIR_SIDES * 2
+    for name, bsdf in (("eumelanin", HAIR_EUMELANIN),
+                       ("sigma_a", HAIR_SIGMA_A)):
+        d = hair_dict(mi, path, 512, bsdf)
+        w = d["sensor"]["film"]["width"]
+        t0 = time.perf_counter()
+        scene = mi.load_dict(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        faces = int((scene.face_shape >= 0).sum())
+        _check(isinstance(scene.accel, cellserve.CellServe)
+               and faces == n_faces and scene.bsdf_types == (bsdfs.HAIR,),
+               f"hair ball: {faces} faces (not {n_faces}) or not cellserve")
+        if name == "eumelanin":     # the second ball runs the same code
+            mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in cellserve.LAUNCHES:
+            cellserve.LAUNCHES[k] = 0
+        with _K1Meter() as meter:
+            t0 = time.perf_counter()
+            img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                             max_wavefront=1 << 20)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(cellserve.LAUNCHES)
+        k1 = meter.summary()
+        peak = torch.cuda.max_memory_allocated()
+        _check(all(v > 0 for v in launches.values()),
+               f"hair ball ({name}): K1 not launched in both modes: "
+               f"{launches}")
+        _check(all(k1[m]["launches"] == launches[m] for m in launches),
+               f"hair ball: K1 meter {k1} disagrees with {launches}")
+        _check(tuple(img.shape) == (w, w, 3)
+               and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+               f"hair ball ({name}): image misshaped, not finite or black")
+        mrays = rays / wall / 1e6
+        print(f"# materials hair ball ({name}) {faces} faces 512x512 4spp: "
+              f"{rays} rays in {wall:.3f} s = {mrays:.3f} Mrays/s, peak "
+              f"memory {peak / 2**30:.2f} GiB, load_dict {load_s:.2f} s, "
+              f"mean {float(img.mean()):.6f} [{card}]")
+        for mode, v in k1.items():
+            print(f"# materials hair ball ({name}) K1 {mode}: "
+                  f"{v['launches']} launches for {v['queries']} queries, "
+                  f"{v['device_ms']:.2f} device ms, bound "
+                  f"{v['bound_ms']:.3f} ms [{card}]")
+        out[name] = {"faces": faces, "rays": rays, "wall_s": wall,
+                     "mrays_per_s": mrays, "peak_bytes": peak,
+                     "load_dict_s": load_s, "mean": float(img.mean()),
+                     "k1": k1, "k1_launches": launches}
+        if name == "eumelanin":
+            out[name].update(_profile(lambda: mi.render_with_stats(
+                scene, seed=2, spp=4, max_wavefront=1 << 20), wall,
+                _accel_kernels("cells")[1]))
+        del scene, img
+        torch.cuda.empty_cache()
+
+    # the step runs once, without a warm-up of its own (the renders above
+    # ran its forward operations): the phase keeps to its time
+    d = _prb_dict(hair_dict(mi, path, HAIR_PRB_SIDE, HAIR_SIGMA_A))
+    scene = mi.load_dict(d)
+    names = ("bsdf_params",)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, rays, grads, n_passes = _grad_step(scene, names, 1, 4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_grads("hair ball prb", grads, names)
+    g = grads["bsdf_params"][0, 4:7]
+    _check(bool((g != 0).all()), f"hair ball prb: sigma_a gradient {g} has "
+           f"a zero")
+    print(f"# materials hair ball fwd+PRB bwd {HAIR_PRB_SIDE}x"
+          f"{HAIR_PRB_SIDE} 4spp: {rays} forward rays, step {wall:.3f} s in "
+          f"{n_passes} passes, sigma_a gradient {g.tolist()} [{card}]")
+    out["prb"] = {"side": HAIR_PRB_SIDE, "forward_rays": rays,
+                  "wall_s": wall, "passes": n_passes, "loss": loss,
+                  "sigma_a_grad": g.tolist()}
+    del scene, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mat_terrain(mi, card: str, tmp: str):
+    """terrain64k in PRINCIPLED_TERRAIN_BSDF with the mipmapped 2048^2
+    EXR of write_terrain_textures as its base_color: a warm-up and a timed
+    512^2, 4 spp render through cellserve with K1 launched in both modes,
+    then a PRB step (4 spp, no warm-up of its own) whose principled row
+    (metallic, roughness, clearcoat) and texture gradients must be finite
+    and nonzero."""
+    import torch
+    from mitsuba3_tpu_torch import bsdfs
+    from mitsuba3_tpu_torch.ops import cellserve
+
+    write_terrain_textures(tmp)
+    d = principled_terrain_dict(terrain64k_dict, mi.ScalarTransform4f, tmp)
+    scene = mi.load_dict(d)
+    _check(isinstance(scene.accel, cellserve.CellServe)
+           and scene.bsdf_types == (bsdfs.PRINCIPLED,)
+           and tuple(scene.textures[0].shape) == (TERRAIN_TEX_SIDE,) * 2
+           + (3,), "principled terrain64k: not cellserve, principled and "
+           "textured")
+    mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                     max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cellserve.LAUNCHES)
+    _check(all(v > 0 for v in launches.values()),
+           f"principled terrain64k: K1 not launched in both modes: "
+           f"{launches}")
+    _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           "principled terrain64k: image not finite or black")
+    print(f"# materials principled terrain64k 512x512 4spp: {rays} rays in "
+          f"{wall:.3f} s = {rays / wall / 1e6:.3f} Mrays/s, K1 launches "
+          f"{launches} [{card}]")
+    out = {"render": {"rays": rays, "wall_s": wall,
+                      "mrays_per_s": rays / wall / 1e6,
+                      "k1_launches": launches, "mean": float(img.mean())}}
+    del scene, img
+    names = ("bsdf_params", "textures")
+    scene = mi.load_dict(_prb_dict(d))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, rays, grads, n_passes = _grad_step(scene, names, 1,
+                                             TERRAIN_PRB_SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_grads("principled terrain64k prb", grads, ("bsdf_params",))
+    _check_texture_grads("principled terrain64k prb", grads, 1)
+    g = grads["bsdf_params"][0, [4, 5, 11]]
+    _check(bool((g != 0).all()), f"principled terrain64k prb: metallic, "
+           f"roughness, clearcoat gradients {g.tolist()} have a zero")
+    print(f"# materials principled terrain64k fwd+PRB bwd 512x512 "
+          f"{TERRAIN_PRB_SPP}spp: {rays} forward rays, step {wall:.3f} s in "
+          f"{n_passes} passes; metallic, roughness, clearcoat gradients "
+          f"{g.tolist()} [{card}]")
+    out["prb"] = {"forward_rays": rays, "wall_s": wall, "passes": n_passes,
+                  "loss": loss, "principled_grad": g.tolist()}
+    del scene, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mat_cornell(mi, card: str, tmp: str):
+    """The materials Cornell (materials_cornell_xml: its measured tables
+    read from .bsdf files by load_file of an XML scene, half_diffuse
+    registered in torch) at 512^2, max_depth 8: a `path` render at
+    MAT_CORNELL_SPP spp, timed after a one-pass warm-up, and a profiled
+    pass (launches of a pass); a PRB step at MAT_PRB_SPP spp (no warm-up
+    of its own) whose principled and principledthin row gradients must be
+    finite and nonzero."""
+    import torch
+    from mitsuba3_tpu_torch import bsdfs
+    from mitsuba3_tpu_torch.render import integrator as ri
+
+    register_half_diffuse(mi)
+    scene = mi.load_file(materials_cornell_xml(mi, tmp, 512, 512, 8))
+    _check(len(scene.measured_tables) == 2 and {
+        bsdfs.PRINCIPLED, bsdfs.PRINCIPLED_THIN, bsdfs.MEASURED,
+        bsdfs.custom_type("half_diffuse")[0]} <= set(scene.bsdf_types),
+        "materials cornell: a material is missing")
+    sppc, n_passes = ri.plan_passes(scene, MAT_CORNELL_SPP)
+    ri.render_pass(scene, 0, sppc, 0, MAT_CORNELL_SPP, base_seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, rays = mi.render_with_stats(scene, seed=1, spp=MAT_CORNELL_SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           "materials cornell: image not finite or black")
+    print(f"# materials cornell path 512x512 {MAT_CORNELL_SPP}spp: {rays} "
+          f"rays in {wall:.3f} s = {rays / wall / 1e6:.3f} Mrays/s in "
+          f"{n_passes} passes, peak memory {peak / 2**30:.2f} GiB [{card}]")
+    out = {"path": {"rays": rays, "wall_s": wall, "passes": n_passes,
+                    "mrays_per_s": rays / wall / 1e6, "peak_bytes": peak,
+                    "mean": float(img.mean())}}
+    out["path"].update(_profile(lambda: ri.render_pass(
+        scene, 2, sppc, 0, MAT_CORNELL_SPP, base_seed=2),
+        wall / n_passes, {}))
+    del scene, img
+    iso, aniso = (os.path.join(tmp, n) for n in ("iso.bsdf", "aniso.bsdf"))
+    scene = mi.load_dict(_prb_dict(materials_cornell_dict(
+        mi, 512, 512, 8, {"filename": iso}, {"filename": aniso})))
+    names = ("bsdf_params", "em_radiance", "textures")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, rays, grads, n_passes = _grad_step(scene, names, 1, MAT_PRB_SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_grads("materials cornell prb", grads, ("bsdf_params",
+                                                  "em_radiance"))
+    g = grads["bsdf_params"]
+    for t in (bsdfs.PRINCIPLED, bsdfs.PRINCIPLED_THIN):
+        for i in (i for i, ti in enumerate(scene.bsdf_types) if ti == t):
+            _check(bool((g[i, 4:7] != 0).any()), f"materials cornell prb: "
+                   f"row {i} (type {t}) gradient {g[i, :16].tolist()} is "
+                   f"zero in [4:7]")
+    print(f"# materials cornell fwd+PRB bwd 512x512 {MAT_PRB_SPP}spp: "
+          f"{rays} forward rays, step {wall:.3f} s in {n_passes} passes "
+          f"[{card}]")
+    out["prb"] = {"forward_rays": rays, "wall_s": wall, "passes": n_passes,
+                  "loss": loss}
+    del scene, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mat_agreement(mi, tmp: str):
+    """Card against CPU at MAT_CHECK_SIDE^2 (4 spp, seed 5): the materials
+    Cornell (max_depth 4, tables from its .bsdf files), the small terrain
+    in PRINCIPLED_TERRAIN_BSDF with its textured base_color, and a
+    tessellated bsplinecurve hair scene of 12 strands; each held by
+    _agree_images (> 99.5 % of values isclose 1e-3, means rtol 1e-3)."""
+    side = MAT_CHECK_SIDE
+    iso, aniso = (os.path.join(tmp, n) for n in ("iso.bsdf", "aniso.bsdf"))
+    strands = write_curve_file(os.path.join(tmp, "strands.txt"),
+                               hair_strands(12, 8, seed=4), 0.02)
+    cases = [
+        ("materials cornell", materials_cornell_dict(
+            mi, side, side, 4, {"filename": iso}, {"filename": aniso})),
+        ("principled small terrain", principled_terrain_dict(
+            small_terrain_dict, mi.ScalarTransform4f, tmp, width=side)),
+        ("bsplinecurve hair", hair_dict(
+            mi, strands, side, HAIR_EUMELANIN, "bsplinecurve",
+            tessellate=True, max_depth=4))]
+    out = {}
+    for tag, d in cases:
+        with _accel("cells"):
+            img_g = mi.render(mi.load_dict(d), seed=5, spp=4)
+            img_c = mi.render(mi.load_dict(d, device="cpu"), seed=5, spp=4)
+        out[tag] = _agree_images(f"{tag} ({side}x{side}, 4 spp)",
+                                 img_g.cpu().numpy(), img_c.numpy())
+    return out
+
+
+def phase_materials(mi, card: str):
+    """The slice's materials on the card (nothing falls back to the CPU):
+    the hair ball through K1, principled terrain64k through K1, the
+    materials Cornell, then the card against the CPU."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, part in (("hair", _mat_hair), ("terrain", _mat_terrain),
+                           ("cornell", _mat_cornell),
+                           ("agreement", lambda m, _, t: _mat_agreement(
+                               m, t))):
+            t0 = time.perf_counter()
+            out[name] = part(mi, card, tmp)
+            print(f"# materials {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(only=None):
-    """The whole smoke test, or with `only` (``--phase media`` or
-    ``--phase integrators``) the kernel build and that phase alone,
-    without the final line."""
+    """The whole smoke test, or with `only` (``--phase media``,
+    ``--phase integrators`` or ``--phase materials``) the kernel build and
+    that phase alone, without the final line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -3883,7 +4478,8 @@ def main(only=None):
         return out
 
     if only is not None:
-        phase = {"media": phase_media, "integrators": phase_integrators}[only]
+        phase = {"media": phase_media, "integrators": phase_integrators,
+                 "materials": phase_materials}[only]
         result = timed(only, phase, mi, card)
         print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({only: result, "card": card}))
@@ -3923,6 +4519,7 @@ def main(only=None):
     textures = timed("textures", phase_textures, mi, card)
     media = timed("media", phase_media, mi, card)
     integrators = timed("integrators", phase_integrators, mi, card)
+    new_materials = timed("materials", phase_materials, mi, card)
     k8_device = timed("K8 device times", phase_k8_device, card)
     rows += timed("kernels K5-K8", lambda: phase_kernels_attic(
         card, k8_device=k8_device))
@@ -3950,6 +4547,7 @@ def main(only=None):
     print(json.dumps({"textures": textures, "card": card}))
     print(json.dumps({"media": media, "card": card}))
     print(json.dumps({"integrators": integrators, "card": card}))
+    print(json.dumps({"slice_materials": new_materials, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

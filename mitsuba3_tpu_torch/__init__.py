@@ -9,24 +9,26 @@ public API follows the JAX package::
     scene = mi.load_dict(scene_dict)              # on the card
     img, n_rays = mi.render_with_stats(scene, seed=0, spp=4)
 
-``load_dict(d, device="cpu")`` puts a scene on the CPU, where every kernel
-runs as its plain PyTorch version; ``load_file(path)`` and
+``load_dict(d, device="cpu")`` puts a scene on the CPU, where every
+kernel runs as its plain PyTorch version; ``load_file(path)`` and
 ``load_string(xml)`` read a Mitsuba XML scene (with its OBJ, PLY and
 serialized meshes) the same way. The port carries the plugins of
 triangle scenes (meshes, rectangles, cubes, mesh files) with every
-sampler, sensor and reconstruction filter and the crop window,
-constant-parameter BSDFs (diffuse, conductor, roughconductor, plastic,
-roughplastic, dielectric, thindielectric, roughdielectric, null, mask,
-blendbsdf and twosided), area lights (on meshes and tessellated spheres,
-disks and cylinders; cone-sampled on spheres), directionalarea, point,
-spot, directional and projector lights and a constant, image or sun and
-sky environment, such as ``cornell_box()``, rendered by the ``path``,
-``direct``, ``aov``, ``depth``, ``moment`` or ``ptracer`` integrator or
-differentiated by ``prb`` (path replay backpropagation: gradients of the
-scene's tables through ``torch.autograd``); participating media
-(homogeneous and heterogeneous, six phase functions) render under
-``volpath`` and ``volpathmis`` and differentiate under ``prbvolpath``;
-small scenes use the dense
+sampler, sensor and reconstruction filter and the crop window, BSDFs
+(diffuse, conductor, roughconductor, plastic, roughplastic, dielectric,
+thindielectric, roughdielectric, null, mask, blendbsdf, normalmap,
+principled, principledthin, hair, measured and twosided, and a user's
+own through ``register_bsdf``), hair fibers as tessellated
+``linearcurve`` and ``bsplinecurve`` tubes, area lights (on meshes and
+tessellated spheres, disks and cylinders; cone-sampled on spheres),
+directionalarea, point, spot, directional and projector lights and a
+constant, image or sun and sky environment, such as ``cornell_box()``,
+rendered by the ``path``, ``direct``, ``aov``, ``depth``, ``moment`` or
+``ptracer`` integrator or differentiated by ``prb`` (path replay
+backpropagation: gradients of the scene's tables through
+``torch.autograd``); participating media (homogeneous and heterogeneous,
+six phase functions) render under ``volpath`` and ``volpathmis`` and
+differentiate under ``prbvolpath``; small scenes use the dense
 intersector, large ones the accel that ``MI3T_ACCEL`` names (cellserve,
 bvh_serve or bvh_tiled); see ``loader.py``.
 
@@ -57,6 +59,16 @@ from .utils.xml import load_file, load_string
 
 ScalarTransform4f = Transform4f
 
+
+def register_bsdf(name, module, lower=None):
+    """Register a user's BSDF plugin under the scene-dict type `name` (the
+    JAX package's ``register_bsdf``); returns its type id. See
+    ``bsdfs.register_custom`` for the module's contract (FLAGS, sample and
+    eval_pdf on torch tensors) and `lower`."""
+    from . import bsdfs
+    return bsdfs.register_custom(name, module, lower)
+
+
 __all__ = ["Scene", "SceneParameters", "ScalarTransform4f", "Transform4f",
            "ad", "cornell_box", "load_dict", "load_file", "load_string",
-           "render", "render_with_stats", "traverse"]
+           "register_bsdf", "render", "render_with_stats", "traverse"]

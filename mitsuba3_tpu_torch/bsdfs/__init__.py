@@ -3,11 +3,19 @@
 
 Each BSDF type is a module of functions over per-lane parameter rows;
 per-lane dispatch evaluates every type present in the scene and blends
-by mask. The port registers the JAX package's type ids 0-11: diffuse,
-conductor, roughconductor, dielectric, plastic, null, thindielectric,
-roughdielectric, roughplastic and the adapters mask, blendbsdf and
-normalmap (``twosided`` is the row's flag [16], not a type; a bumpmap
-loads as a normalmap).
+by mask. The port registers the JAX package's type ids 0-13, 15 and 18:
+diffuse, conductor, roughconductor, dielectric, plastic, null,
+thindielectric, roughdielectric, roughplastic, the adapters mask,
+blendbsdf and normalmap, principled, hair, measured and principledthin
+(``twosided`` is the row's flag [16], not a type; a bumpmap loads as a
+normalmap). The polarized types (14, 16, 17) are not ported.
+
+A user's own BSDF registers through ``register_custom`` (the port's
+``register_bsdf``) under a scene-dict type name and gets an id from 100
+up, as in the JAX package. Its module has the port's contract: ``FLAGS``
+and ``sample(scene, bsdf_idx, si, s1, s2) -> (BSDFSample, weight Vec3)``
+and ``eval_pdf(scene, bsdf_idx, si, wo) -> (value Vec3, pdf)`` on torch
+tensors, reading its rows by ``scene.gather_bsdf_params(bsdf_idx)``.
 
 Adapters wrap nested BSDF slots. Their nesting unrolls statically:
 ``dispatch_nested`` includes adapter types until the scene's longest
@@ -24,9 +32,9 @@ import numpy as np
 import torch
 
 from ..core.vec import Vec3
-from . import (blendbsdf, conductor, dielectric, diffuse, mask, normalmap,
-               null, plastic, roughconductor, roughdielectric, roughplastic,
-               thindielectric)
+from . import (blendbsdf, conductor, dielectric, diffuse, hair, mask,
+               measured, normalmap, null, plastic, principled, principledthin,
+               roughconductor, roughdielectric, roughplastic, thindielectric)
 
 # BSDFFlags (bsdf.h)
 NULL_FLAG = 0x0001
@@ -55,6 +63,11 @@ ROUGH_PLASTIC = 8
 MASK = 9
 BLEND = 10
 NORMALMAP = 11
+PRINCIPLED = 12
+HAIR = 13
+MEASURED = 15
+PRINCIPLED_THIN = 18
+CUSTOM_BASE = 100   # the first id of a user's registered BSDF
 N_PARAMS = 28  # bsdf_params row width ([16] = two-sided flag, all types;
 #                [14], [15] = nested slots; [17:26] = roughplastic's fit)
 
@@ -62,11 +75,31 @@ _REGISTRY = {DIFFUSE: diffuse, CONDUCTOR: conductor,
              ROUGH_CONDUCTOR: roughconductor, DIELECTRIC: dielectric,
              PLASTIC: plastic, NULL: null, THIN_DIELECTRIC: thindielectric,
              ROUGH_DIELECTRIC: roughdielectric, ROUGH_PLASTIC: roughplastic,
-             MASK: mask, BLEND: blendbsdf, NORMALMAP: normalmap}
+             MASK: mask, BLEND: blendbsdf, NORMALMAP: normalmap,
+             PRINCIPLED: principled, HAIR: hair, MEASURED: measured,
+             PRINCIPLED_THIN: principledthin}
+_CUSTOM = {}   # name -> (type id, lower function or None)
 ADAPTER_TYPES = frozenset((MASK, BLEND, NORMALMAP))
 # the row column of each textured type's texture id
 TEXTURE_COLUMN = {DIFFUSE: 3, PLASTIC: 3, ROUGH_PLASTIC: 3, MASK: 1,
-                  BLEND: 1, NORMALMAP: 1}
+                  BLEND: 1, NORMALMAP: 1, PRINCIPLED: 3, PRINCIPLED_THIN: 3}
+
+
+def register_custom(name: str, module, lower=None) -> int:
+    """Register a user's BSDF `module` under the scene-dict type `name`;
+    returns its type id (from CUSTOM_BASE up; registering a name again
+    replaces its module and keeps its id). `lower(spec)` gives the row's
+    first values (at most N_PARAMS floats); without it [0:3] is the spec's
+    ``reflectance`` (0.5 by default)."""
+    tid = _CUSTOM[name][0] if name in _CUSTOM else CUSTOM_BASE + len(_CUSTOM)
+    _CUSTOM[name] = (tid, lower)
+    _REGISTRY[tid] = module
+    return tid
+
+
+def custom_type(name: str):
+    """(type id, lower function) of a registered BSDF name, else None."""
+    return _CUSTOM.get(name)
 
 
 def _name(type_id) -> str:

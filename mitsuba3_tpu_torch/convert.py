@@ -5,7 +5,8 @@ the leaves a scene of the port needs (vertices, faces, the face tables
 with their vertex colors, area-emitter sampling tables, emitters,
 environment map and warp, BSDF rows, textures and their mip levels,
 medium rows, density grids, phase tables, world->grid affines and the
-faces' media, sensor or a batch sensor's sub-sensors, accel arrays) into
+faces' media, the measured BSDFs' tables, sensor or a batch sensor's
+sub-sensors, accel arrays) into
 a flat dict of numpy arrays plus a dict of static fields (among them the
 textures' metadata, the media's and phases' types, the sensor's medium,
 the film with its crop window, the sensor config, the sampler type, the
@@ -62,6 +63,10 @@ SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
                 "em_sphere")
 TUPLES = ("medium_grids", "phase_tables")   # tuples of arrays
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
+# a measured BSDF's table: its arrays and its two SlicedMarginal2D warps
+MEASURED_ARRAYS = ("theta_i", "phi_i", "reduction", "spectra", "ndf",
+                   "sigma")
+MEASURED_WARPS = ("lum", "vndf")
 SENSOR_ARRAYS = ("origin", "axis_x", "axis_y", "axis_z", "tan_half_x",
                  "tan_half_y", "aperture_radius", "focus_distance")
 # accel kind -> (class, array fields, static fields)
@@ -131,6 +136,13 @@ def arrays_from_scene(scene):
             arrays[f"texture_mips.{i}.{j}"] = _np(level)
     for name in WARP_ARRAYS:
         arrays[f"env_warp.{name}"] = _np(getattr(scene.env_warp, name))
+    for i, tbl in enumerate(getattr(scene, "measured_tables", ())):
+        for name in MEASURED_ARRAYS:
+            arrays[f"measured_tables.{i}.{name}"] = _np(tbl[name])
+        for warp in MEASURED_WARPS:
+            for name in WARP_ARRAYS:
+                arrays[f"measured_tables.{i}.{warp}.{name}"] = _np(
+                    getattr(tbl[warp], name))
     for prefix, sensor in _sensor_prefixes(scene.sensor):
         for name in SENSOR_ARRAYS:
             if getattr(sensor, name, None) is not None:
@@ -234,6 +246,13 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
         for i in range(n_tex))
     acc = {name[len("accel."):]: a for name, a in arrays.items()
            if name.startswith("accel.")}
+    n_measured = sum(name.startswith("measured_tables.")
+                     and name.endswith(".theta_i") for name in arrays)
+    measured = tuple(
+        {**group(f"measured_tables.{i}", MEASURED_ARRAYS),
+         **{w: SlicedMarginal2D(**group(f"measured_tables.{i}.{w}",
+                                        WARP_ARRAYS))
+            for w in MEASURED_WARPS}} for i in range(n_measured))
     return Scene(
         **leaves,
         env_warp=SlicedMarginal2D(**group("env_warp", WARP_ARRAYS)),
@@ -242,6 +261,7 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
                else accel_from_arrays(acc, meta["accel"], device)),
         textures=tuple(t(f"textures.{i}") for i in range(n_tex)),
         texture_mips=mips,
+        measured_tables=measured,
         **bsdfs.dispatch_tables(
             meta["bsdf_types"], rows, np.asarray(arrays["face_bsdf"])[
                 np.asarray(arrays["face_shape"]) >= 0]),

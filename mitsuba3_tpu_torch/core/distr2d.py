@@ -1,6 +1,7 @@
-"""Piecewise-constant 2D warp — counterpart of ``SlicedMarginal2D`` in
-``mitsuba3_tpu/core/distr2d.py`` (the environment emitter's sampling
-tables).
+"""Piecewise-constant 2D warp — counterpart of ``SlicedMarginal2D`` and
+``eval_bilinear_sliced`` in ``mitsuba3_tpu/core/distr2d.py`` (the
+environment emitter's sampling tables, one slice, and the measured BSDF's
+conditioned warps and tables, a slice per incident direction).
 
 The tables are built on the host in NumPy, exactly as the JAX package
 builds them. Sampling inverts the marginal and the conditional CDF by
@@ -8,7 +9,9 @@ counting the entries below the sample, as the JAX package does; the
 count is a binary search (``_count_below``), not a compare over a row
 gathered per lane, which at an environment map's 2048 columns and a
 million lanes would take gigabytes. One table slice per condition; the
-environment uses a single slice (S = 1).
+environment uses a single slice (S = 1). Lookups of one entry per lane
+(``_at``) gather that entry alone, where the JAX package selects it from a
+row gathered per lane: the selected values are the same.
 """
 from __future__ import annotations
 
@@ -62,6 +65,25 @@ class SlicedMarginal2D:
                    (iy + fy.clamp(0.0, 1.0)) / h)
         return pos, self.eval(k, pos)
 
+    def invert(self, k, pos: Vec2):
+        """pos -> (the uniform sample that maps to it, pdf [N])
+        (Marginal2D::invert)."""
+        h = self.marg_cdf.shape[1]
+        w = self.cond_cdf.shape[1]
+        iy = torch.clamp((pos.y * h).to(torch.int32), 0, h - 1)
+        fy = pos.y * h - iy
+        cy = _at(self.marg_cdf, k, iy)
+        py = _at(self.marg_cdf, k, iy - 1)
+        sy = py + fy * (cy - py)
+
+        ix = torch.clamp((pos.x * w).to(torch.int32), 0, w - 1)
+        fx = pos.x * w - ix
+        row = k * h + iy
+        cx = _at(self.cond_cdf, row, ix)
+        px = _at(self.cond_cdf, row, ix - 1)
+        sx = px + fx * (cx - px)
+        return Vec2(sx, sy), self.eval(k, pos)
+
     def eval(self, k, pos: Vec2):
         """Density at pos (pdf on the unit square)."""
         s_count, h = self.marg_cdf.shape
@@ -69,6 +91,26 @@ class SlicedMarginal2D:
         iy = torch.clamp((pos.y * h).to(torch.int32), 0, h - 1)
         ix = torch.clamp((pos.x * w).to(torch.int32), 0, w - 1)
         return _at(self.density.reshape(s_count * h, w), k * h + iy, ix)
+
+
+def eval_bilinear_sliced(tbl, k, pos: Vec2):
+    """Bilinear lookup in the sliced table tbl [S, H, W] at pos in [0,1]^2,
+    slice k per lane (the measured BSDF's spectra, ndf and sigma)."""
+    s_count, h, w = tbl.shape
+    flat = tbl.reshape(s_count * h, w)
+    x = torch.clamp(pos.x * (w - 1), 0.0, w - 1.0)
+    y = torch.clamp(pos.y * (h - 1), 0.0, h - 1.0)
+    x0 = torch.clamp(torch.floor(x).to(torch.int32), 0, w - 2)
+    y0 = torch.clamp(torch.floor(y).to(torch.int32), 0, h - 2)
+    fx = x - x0
+    fy = y - y0
+    r0 = k * h + y0
+    v00 = _at(flat, r0, x0)
+    v01 = _at(flat, r0, x0 + 1)
+    v10 = _at(flat, r0 + 1, x0)
+    v11 = _at(flat, r0 + 1, x0 + 1)
+    return ((v00 * (1 - fx) + v01 * fx) * (1 - fy)
+            + (v10 * (1 - fx) + v11 * fx) * fy)
 
 
 def _count_below(table, row, x):

@@ -3,27 +3,35 @@ for the plugins the port carries:
 
 - ``mesh`` shapes given as ``vertices``/``faces`` arrays (with optional
   per-vertex ``uvs`` and shading ``normals``), ``rectangle``, ``cube``,
-  the mesh files ``obj``, ``ply`` and ``serialized``, and the
-  tessellated ``sphere``, ``disk`` and ``cylinder`` (where the JAX loader
+  the mesh files ``obj``, ``ply`` and ``serialized``, the tessellated
+  ``sphere``, ``disk`` and ``cylinder`` (where the JAX loader
   tessellates them: an emitter attached, ``flip_normals``, or a to_world
-  that is not rigid with a uniform scale), each with a BSDF (inline,
-  named at the top level, or a ``ref`` to a named one) and optionally an
-  ``area`` or ``directionalarea`` emitter of constant radiance (a
-  sphere's also in ``em_sphere``, cone-sampled by NEE);
+  that is not rigid with a uniform scale) and the ``linearcurve`` and
+  ``bsplinecurve`` tubes (where the JAX loader tessellates them:
+  ``tessellate``, an emitter, or more than 512 cones), each with a BSDF
+  (inline, named at the top level, or a ``ref`` to a named one) and
+  optionally an ``area`` or ``directionalarea`` emitter of constant
+  radiance (a sphere's also in ``em_sphere``, cone-sampled by NEE);
 - the BSDFs ``diffuse``, ``conductor``, ``roughconductor``, ``plastic``,
   ``roughplastic``, ``dielectric``, ``thindielectric``,
   ``roughdielectric``, ``null``, ``mask``, ``blendbsdf``, ``normalmap``
-  and ``bumpmap`` (lowered to a normal map, as the JAX loader does), and
-  ``twosided`` around any of them; the rows, slot flags and adapter depth
-  are the JAX loader's;
+  and ``bumpmap`` (lowered to a normal map, as the JAX loader does),
+  ``principled``, ``principledthin``, ``hair`` (``sigma_a``, or the
+  melanin concentrations mapped to it), ``measured`` (an RGB ``.bsdf``
+  tensor file or its ``tables``, isotropic or anisotropic, lowered to
+  ``scene.measured_tables``) and the BSDFs a user registers with
+  ``register_bsdf`` (``bsdfs.register_custom``), and ``twosided`` around
+  any of them; the rows, slot flags and adapter depth are the JAX
+  loader's;
 - textures where the JAX loader reads them (``TEXTURED``): a diffuse
-  ``reflectance`` and a plastic's or roughplastic's
-  ``diffuse_reflectance`` from a ``bitmap`` (an image file or a ``data``
-  array), a ``checkerboard``, a ``volume`` (``constvolume``, a grid or a
-  ``.vol`` file) or a ``mesh_attribute`` (vertex colors); a mask's
-  ``opacity`` and a blendbsdf's ``weight`` from a bitmap or a
-  checkerboard; a normalmap's or bumpmap's texture (read raw); with the
-  textures' metadata and, for ``mipmap`` bitmaps, their mip levels;
+  ``reflectance``, a plastic's or roughplastic's ``diffuse_reflectance``
+  and a principled's or principledthin's ``base_color`` from a
+  ``bitmap`` (an image file or a ``data`` array), a ``checkerboard``, a
+  ``volume`` (``constvolume``, a grid or a ``.vol`` file) or a
+  ``mesh_attribute`` (vertex colors); a mask's ``opacity`` and a
+  blendbsdf's ``weight`` from a bitmap or a checkerboard; a normalmap's
+  or bumpmap's texture (read raw); with the textures' metadata and, for
+  ``mipmap`` bitmaps, their mip levels;
 - ``point``, ``spot``, ``directional`` and ``projector`` emitters (a
   projector's irradiance a color, a ``bitmap`` or a ``checkerboard``) and
   a ``constant``, ``envmap`` (an image file or a ``data`` array),
@@ -58,16 +66,18 @@ for the plugins the port carries:
   ``xla``, ``grid`` and ``none`` are not ported.
 
 Any other plugin raises ``NotImplementedError`` naming it: among them an
-analytic sphere, disk or cylinder, the ``stokes``, ``volprim_rf_basic``,
-``prb_projective`` and ``direct_projective`` integrators, a ``specfilm``,
-a batch sensor's ``medium``, an rfilter's parameters (which the JAX
-package ignores), the ``blackbody``, ``regular`` and ``irregular``
-spectra, a textured parameter outside ``TEXTURED`` (principled's
-``base_color`` among them) and an image format that ``utils/image_io.py``
-does not read. XML scene files lower to the same dicts
-(``utils/xml.py``). The host-side table building is the JAX package's,
-so the scene's arrays equal its leaves. The scene lives on ``device``:
-the card unless the caller asks for the CPU.
+analytic sphere, disk, cylinder or curve, the polarized BSDFs
+(``pplastic``, ``polarizer``, ``retarder``, ``circular``,
+``measured_polarized``), a spectral ``.bsdf``, the ``stokes``,
+``volprim_rf_basic``, ``prb_projective`` and ``direct_projective``
+integrators, a ``specfilm``, a batch sensor's ``medium``, an rfilter's
+parameters (which the JAX package ignores), the ``blackbody``,
+``regular`` and ``irregular`` spectra, a textured parameter outside
+``TEXTURED`` and an image format that ``utils/image_io.py`` does not
+read. XML scene files lower to the same dicts (``utils/xml.py``). The
+host-side table building is the JAX package's, so the scene's arrays
+equal its leaves. The scene lives on ``device``: the card unless the
+caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -82,6 +92,7 @@ from . import media as media_pkg
 from . import phase as phase_pkg
 from . import shapes as shapes_pkg
 from . import sensors as sensors_pkg
+from .core.distr2d import SlicedMarginal2D
 from .core.transform import as_transform
 from .emitters import envmap as env_mod
 from .emitters import sunsky
@@ -142,7 +153,33 @@ BSDF_KEYS = {
     "normalmap": ("normalmap", "bumpmap"),
     "bumpmap": ("normalmap", "bumpmap"),
     "twosided": (),
+    "principled": ("base_color", "metallic", "roughness", "anisotropic",
+                   "spec_tint", "sheen", "sheen_tint", "clearcoat",
+                   "clearcoat_gloss", "specular", "flatness"),
+    "principledthin": ("base_color", "spec_trans", "roughness",
+                       "anisotropic", "eta", "spec_tint", "sheen",
+                       "sheen_tint", "diff_trans", "flatness"),
+    "hair": ("longitudinal_roughness", "azimuthal_roughness", "scale_tilt",
+             "sigma_a", "eumelanin", "pheomelanin") + _IOR_KEYS,
+    "measured": ("filename", "tables"),
 }
+# principled's and principledthin's scalars: row column -> (parameter,
+# default)
+PRINCIPLED_SCALARS = {
+    "principled": {4: ("metallic", 0.0), 5: ("roughness", 0.5),
+                   6: ("anisotropic", 0.0), 8: ("spec_tint", 0.0),
+                   9: ("sheen", 0.0), 10: ("sheen_tint", 0.0),
+                   11: ("clearcoat", 0.0), 12: ("clearcoat_gloss", 0.0),
+                   13: ("specular", 0.5), 14: ("flatness", 0.0)},
+    "principledthin": {4: ("spec_trans", 0.0), 5: ("roughness", 0.5),
+                       6: ("anisotropic", 0.0), 7: ("eta", 1.5),
+                       8: ("spec_tint", 0.0), 9: ("sheen", 0.0),
+                       10: ("sheen_tint", 0.0), 11: ("diff_trans", 0.0),
+                       12: ("flatness", 0.0)},
+}
+# melanin absorption per unit concentration (hair.cpp pigmentation)
+EUMELANIN_SIGMA_A = (0.419, 0.697, 1.37)
+PHEOMELANIN_SIGMA_A = (0.187, 0.4, 1.05)
 # (BSDF type, parameter) -> the texture types the JAX loader reads there
 _IMAGE_TEXTURES = ("bitmap", "checkerboard")
 _COLOR_TEXTURES = _IMAGE_TEXTURES + ("volume", "mesh_attribute")
@@ -150,6 +187,8 @@ TEXTURED = {
     ("diffuse", "reflectance"): _COLOR_TEXTURES,
     ("plastic", "diffuse_reflectance"): _COLOR_TEXTURES,
     ("roughplastic", "diffuse_reflectance"): _COLOR_TEXTURES,
+    ("principled", "base_color"): _COLOR_TEXTURES,
+    ("principledthin", "base_color"): _COLOR_TEXTURES,
     ("mask", "opacity"): _IMAGE_TEXTURES,
     ("blendbsdf", "weight"): _IMAGE_TEXTURES,
 }
@@ -215,13 +254,13 @@ def _spectrum_value(spec: dict, what: str):
     raise _not_ported(f"{what} type {spec.get('type')!r}")
 
 
-def _rgb(spec, default=(0.5, 0.5, 0.5)):
+def _rgb(spec, default=(0.5, 0.5, 0.5), what: str = "spectrum"):
     """A constant color: number | [r, g, b] | an ``rgb`` or constant
     spectrum dict ({'type': 'uniform', 'value': ...} and the like)."""
     if spec is None:
         return np.asarray(default, np.float32)
     if isinstance(spec, dict):
-        spec = _spectrum_value(spec, "spectrum")
+        spec = _spectrum_value(spec, what)
     v = np.asarray(spec, np.float32).reshape(-1)
     if v.size == 1:
         v = np.repeat(v, 3)
@@ -229,7 +268,9 @@ def _rgb(spec, default=(0.5, 0.5, 0.5)):
 
 
 def _is_bsdf(v) -> bool:
-    return isinstance(v, dict) and v.get("type") in BSDF_NAMES
+    return isinstance(v, dict) and (
+        v.get("type") in BSDF_NAMES
+        or bsdfs_pkg.custom_type(v.get("type")) is not None)
 
 
 def _scalar(spec, default: float, what: str) -> float:
@@ -274,13 +315,78 @@ def _volume_texture(cspec: dict) -> Texture:
                    ("3d", "trilinear", False, w2l))
 
 
-def _bsdf_row(spec: dict, add_bsdf, textures: list):
+def _custom_row(spec: dict, tid: int, lower):
+    """The row of a user's registered BSDF: `lower(spec)`'s values, or the
+    spec's ``reflectance`` in [0:3]."""
+    params = np.zeros(bsdfs_pkg.N_PARAMS, np.float32)
+    if lower is None:
+        params[0:3] = _rgb(spec.get("reflectance",
+                                    {"type": "rgb", "value": 0.5}),
+                           what=f"{spec['type']}'s reflectance")
+        return tid, params
+    row = np.asarray(lower(spec), np.float32).ravel()
+    if row.size > bsdfs_pkg.N_PARAMS:
+        raise ValueError(f"custom BSDF {spec['type']!r}: row has {row.size} "
+                         f"params (max {bsdfs_pkg.N_PARAMS})")
+    params[:row.size] = row
+    return tid, params
+
+
+def measured_tables(spec: dict, dev) -> dict:
+    """A measured BSDF's tables on `dev` (measured.cpp:86-238), as the JAX
+    loader's ``_measured_tables`` makes them: from an RGB ``.bsdf`` file
+    (``filename``) or a dict of its fields (``tables``). The conditioned
+    warps' slice index is p * T + j (the file's [phi_i, theta_i, H, W]
+    layout); ndf and sigma are one unconditioned [1, H, W] grid each."""
+    if "filename" in spec:
+        from .utils import tensor_io
+        fields = tensor_io.read(spec["filename"])
+    else:
+        fields = spec["tables"]
+    if "wavelengths" in fields:
+        raise _not_ported("a spectral measured BSDF (a .bsdf file with "
+                          "wavelengths)")
+    phi_i = np.asarray(fields["phi_i"], np.float32).reshape(-1)
+    theta_i = np.asarray(fields["theta_i"], np.float32).reshape(-1)
+    t, pp = theta_i.shape[0], phi_i.shape[0]
+    # anisotropic tables may cover only 2 pi / reduction of phi_i
+    # (measured.cpp:165-172)
+    red = 1 if pp <= 2 else int(round(
+        (2.0 * np.pi) / max(float(phi_i[-1] - phi_i[0]), 1e-6)))
+    vndf = np.asarray(fields["vndf"], np.float32)
+    lum = np.asarray(fields["luminance"], np.float32)
+    spectra = np.asarray(fields["rgb" if "rgb" in fields else "spectra"],
+                         np.float32)
+    ndf = np.asarray(fields["ndf"], np.float32)
+    sigma = np.asarray(fields["sigma"], np.float32)
+
+    def t_(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    return {
+        "theta_i": t_(theta_i), "phi_i": t_(phi_i),
+        "reduction": torch.tensor(float(red), dtype=torch.float32,
+                                  device=dev),
+        "lum": SlicedMarginal2D.from_data(
+            lum.reshape(pp * t, *lum.shape[-2:]), dev),
+        "vndf": SlicedMarginal2D.from_data(
+            vndf.reshape(pp * t, *vndf.shape[-2:]), dev),
+        "spectra": t_(spectra.reshape(pp * t * 3, *spectra.shape[-2:])),
+        "ndf": t_(ndf[None] if ndf.ndim == 2 else ndf),
+        "sigma": t_(sigma[None] if sigma.ndim == 2 else sigma)}
+
+
+def _bsdf_row(spec: dict, add_bsdf, textures: list, measured: list):
     """Lower a BSDF spec -> (type id, params row [N_PARAMS]), as the JAX
     loader does. `add_bsdf` registers a nested BSDF (mask, blendbsdf,
     normalmap) and returns its slot; nested slots come before their
     adapter's. A texture a parameter names is appended to `textures` and
-    its row slot holds its index + 1 (-1 for vertex colors)."""
+    its row slot holds its index + 1 (-1 for vertex colors); a measured
+    BSDF's spec is appended to `measured` and its row holds its index."""
     btype = spec.get("type")
+    custom = bsdfs_pkg.custom_type(btype)
+    if custom is not None:
+        return _custom_row(spec, *custom)
     if btype not in BSDF_KEYS:
         raise _not_ported(f"BSDF type {btype!r}")
     nests = [v for v in spec.values() if _is_bsdf(v)]
@@ -294,7 +400,7 @@ def _bsdf_row(spec: dict, add_bsdf, textures: list):
     params = np.zeros(bsdfs_pkg.N_PARAMS, np.float32)
 
     def color(key, default):
-        return _rgb(spec.get(key), default)
+        return _rgb(spec.get(key), default, f"{btype}'s {key}")
 
     def texture(cspec, tex_slot):
         """Register the texture `cspec` in the row's slot `tex_slot`."""
@@ -317,7 +423,7 @@ def _bsdf_row(spec: dict, add_bsdf, textures: list):
             texture(cspec, tex_slot)
             params[rgb_slot:rgb_slot + 3] = 0.5
         else:
-            params[rgb_slot:rgb_slot + 3] = _rgb(cspec, default)
+            params[rgb_slot:rgb_slot + 3] = color(key, default)
 
     def scalar_or_texture(key, what):
         v = spec.get(key)
@@ -330,7 +436,7 @@ def _bsdf_row(spec: dict, add_bsdf, textures: list):
     if btype == "twosided":
         if len(nests) != 1:
             raise ValueError("twosided needs exactly one nested BSDF")
-        tid, params = _bsdf_row(nests[0], add_bsdf, textures)
+        tid, params = _bsdf_row(nests[0], add_bsdf, textures, measured)
         params[16] = 1.0
         return tid, params
     if btype == "mask":
@@ -364,6 +470,32 @@ def _bsdf_row(spec: dict, add_bsdf, textures: list):
     if btype == "diffuse":
         color_or_texture("reflectance", (0.5, 0.5, 0.5), 0, 3)
         return bsdfs_pkg.DIFFUSE, params
+    if btype in PRINCIPLED_SCALARS:
+        color_or_texture("base_color", (0.5, 0.5, 0.5), 0, 3)
+        for col, (key, default) in PRINCIPLED_SCALARS[btype].items():
+            params[col] = _scalar(spec.get(key), default, f"{btype}'s {key}")
+        return (bsdfs_pkg.PRINCIPLED if btype == "principled"
+                else bsdfs_pkg.PRINCIPLED_THIN), params
+    if btype == "hair":
+        for col, key, default in ((0, "longitudinal_roughness", 0.3),
+                                  (1, "azimuthal_roughness", 0.3),
+                                  (2, "scale_tilt", 2.0)):
+            params[col] = _scalar(spec.get(key), default, f"hair's {key}")
+        params[3] = (float(spec.get("int_ior", 1.55))        # amber
+                     / float(spec.get("ext_ior", 1.000277)))
+        if "sigma_a" in spec:
+            params[4:7] = color("sigma_a", (0.2, 0.3, 0.5))
+        else:
+            # melanin concentrations -> absorption (hair.cpp)
+            params[4:7] = (float(spec.get("eumelanin", 1.3))
+                           * np.array(EUMELANIN_SIGMA_A)
+                           + float(spec.get("pheomelanin", 0.2))
+                           * np.array(PHEOMELANIN_SIGMA_A))
+        return bsdfs_pkg.HAIR, params
+    if btype == "measured":
+        params[0] = len(measured)
+        measured.append(spec)
+        return bsdfs_pkg.MEASURED, params
     if btype in ("conductor", "roughconductor"):
         eta_d, k_d = CONDUCTOR_IOR.get(spec.get("material", "none"),
                                        CONDUCTOR_IOR["none"])
@@ -772,11 +904,12 @@ def load_dict(d: dict, device=None) -> Scene:
     bsdf_params: list[np.ndarray] = []
     named_bsdf: dict[str, int] = {}
     textures: list[Texture] = []
+    measured: list[dict] = []
 
     def add_bsdf(spec, name=None):
         if spec.get("type") == "ref":
             return named_bsdf[spec["id"]]
-        tid, row = _bsdf_row(spec, add_bsdf, textures)
+        tid, row = _bsdf_row(spec, add_bsdf, textures, measured)
         bsdf_types.append(tid)
         bsdf_params.append(row)
         if name is not None:
@@ -822,7 +955,7 @@ def load_dict(d: dict, device=None) -> Scene:
             film_cfg, spp, sampler_type, sensor = _sensor(val, dev)
             if val.get("medium") is not None:
                 sensor_medium = add_medium(val["medium"])
-        elif vtype in BSDF_NAMES:
+        elif vtype in BSDF_NAMES or bsdfs_pkg.custom_type(vtype) is not None:
             add_bsdf(val, name=key)
         elif vtype in MEDIUM_KEYS:
             add_medium(val, name=key)
@@ -974,6 +1107,7 @@ def load_dict(d: dict, device=None) -> Scene:
             tuple(t(lv) for lv in tex_mod.build_mips(tx.data))
             if tx.meta[2] else () for tx in textures),
         face_colors=t(face_colors) if any_colors else None,
+        measured_tables=tuple(measured_tables(s, dev) for s in measured),
         medium_params=t(np.stack(medium_rows, 0) if medium_rows else
                         np.zeros((0, media_pkg.N_MPARAMS), np.float32)),
         medium_grids=tuple(t(g) for g in medium_grids),

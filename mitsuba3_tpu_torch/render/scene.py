@@ -86,6 +86,9 @@ class Scene:
     textures: tuple = ()              # [Hi, Wi, 3] each (a volume's
     #                                   [D, H, W, 3]), differentiable
     texture_mips: tuple = ()          # per texture: a tuple of levels
+    # measured BSDF tables (bsdfs/measured.py): per table a dict of
+    # tensors and the two SlicedMarginal2D warps "lum" and "vndf"
+    measured_tables: tuple = ()
     face_colors: torch.Tensor | None = None  # [F, 3, 3]; None: no mesh
     #                                   carries vertex colors
     # participating media (media/, phase/)
@@ -600,8 +603,9 @@ class Scene:
 
     def texture_ids(self, bsdf_name: str):
         """The texture ids (k + 1 for textures[k], -1 for vertex colors)
-        the rows of BSDF type `bsdf_name` hold."""
-        return dict(self.bsdf_textures)[bsdf_name]
+        the rows of BSDF type `bsdf_name` hold (none for a type without
+        rows, such as diffuse called by a user's BSDF module)."""
+        return dict(self.bsdf_textures).get(bsdf_name, ())
 
     def gather_bsdf_params(self, bsdf_idx):
         """[N] bsdf slots -> SoA param rows [N_PARAMS, N]."""

@@ -2,11 +2,13 @@
 ``mitsuba3_tpu/shapes/__init__.py`` for the in-memory ``mesh`` (with
 optional per-vertex uvs, normals and colors), the ``rectangle``, the
 ``cube``, the mesh files ``obj``, ``ply`` and ``serialized`` (``loaders.py``,
-``serialized_io.py``), and the ``sphere``, ``disk`` and ``cylinder``
+``serialized_io.py``), the ``sphere``, ``disk`` and ``cylinder``
 tessellations that the JAX loader falls back to when it cannot make the
 shape analytic (an emitter attached, ``flip_normals``, or a to_world that
-is not rigid with a uniform scale; ``analytic`` says which). The analytic
-shapes themselves are not ported.
+is not rigid with a uniform scale; ``analytic`` says which), and the
+``linearcurve`` and ``bsplinecurve`` tubes where the JAX loader
+tessellates curves (``curves.tessellated``). The analytic shapes and
+curves themselves are not ported.
 
 Shapes become world-space triangle arrays (NumPy, float64) while the scene
 dict is lowered; the loader concatenates them into the scene's face table.
@@ -28,6 +30,8 @@ from ..core.transform import Transform4f, as_transform
 # loader's: build_shape reads only the geometry
 _COMMON = ("type", "bsdf", "emitter", "to_world", "interior", "exterior",
            "interior_medium", "exterior_medium")
+_CURVE = ("filename", "control_points", "segment_indices", "n_sides",
+          "subdiv", "tessellate")
 SHAPE_KEYS = {
     "mesh": _COMMON + ("vertices", "faces", "uvs", "normals",
                        "vertex_colors"),
@@ -39,6 +43,8 @@ SHAPE_KEYS = {
     "sphere": _COMMON + ("center", "radius", "flip_normals"),
     "disk": _COMMON + ("flip_normals",),
     "cylinder": _COMMON + ("radius", "p0", "p1", "flip_normals"),
+    "linearcurve": _COMMON + _CURVE,
+    "bsplinecurve": _COMMON + _CURVE,
 }
 IMPLICIT = ("sphere", "disk", "cylinder")
 
@@ -220,7 +226,16 @@ def build_shape(spec: dict) -> MeshData:
             f"an analytic {stype!r} shape (no emitter, no flip_normals, a "
             f"rigid uniform-scale to_world) is not ported to "
             f"mitsuba3_tpu_torch: ROADMAP queue 1 item 5 (ops/analytic.py)")
-    if stype == "rectangle":
+    if stype in ("linearcurve", "bsplinecurve"):
+        from . import curves
+        if not curves.tessellated(spec):
+            raise NotImplementedError(
+                f"a {stype} of at most {curves.MAX_CONES} round cones, no "
+                f"emitter and no tessellate (analytic in the JAX package) "
+                f"is not ported to mitsuba3_tpu_torch: ROADMAP queue 1 "
+                f"item 5 (ops/analytic.py)")
+        mesh = curves.build_curve_mesh(spec, stype == "bsplinecurve")
+    elif stype == "rectangle":
         mesh = make_rectangle()
     elif stype == "cube":
         mesh = make_cube()

@@ -4,6 +4,7 @@
     python3 -m mitsuba3_tpu_torch.tools.count_ops --textured [--size 16]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --media [--size 16]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --integrators [--size 16]
+    python3 -m mitsuba3_tpu_torch.tools.count_ops --materials [--size 16]
 
 Run from the repository root. For each sampler type, the scene is
 ``chip_smoke.cornell_xml``'s Cornell box (perspective sensor, Gaussian
@@ -40,6 +41,14 @@ directionalarea and projector Cornells under ``path``, of the small
 terrain (8,978 faces, cellserve) under ``path``, ``direct`` and
 ``depth``, and one light-tracer pass of 2 light paths per pixel
 (``ptracer._trace_pass``, ``max_depth`` 8) on the Cornell box.
+
+``--materials`` counts one forward pass (2 of ``--spp`` samples per
+pixel, ``max_depth`` 8) and one PRB pass (forward and backward; bsdf_params
+and em_radiance) of ``chip_smoke``'s materials Cornell (principled,
+principledthin, two measured tables of 16^2, half_diffuse) beside the
+diffuse Cornell box's, one forward pass of a hair ball (``chip_smoke``'s
+hair_dict with 64 strands of 17 points: 12,288 tube faces, cellserve) and
+of the small terrain in ``PRINCIPLED_TERRAIN_BSDF`` (cellserve).
 """
 from __future__ import annotations
 
@@ -162,6 +171,44 @@ def count_integrators(size: int, spp: int):
     print(f"cornell ptracer pass, {2 * size * size} light paths: {c.n} ops")
 
 
+def count_materials(size: int, spp: int):
+    import chip_smoke
+    import mitsuba3_tpu_torch as mt
+    from mitsuba3_tpu_torch.render import integrator as ri
+    chip_smoke.register_half_diffuse(mt)
+    names = ("bsdf_params", "em_radiance")
+    iso, aniso = ({"tables": chip_smoke.measured_fields(n, 8, 16)}
+                  for n in (1, 4))
+    cornells = (("materials cornell", chip_smoke.materials_cornell_dict(
+        mt, size, size, 8, iso, aniso)),
+        ("diffuse cornell", mt.cornell_box(size, size, spp=spp,
+                                           max_depth=8)))
+    for label, d in cornells:
+        scene = mt.load_dict(d, device="cpu")
+        with torch.no_grad(), _Count() as c:
+            ri.render_pass(scene, 7, 2, 0, spp, base_seed=7)
+        prb = count_prb_pass(mt.load_dict(chip_smoke._prb_dict(d),
+                                          device="cpu"), spp, names)
+        print(f"{label} {size}x{size}, 2 of {spp} spp, max_depth 8: path "
+              f"pass {c.n} ops, PRB pass {prb} ops")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = chip_smoke.write_curve_file(
+            os.path.join(tmp, "hair.txt"), chip_smoke.hair_strands(64),
+            chip_smoke.HAIR_RADIUS)
+        scenes = [("hair ball 64 strands", chip_smoke.hair_dict(
+            mt, path, size, chip_smoke.HAIR_EUMELANIN)),
+            ("principled small terrain", chip_smoke.principled_terrain_dict(
+                chip_smoke.small_terrain_dict, mt.ScalarTransform4f,
+                width=size))]
+        for label, d in scenes:
+            with chip_smoke._accel("cells"):
+                scene = mt.load_dict(d, device="cpu")
+            with torch.no_grad(), _Count() as c:
+                ri.render_pass(scene, 7, 2, 0, spp, base_seed=7)
+            print(f"{label} path pass {size}x{size}, 2 of {spp} spp, "
+                  f"{int((scene.face_shape >= 0).sum())} faces: {c.n} ops")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=16)
@@ -169,8 +216,12 @@ def main(argv=None) -> int:
     ap.add_argument("--textured", action="store_true")
     ap.add_argument("--media", action="store_true")
     ap.add_argument("--integrators", action="store_true")
+    ap.add_argument("--materials", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
+    if args.materials:
+        count_materials(args.size, args.spp)
+        return 0
     if args.integrators:
         count_integrators(args.size, args.spp)
         return 0

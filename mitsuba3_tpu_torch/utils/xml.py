@@ -8,7 +8,8 @@ nested ``<transform>`` chains, ``<include>``, the upgrade of version-1
 scenes (camelCase names, ``uoffset``/``uscale``) and relative
 ``filename``s resolved against the file's directory. ``load_file`` and
 ``load_string`` put the scene on the card unless the caller passes
-``device="cpu"``; ``write_file`` writes a scene dict back as XML.
+``device="cpu"``; ``write_file`` writes a scene dict back as XML (a
+BSDF registered with ``register_bsdf`` as a ``<bsdf>``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
+from ..bsdfs import custom_type
 from ..core.transform import Transform4f
 from ..loader import BSDF_NAMES as _BSDF_TYPES
 from ..loader import load_dict
@@ -342,7 +344,7 @@ def _emit_dict(parent, d: dict, name=None):
     }
     if dtype in _SHAPE_TYPES:
         tag = "shape"
-    elif dtype in _BSDF_TYPES:
+    elif dtype in _BSDF_TYPES or custom_type(dtype) is not None:
         tag = "bsdf"
     elif dtype in ("isotropic", "hg", "rayleigh", "sggx", "tabphase",
                    "blendphase"):

@@ -18,7 +18,10 @@ participating media: the foggy interior through K1 on the card against
 the CPU, the smoke's 256^3 cell table built once per render, and the fog
 Cornell's prbvolpath gradients against the CPU's; the light tracer's
 atomic splat against the CPU, aov's RGB equal to path's, direct through
-K1 in both modes, and a sphere-lit Cornell's PRB step. Run on a machine
+K1 in both modes, and a sphere-lit Cornell's PRB step; a hair ball on
+tube curves launching K1 in both modes, the measured materials Cornell
+against the CPU, a principled PRB step and a user's BSDF (half_diffuse)
+on the card. Run on a machine
 with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -1344,3 +1347,83 @@ def test_sphere_light_prb_step_on_card(cuda):
         scale = float(b.abs().max())
         assert scale > 0
         assert torch.allclose(a, b, rtol=0, atol=1e-3 * scale)
+
+
+# ---------------------------------------------------------------------------
+# The slice's materials: hair on tube curves, measured, principled and a
+# user's BSDF
+# ---------------------------------------------------------------------------
+
+def test_hair_ball_launches_k1_in_both_modes(cuda, tmp_path, monkeypatch):
+    """A hair ball of 64 strands (12,288 tube faces, cellserve) in hair on
+    the card: K1 launched for closest and any-hit queries; the image
+    against the CPU's."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+    path = chip_smoke.write_curve_file(
+        str(tmp_path / "hair.txt"), chip_smoke.hair_strands(64),
+        chip_smoke.HAIR_RADIUS)
+    d = chip_smoke.hair_dict(mt, path, 16, chip_smoke.HAIR_EUMELANIN)
+    scene = mt.load_dict(d, device=cuda)
+    assert isinstance(scene.accel, cs.CellServe)
+    cs.LAUNCHES.update(closest=0, anyhit=0)
+    img_g = mt.render(scene, seed=5, spp=4).cpu().numpy()
+    assert cs.LAUNCHES["closest"] > 0 and cs.LAUNCHES["anyhit"] > 0
+    img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=4).numpy()
+    assert np.isfinite(img_g).all() and img_g.mean() > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+def test_measured_render_on_card_matches_cpu(cuda, tmp_path):
+    """The materials Cornell (its isotropic and anisotropic measured
+    tables read from .bsdf files) at 16^2, max_depth 4, 4 spp on the card
+    against the CPU: > 99.5 % of values close, means rtol 1e-3."""
+    chip_smoke.register_half_diffuse(mt)
+    iso, aniso = chip_smoke.write_measured(str(tmp_path), 16)
+    d = chip_smoke.materials_cornell_dict(mt, 16, 16, 4, {"filename": iso},
+                                          {"filename": aniso})
+    img_g = mt.render(mt.load_dict(d, device=cuda), seed=5,
+                      spp=4).cpu().numpy()
+    img_c = mt.render(mt.load_dict(d, device="cpu"), seed=5, spp=4).numpy()
+    assert np.isfinite(img_g).all() and float(img_g.max()) > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+def test_principled_prb_step_on_card(cuda):
+    """A PRB step of the small terrain in principled (cellserve, 16^2,
+    4 spp) on the card: every gradient finite, the principled row's
+    metallic, roughness and clearcoat gradients nonzero and within 1e-3 of
+    the largest entry of the CPU's."""
+    d = chip_smoke._prb_dict(chip_smoke.principled_terrain_dict(
+        chip_smoke.small_terrain_dict, mt.ScalarTransform4f, width=16))
+    names = ("bsdf_params", "em_radiance")
+    grads = {dev: chip_smoke._grad_step(mt.load_dict(d, device=dev), names,
+                                        3, 4)[2] for dev in (cuda, "cpu")}
+    for k in names:
+        a, b = grads[cuda][k].cpu(), grads["cpu"][k]
+        assert bool(torch.isfinite(a).all()), k
+        scale = float(b.abs().max())
+        assert torch.allclose(a, b, rtol=0, atol=1e-3 * scale), k
+    assert bool((grads[cuda]["bsdf_params"][0, [4, 5, 11]] != 0).all())
+
+
+def test_custom_bsdf_render_on_card(cuda):
+    """half_diffuse, a user's BSDF in torch, on the card: the image equals
+    the CPU's at > 99.5 % of values and the card's diffuse at half the
+    reflectance value for value."""
+    from test_torch_materials import _half_scene
+    chip_smoke.register_half_diffuse(mt)
+    half = {"type": "half_diffuse",
+            "reflectance": {"type": "rgb", "value": [0.8, 0.6, 0.4]}}
+    img_g = mt.render(mt.load_dict(_half_scene(mt, half), device=cuda),
+                      seed=2, spp=8).cpu().numpy()
+    img_c = mt.render(mt.load_dict(_half_scene(mt, half), device="cpu"),
+                      seed=2, spp=8).numpy()
+    img_d = mt.render(mt.load_dict(_half_scene(mt, {
+        "type": "diffuse", "reflectance": {
+            "type": "rgb", "value": [0.4, 0.3, 0.2]}}), device=cuda),
+        seed=2, spp=8).cpu().numpy()
+    assert np.isfinite(img_g).all() and img_g.mean() > 0
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    np.testing.assert_array_equal(img_g, img_d)

@@ -179,8 +179,14 @@ BASE = chip_smoke.small_terrain_dict(mt.ScalarTransform4f)
 UNPORTED = {
     # an analytic sphere or disk (no emitter): ROADMAP item 5
     "shape": (_with(BASE, ball={"type": "sphere"}), "'sphere'"),
+    # a polarized BSDF (ROADMAP item 9), under a twosided
     "bsdf": (_with(BASE, terrain=dict(BASE["terrain"], bsdf={
-        "type": "principled"})), "'principled'"),
+        "type": "twosided", "bsdf": {"type": "pplastic"}})), "'pplastic'"),
+    # a curve set JAX makes analytic round cones of (item 5)
+    "curve": (_with(BASE, strand={
+        "type": "linearcurve", "control_points": [[0, 0, 0, 0.01],
+                                                  [0, 0, 1, 0.01]]}),
+        "item 5"),
     # a spectral SPD emitter (ROADMAP item 7)
     "emitter": (_with(BASE, lamp={"type": "rectangle", "emitter": {
         "type": "area", "radiance": {"type": "blackbody",

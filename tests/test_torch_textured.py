@@ -409,7 +409,9 @@ def test_serialized_vertex_colors_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("where,spec,what", [
-    ("floor", {"type": "principled", "base_color": {
+    # principled's base_color texture loads; its other parameters take
+    # none
+    ("floor", {"type": "principled", "roughness": {
         "type": "bitmap", "data": np.ones((2, 2, 3))}}, "principled"),
     ("floor", {"type": "conductor", "specular_reflectance": {
         "type": "bitmap", "data": np.ones((2, 2, 3))}}, "specular"),
