@@ -75,7 +75,8 @@ Phases:
    times taken by a process of their own (``chip_smoke.py
    --k8-device-ms``, see phase_k8_device);
 12. attic queries: bvh_pallas, bvh_pallas sorted, bvh_queue and bvh2, each
-   closest and any-hit on 2^19 primary and 2^19 bounce rays, timed after
+   closest and any-hit on 2^19 primary and 2^19 bounce rays (bvh2 on the
+   primary rays only: BVH2_QUERY_RAYS), timed after
    a warm-up, held to the dense oracle (``ops/intersect.py``) on the first
    32,768 rays with ``bench_bvh.verify``'s checks and to bvh_tiled at full
    width, and checked to launch every kernel of its module; per bvh2
@@ -163,8 +164,27 @@ Phases:
    Cornell, a principled small terrain and a tessellated bsplinecurve
    hair scene on the card against the CPU at 32^2. Run it alone with
    ``python3 chip_smoke.py --phase materials``;
-19. JSON lines of render, query, PRB, material, interior, loop, scene-file,
-   texture, media, integrator, slice-material and per-kernel numbers.
+19. shapes (after the materials): terrain64k under 40 analytic spheres
+   (one with a mipmapped bitmap), 12 cylinders and 12 disks in diffuse,
+   roughconductor and dielectric and five B-spline sets of 80 round cones
+   (464 analytic rows), `path` at 512^2, 4 spp, max_depth 4 and its PRB
+   step; an instanced field (prototype R, make_terrain(129) with its own
+   cellserve, in 64 instances on an 8 x 8 grid; prototype G, a cube and a
+   sphere, 3,980 faces on the dense test, in 256), `path` and its PRB
+   step at 256^2; a seeded 128^3 SDF blob on terrain64k, `path` and the
+   grid's gradient at 128^2 by plain autograd; a merge of a ground and an
+   ellipsoidsmesh of 2,048 ellipsoids (163,840 faces), `path`; per scene
+   K1's launches in both modes from zero and its device ms and bound by
+   CUDA events, the peak memory with the working set of one full-width
+   analytic and instance query, the instance loop's rounds per query and
+   a profiled render; the four scenes cut to CPU size at 32^2 on the
+   card against the CPU (the analytic terrain without its cones, which
+   are held on the same rays instead); then K1 against its plain version
+   on the instanced field's prototype-R query of the first instance
+   round. Run it alone with ``python3 chip_smoke.py --phase shapes``;
+20. JSON lines of render, query, PRB, material, interior, loop, scene-file,
+   texture, media, integrator, slice-material, shape and per-kernel
+   numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -1069,16 +1089,17 @@ def _k1_bytes(tris, n_pad: int, n_sub: int, want_uv: bool):
 
 
 def phase_kernels(mi, card: str, make_dict=None, tag: str = "",
-                  rays_of=None):
+                  rays_of=None, accel_of=None):
     """K1 against its plain version on one full-width round (the primary
     rays of one pass, or the rays ``rays_of(scene)`` gives) of a main path
     through cellserve: terrain64k by default, or the scene `make_dict`
-    makes (its rows' names end in `tag`)."""
+    makes (its rows' names end in `tag`), on its accel or on the cellserve
+    ``accel_of(scene)`` gives (an instanced prototype's)."""
     import torch
     from mitsuba3_tpu_torch.ops import cellserve as cs
 
     scene = mi.load_dict((make_dict or terrain64k_dict)(mi.ScalarTransform4f))
-    acc = scene.accel
+    acc = scene.accel if accel_of is None else accel_of(scene)
     ray = (rays_of or _primary_rays)(scene)
     n = ray.o.x.shape[0]
     og, dg = cs._grid_ray(acc, ray.o, ray.d)
@@ -1147,6 +1168,8 @@ class _K1Meter:
             return out
 
         def serve_blocks(tris, rays, r0, nr, want_uv):
+            if r0.shape[0] == 0:      # no sub-block: no launch
+                return real_serve(tris, rays, r0, nr, want_uv)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = real_serve(tris, rays, r0, nr, want_uv)
@@ -1674,7 +1697,7 @@ def k8_device_main():
     terrain in a process whose one profiler session comes after all its
     other work: 20 launches on the first bvh2 round of the bounce rays
     (after one warm-up launch), then each bvh2 query's launches (closest
-    and any-hit, primary and bounce rays) recorded and replayed, back to
+    and any-hit on the BVH2_QUERY_RAYS) recorded and replayed, back to
     back. The session's K8 kernels, in launch order, are split by the
     launch counts; one session, because torch.profiler dropped kernels in
     sessions that followed another in the same process. Prints one JSON
@@ -1687,10 +1710,9 @@ def k8_device_main():
     from mitsuba3_tpu_torch.ops.attic import bvh2
     acc = bvh2.build(*make_terrain(BVH_SIDE), device="cuda")
     runs = {}
-    for kind in ("primary", "bounce"):
+    row = bvh2.first_round(acc, *_bvh_rays("bounce"))
+    for kind in BVH2_QUERY_RAYS:
         o, d, maxt = _bvh_rays(kind)
-        if kind == "bounce":
-            row = bvh2.first_round(acc, o, d, maxt)
         for q, fn in (("closest", bvh2.intersect_bvh),
                       ("anyhit", bvh2.occluded_bvh)):
             runs[f"{kind} {q}"] = _k8_recorded(fn, acc, o, d, maxt)[1]
@@ -1719,6 +1741,10 @@ def k8_device_main():
 
 
 K8_DEVICE_ATTEMPTS = 3
+# the rays bvh2's queries run on: a full-width bvh2 query is host-bound at
+# ~13 s, so its bounce-ray queries are left out to keep the script in its
+# time limit (K8's row still serves the first bvh2 round of the bounce rays)
+BVH2_QUERY_RAYS = ("primary",)
 
 
 def phase_k8_device(card: str) -> dict:
@@ -1845,8 +1871,9 @@ def _hold_oracle(tag, closest, anyhit, acc, res, ref):
 def phase_attic_queries(card: str, k8_device: dict):
     """bench_bvh's terrain queries (make_terrain(182), 2^19 primary and
     2^19 bounce rays, maxt 1e30) through bvh_pallas, bvh_pallas sorted,
-    bvh_queue and bvh2, closest and any-hit: each timed once after a
-    warm-up (bvh2's on the first HOLD_RAYS rays), held to the dense
+    bvh_queue and bvh2 (on BVH2_QUERY_RAYS), closest and any-hit: each
+    timed once after a warm-up (bvh2's on the first HOLD_RAYS rays),
+    held to the dense
     oracle on the first HOLD_RAYS rays (bench_bvh.verify's checks) and
     to bvh_tiled (K4) at full width; the bvh2 records get K8's device ms
     from `k8_device` (phase_k8_device).
@@ -1900,7 +1927,7 @@ def phase_attic_queries(card: str, k8_device: dict):
     for name, variants in ATTIC_QUERIES.items():
         mod, acc = mods[name], accs[name]
         launches[name] = dict.fromkeys(mod.LAUNCHES, 0)
-        for kind in ("primary", "bounce"):
+        for kind in BVH2_QUERY_RAYS if name == "bvh2" else refs:
             o, d, maxt, oracle, (tref, occ_ref) = refs[kind]
             for suffix, cname, aname in variants:
                 tag = f"{name}{suffix} {kind}"
@@ -4429,10 +4456,550 @@ def phase_materials(mi, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Shapes: analytic rows, instancing, SDF grids, merge and ellipsoidsmesh
+# ---------------------------------------------------------------------------
+
+SHAPES_COUNTS = (40, 12, 12)   # analytic spheres, cylinders, disks
+SHAPES_CURVES = 5              # B-splines of 9 points: 80 cones each
+SHAPES_TEX_SIDE = 256          # the textured sphere's bitmap, side^2
+FIELD_TILES = 8                # prototype R: an 8 x 8 grid of instances
+FIELD_SIDE = 129               # make_terrain(129): 32,768 faces
+FIELD_SCATTER = 256            # prototype G (a cube and a sphere)
+SDF_SIDE = 128                 # the blob's grid, side^3 (8 MiB)
+CLOUD_SIZE = 2048              # ellipsoids: 80 faces each
+SHAPES_CHECK_SIDE = 32         # card against CPU
+FIELD_PRB_SIDE = 256           # the instanced field's PRB step (28 s at 512)
+
+
+def terrain_mesh(side: int, scale: float = 1.0, seed: int = 0):
+    """make_terrain(side) as a mesh spec's (vertices, faces), scaled."""
+    p0n, e1n, e2n = make_terrain(side, seed)
+    v = np.concatenate([p0n, p0n + e1n, p0n + e2n], 0) * np.float32(scale)
+    return v, np.arange(len(p0n) * 3).reshape(3, -1).T
+
+
+def _ground_heights(d: dict, xy):
+    """The height of the scene's terrain mesh under each (x, y): its
+    nearest vertex's z."""
+    v = np.asarray(d["terrain"]["vertices"])
+    grid = v[np.unique(np.round(v[:, :2], 3), axis=0, return_index=True)[1]]
+    k = np.argmin(((grid[None, :, :2] - xy[:, None]) ** 2).sum(-1), axis=1)
+    return grid[k, 2]
+
+
+def analytic_terrain_dict(make_dict, transform, counts=SHAPES_COUNTS,
+                          n_curves: int = SHAPES_CURVES,
+                          tex_side: int = SHAPES_TEX_SIDE, seed: int = 11,
+                          **kw):
+    """`make_dict(transform, **kw)` (terrain64k_dict or small_terrain_dict)
+    with analytic shapes scattered on its terrain: `counts` spheres,
+    cylinders and disks in diffuse, roughconductor and dielectric (the
+    first sphere textured by a seeded bitmap) and `n_curves` B-spline
+    cone sets above it, all made from `seed`."""
+    d = make_dict(transform, **kw)
+    rng = np.random.default_rng(seed)
+    v = np.asarray(d["terrain"]["vertices"])
+    half = 0.8 * float(np.abs(v[:, :2]).max())
+    size = half / 12.0
+    bsdfs = ({"type": "diffuse", "reflectance": {"type": "rgb",
+                                                 "value": [0.7, 0.4, 0.3]}},
+             {"type": "roughconductor", "alpha": 0.2},
+             {"type": "dielectric"})
+    n_total = sum(counts)
+    xy = rng.uniform(-half, half, (n_total, 2))
+    z = _ground_heights(d, xy)
+    tex = rng.uniform(0.1, 0.9, (tex_side, tex_side, 3)).astype(np.float32)
+    k = 0
+    for kind, n in zip(("sphere", "cylinder", "disk"), counts):
+        for i in range(n):
+            r = size * rng.uniform(0.4, 1.0)
+            c = [float(xy[k, 0]), float(xy[k, 1]), float(z[k]) + r]
+            spec = {"type": kind, "bsdf": dict(bsdfs[k % 3])}
+            if kind == "sphere":
+                spec.update(center=c, radius=r)
+                if i == 0:
+                    spec["bsdf"] = {"type": "diffuse", "reflectance": {
+                        "type": "bitmap", "data": tex, "mipmap": True}}
+            elif kind == "cylinder":
+                spec.update(radius=0.4 * r, p0=[c[0], c[1], c[2] - r],
+                            p1=[c[0] + 0.3 * r, c[1], c[2] + 2 * r])
+            else:
+                spec["to_world"] = transform().translate(c).rotate(
+                    [1, 0, 0], float(rng.uniform(-60, 60))).scale(r)
+            d[f"{kind}_{i}"] = spec
+            k += 1
+    for i in range(n_curves):
+        pts = np.cumsum(rng.normal(0, size, (9, 3)), axis=0)
+        pts += [rng.uniform(-half, half), rng.uniform(-half, half),
+                float(v[:, 2].max()) + size]
+        radii = np.full((9, 1), 0.15 * size)
+        d[f"curve_{i}"] = {"type": "bsplinecurve",
+                           "control_points": np.concatenate(
+                               [pts, radii], 1).tolist(),
+                           "bsdf": dict(bsdfs[i % 2])}
+    return d
+
+
+def shapegroup_g(transform):
+    """tests/test_instancing.py:28-41's shapegroup: a cube and a
+    tessellated sphere, 3,980 faces."""
+    return {"type": "shapegroup",
+            "box": {"type": "cube", "to_world": transform().scale(0.25),
+                    "bsdf": {"type": "diffuse", "reflectance": {
+                        "type": "rgb", "value": [0.7, 0.3, 0.2]}}},
+            "ball": {"type": "sphere", "to_world": transform().translate(
+                [0, 0, 0.5]).scale(0.2),
+                "bsdf": {"type": "diffuse", "reflectance": {
+                    "type": "rgb", "value": [0.2, 0.5, 0.8]}}}}
+
+
+def instanced_field_dict(transform, width: int = 512, spp: int = 4,
+                         tiles: int = FIELD_TILES, side: int = FIELD_SIDE,
+                         scatter: int = FIELD_SCATTER, seed: int = 7,
+                         max_depth: int = 4):
+    """An instanced field: prototype R, make_terrain(side) scaled into a
+    unit tile, on a tiles x tiles grid of instances with a seeded
+    z-rotation and a uniform scale of 0.6-1.4 (tests/test_instancing.py:
+    45-54's transforms); prototype G (shapegroup_g) in `scatter`
+    instances; a ground rectangle, a sun and a constant environment."""
+    rng = np.random.default_rng(seed)
+    v, f = terrain_mesh(side, 1.0 / 20.0)
+    d = {"type": "scene",
+         "integrator": {"type": "path", "max_depth": max_depth},
+         "sensor": {"type": "perspective", "fov": 55.0,
+                    "to_world": transform().look_at(
+                        origin=[0, -9, 5], target=[0, 0, 0.3],
+                        up=[0, 0, 1]),
+                    "film": {"width": width, "height": width},
+                    "sampler": {"type": "independent",
+                                "sample_count": spp}},
+         "ground": {"type": "rectangle", "to_world": transform().scale(6.0),
+                    "bsdf": {"type": "diffuse"}},
+         "proto_r": {"type": "shapegroup",
+                     "tile": {"type": "mesh", "vertices": v, "faces": f,
+                              "bsdf": {"type": "diffuse", "reflectance": {
+                                  "type": "rgb", "value": [0.4, 0.6, 0.3]}}}},
+         "proto_g": shapegroup_g(transform),
+         **_lights()}
+    step = 8.4 / tiles
+    for i in range(tiles * tiles):
+        x = -4.2 + step * (i % tiles + 0.5)
+        y = -4.2 + step * (i // tiles + 0.5)
+        d[f"tile_{i}"] = {"type": "instance", "to_world": transform()
+                          .translate([x, y, 0.2])
+                          .rotate([0, 0, 1], float(rng.uniform(0, 360)))
+                          .scale(float(rng.uniform(0.6, 1.4))),
+                          "ref": {"type": "ref", "id": "proto_r"}}
+    for i in range(scatter):
+        d[f"g_{i}"] = {"type": "instance", "to_world": transform()
+                       .translate([float(rng.uniform(-4, 4)),
+                                   float(rng.uniform(-4, 4)),
+                                   float(rng.uniform(0.3, 1.5))])
+                       .rotate([0, 0, 1], float(rng.uniform(0, 360)))
+                       .scale(float(rng.uniform(0.6, 1.4))),
+                       "ref": {"type": "ref", "id": "proto_g"}}
+    return d
+
+
+def sdf_blob_grid(side: int = SDF_SIDE, seed: int = 5) -> np.ndarray:
+    """A seeded noisy sphere's signed distances on a side^3 grid of the
+    unit cube (radius 0.3 about its center)."""
+    ax = (np.arange(side) + 0.5) / side
+    z, y, x = np.meshgrid(ax, ax, ax, indexing="ij")
+    rng = np.random.default_rng(seed)
+    bumps = sum(0.03 * np.sin(2 * np.pi * (k + 1) * (
+        x * a + y * b + z * c) + ph) for k, (a, b, c, ph) in enumerate(
+            rng.uniform(0, 1, (4, 4))))
+    return (np.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2)
+            - 0.3 + bumps).astype(np.float32)
+
+
+def sdf_terrain_dict(make_dict, transform, side: int = SDF_SIDE,
+                     size: float = 8.0, **kw):
+    """`make_dict(transform, **kw)` with sdf_blob_grid(side) on its
+    terrain: the grid's unit cube scaled to `size` about the origin."""
+    d = make_dict(transform, **kw)
+    top = float(np.asarray(d["terrain"]["vertices"])[:, 2].max())
+    d["blob"] = {"type": "sdfgrid", "grid": sdf_blob_grid(side),
+                 "to_world": transform().translate(
+                     [-size / 2, -size / 2, top - size / 2]).scale(size),
+                 "bsdf": {"type": "diffuse", "reflectance": {
+                     "type": "rgb", "value": [0.8, 0.3, 0.2]}}}
+    return d
+
+
+def ellipsoid_cloud_dict(transform, n: int = CLOUD_SIZE, width: int = 512,
+                         spp: int = 4, seed: int = 9, max_depth: int = 4):
+    """A merge of a ground rectangle and an ellipsoidsmesh of `n` seeded
+    ellipsoids (80 faces each, its vertex-color BSDF by default) under a
+    sun and a constant environment."""
+    rng = np.random.default_rng(seed)
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": max_depth},
+        "sensor": {"type": "perspective", "fov": 55.0,
+                   "to_world": transform().look_at(
+                       origin=[0, -9, 5], target=[0, 0, 1], up=[0, 0, 1]),
+                   "film": {"width": width, "height": width},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "cloud": {"type": "merge",
+                  "ground": {"type": "rectangle",
+                             "to_world": transform().scale(6.0),
+                             "bsdf": {"type": "diffuse"}},
+                  "shells": {"type": "ellipsoidsmesh",
+                             "centers": np.stack([
+                                 rng.uniform(-5, 5, n), rng.uniform(-5, 5, n),
+                                 rng.uniform(0.2, 3, n)], -1),
+                             "scales": rng.uniform(0.03, 0.12, (n, 3)),
+                             "quaternions": rng.normal(size=(n, 4)),
+                             "colors": rng.uniform(0.1, 0.9, (n, 3))}},
+        **_lights()}
+
+
+def proto_first_round(scene, ray, proto: int = 0):
+    """The first instance round of `ray` on the lanes whose candidate
+    instance is of prototype `proto`: (their rays in prototype space, the
+    query's maxt, the mask of those lanes over all of `ray`'s)."""
+    import torch
+    from mitsuba3_tpu_torch.render import instancing
+    from mitsuba3_tpu_torch.render.records import Ray
+
+    n = ray.o.x.shape[0]
+    dev = ray.o.x.device
+    cap = torch.clamp(ray.maxt, max=instancing.BIG)
+    tn, _, op, dp, pj = instancing._round_rays(
+        scene.instances, ray.o, ray.d, instancing._guard_inv(ray.d), cap,
+        torch.full((n,), -1.0, device=dev),
+        torch.full((n,), -1, dtype=torch.int32, device=dev))
+    mask = (tn < instancing.BIG) & (pj == proto)
+    return Ray(o=op, d=dp, maxt=cap), mask
+
+
+def _proto_rays(scene):
+    """Prototype R's rays of the instanced field's first instance round
+    over one full-width pass of primary rays (phase_kernels' rays)."""
+    from mitsuba3_tpu_torch.core.struct import take_lanes
+    ray, mask = proto_first_round(scene, _primary_rays(scene))
+    return take_lanes(ray, mask.nonzero().squeeze(1), mask.shape[0])
+
+
+class _BlockMeter:
+    """Inside ``with``, the instance loop's rounds (``_round_rays`` calls)
+    and queries are counted."""
+
+    def __enter__(self):
+        from mitsuba3_tpu_torch.render import instancing
+        self.mod, self.rounds, self.queries = instancing, 0, 0
+        self.saved = (instancing._round_rays, instancing.intersect_instances,
+                      instancing.occluded_instances)
+        real_round, real_closest, real_any = self.saved
+
+        def round_rays(*args):
+            self.rounds += 1
+            return real_round(*args)
+
+        def counted(real):
+            def query(*args):
+                self.queries += 1
+                return real(*args)
+            return query
+        instancing._round_rays = round_rays
+        instancing.intersect_instances = counted(real_closest)
+        instancing.occluded_instances = counted(real_any)
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod._round_rays, self.mod.intersect_instances,
+         self.mod.occluded_instances) = self.saved
+
+
+def _block_peak(fn):
+    """(peak bytes above the allocation at entry, result) of fn()."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
+def _shapes_render(mi, card: str, tag: str, d: dict, prb_side=None):
+    """`d` loaded on the card and rendered at its film size, 4 spp: a
+    warm-up at 1 spp, a timed render with K1 launches counted from zero
+    and its device ms and bound by CUDA events (_K1Meter), the instance
+    loop's rounds per query, the peak memory and the peak working set of
+    one full-width primary query of the analytic rows and of the
+    instances, then a profiled render; with `prb_side`, a PRB step of
+    bsdf_params at prb_side^2 (no warm-up of its own). Returns its
+    numbers."""
+    import torch
+    from mitsuba3_tpu_torch.ops import analytic, cellserve
+
+    t0 = time.perf_counter()
+    scene = mi.load_dict(d)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    w = d["sensor"]["film"]["width"]
+    mi.render_with_stats(scene, seed=0, spp=1, max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    with _K1Meter() as meter, _BlockMeter() as blocks:
+        t0 = time.perf_counter()
+        img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                         max_wavefront=1 << 20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(cellserve.LAUNCHES)
+    k1 = meter.summary()
+    _check(all(v > 0 for v in launches.values()),
+           f"{tag}: K1 not launched in both modes: {launches}")
+    _check(all(k1[m]["launches"] == launches[m] for m in launches),
+           f"{tag}: K1 meter {k1} disagrees with {launches}")
+    _check(tuple(img.shape) == (w, w, 3) and bool(torch.isfinite(img).all())
+           and float(img.mean()) > 0,
+           f"{tag}: image misshaped, not finite or black")
+    ray = _primary_rays(scene)
+    an_peak = in_peak = 0
+    if scene.analytic_prims is not None:
+        an_peak = _block_peak(lambda: analytic.intersect_analytic(
+            scene.analytic_prims, ray.o, ray.d, ray.maxt))[0]
+    if scene.instances is not None:
+        from mitsuba3_tpu_torch.render import instancing
+        in_peak = _block_peak(lambda: instancing.intersect_instances(
+            scene, ray.o, ray.d, ray.maxt,
+            torch.ones_like(ray.maxt, dtype=torch.bool)))[0]
+    mrays = rays / wall / 1e6
+    out = {"rays": rays, "wall_s": wall, "mrays_per_s": mrays,
+           "peak_bytes": peak, "analytic_query_peak_bytes": an_peak,
+           "instance_query_peak_bytes": in_peak, "load_dict_s": load_s,
+           "mean": float(img.mean()), "k1": k1, "k1_launches": launches,
+           "faces": int(scene.faces.shape[0]),
+           "analytic_rows": scene.n_analytic}
+    print(f"# shapes {tag} {w}x{w} 4spp: {rays} rays in {wall:.3f} s = "
+          f"{mrays:.3f} Mrays/s, peak memory {peak / 2**30:.2f} GiB (one "
+          f"primary query: analytic rows {an_peak / 2**30:.3f} GiB, "
+          f"instances {in_peak / 2**30:.3f} GiB), load_dict {load_s:.2f} "
+          f"s, {out['faces']} stored faces, A = {scene.n_analytic} analytic "
+          f"rows, mean {out['mean']:.6f} [{card}]")
+    if blocks.queries:
+        out["instance_rounds_per_query"] = blocks.rounds / blocks.queries
+        out["instance_queries"] = blocks.queries
+        print(f"# shapes {tag}: the instance loop ran {blocks.rounds} rounds "
+              f"for {blocks.queries} queries = "
+              f"{out['instance_rounds_per_query']:.2f} a query")
+    for mode, v in k1.items():
+        print(f"# shapes {tag} K1 {mode}: {v['launches']} launches for "
+              f"{v['queries']} queries, {v['device_ms']:.2f} device ms, "
+              f"bound {v['bound_ms']:.3f} ms [{card}]")
+    out.update(_profile(lambda: mi.render_with_stats(
+        scene, seed=2, spp=4, max_wavefront=1 << 20), wall,
+        _accel_kernels("cells")[1]))
+    del scene, img
+    torch.cuda.empty_cache()
+    if prb_side:
+        d = _prb_dict(d)
+        d["sensor"] = dict(d["sensor"], film=dict(
+            d["sensor"]["film"], width=prb_side, height=prb_side))
+        scene = mi.load_dict(d)
+        names = ("bsdf_params",)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, rays, grads, n_passes = _grad_step(scene, names, 1,
+                                                 TERRAIN_PRB_SPP)
+        torch.cuda.synchronize()
+        step = time.perf_counter() - t0
+        _check_grads(f"{tag} prb", grads, names)
+        print(f"# shapes {tag} fwd+PRB bwd {prb_side}x{prb_side} "
+              f"{TERRAIN_PRB_SPP}spp: {rays} forward rays, step {step:.3f} "
+              f"s in {n_passes} passes [{card}]")
+        out["prb"] = {"side": prb_side, "forward_rays": rays,
+                      "wall_s": step, "passes": n_passes, "loss": loss}
+        del scene, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sdf_grid_grad(mi, card: str, side: int = 128):
+    """d mean(image) / d(the SDF grid) of the blob on terrain64k at
+    side^2, 4 spp, through a plain autograd path render: finite and
+    nonzero (tests/test_analytic.py:217)."""
+    import torch
+    d = sdf_terrain_dict(terrain64k_dict, mi.ScalarTransform4f)
+    d["sensor"]["film"].update(width=side, height=side)
+    scene = mi.load_dict(d)
+    grid = scene.sdf_grids[0].detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = mi.render(scene.replace(sdf_grids=(grid,)), seed=3,
+                     spp=4).mean()
+    (g,) = torch.autograd.grad(loss, [grid])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check(bool(torch.isfinite(g).all()) and bool((g != 0).any()),
+           "sdf blob: the grid gradient is not finite or all zero")
+    print(f"# shapes sdf blob grid gradient {side}x{side} 4spp: {wall:.3f} "
+          f"s, {int((g != 0).sum())} nonzero of {g.numel()} entries, |g| "
+          f"max {float(g.abs().max()):.4g} [{card}]")
+    return {"side": side, "wall_s": wall, "nonzero": int((g != 0).sum()),
+            "max_abs": float(g.abs().max())}
+
+
+def _cone_rows_agreement(mi, d: dict):
+    """The analytic rows of `d` (its round cones among them) queried on the
+    card and on the CPU with the same rays (one pass of its camera, made
+    on the CPU): row ids and hits equal, t within rtol 1e-6, uv within
+    1e-6. Returns the largest t difference."""
+    import torch
+    from mitsuba3_tpu_torch.core.vec import Vec3
+    from mitsuba3_tpu_torch.ops import analytic
+    from mitsuba3_tpu_torch.render import integrator as ri
+    scene = mi.load_dict(d, device="cpu")
+    sppc, _ = ri.plan_passes(scene, 4, 1 << 20)
+    ray = ri._gen_camera_rays(scene, ri.pass_seed(5, 0), sppc, 0, 4)[1]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        def on(v):
+            return Vec3(v.x.to(dev), v.y.to(dev), v.z.to(dev))
+        t, aidx, uv, valid = analytic.intersect_analytic(
+            scene.analytic_prims.to(dev), on(ray.o), on(ray.d),
+            ray.maxt.to(dev))
+        out[dev] = [x.cpu() for x in (t, aidx, uv.x, uv.y, valid)]
+    (tc, ic, uc, vc, okc), (tg, ig, ug, vg, okg) = out["cpu"], out["cuda"]
+    dt = float((tg - tc)[okc].abs().max()) if bool(okc.any()) else 0.0
+    _check(torch.equal(ic, ig) and torch.equal(okc, okg)
+           and bool(torch.allclose(tg[okc], tc[okc], rtol=1e-6))
+           and bool(torch.allclose(ug[okc], uc[okc], atol=1e-6))
+           and bool(torch.allclose(vg[okc], vc[okc], atol=1e-6)),
+           "analytic rows: the card's query differs from the CPU's on the "
+           "same rays")
+    print(f"# agreement analytic rows ({scene.n_analytic}, the round cones "
+          f"among them) on the same {ray.o.x.shape[0]} rays: {int(okc.sum())} "
+          f"hits, ids equal, largest t difference {dt:.3g}")
+    return dt
+
+
+def _to_device(obj, dev):
+    """`obj` (a tensor, a tuple or a record of them) with every tensor on
+    `dev`."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, tuple):
+        return tuple(_to_device(x, dev) for x in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _to_device(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+@contextlib.contextmanager
+def _cpu_camera_rays(scene_c):
+    """Inside, a render of a card scene starts each pass from the camera
+    rays and sampler states that the CPU scene `scene_c` (its twin) makes,
+    moved to the card; a CPU render is unchanged."""
+    from mitsuba3_tpu_torch.render import integrator as ri
+    plain = ri._gen_camera_rays
+
+    def from_cpu(scene, *args, **kw):
+        if scene.device.type == "cpu":
+            return plain(scene, *args, **kw)
+        return _to_device(plain(scene_c, *args, **kw), scene.device)
+    ri._gen_camera_rays = from_cpu
+    try:
+        yield
+    finally:
+        ri._gen_camera_rays = plain
+
+
+def _shapes_agreement(mi):
+    """Card against CPU at SHAPES_CHECK_SIDE^2 (4 spp, max_depth 2, seed 5)
+    on the four scenes cut to CPU size, each held by _agree_images: the
+    analytic shapes and the SDF blob on the small terrain (8,978 faces),
+    the instanced field with 4 tiles of make_terrain(66) (its own
+    cellserve) and 6 of prototype G, a cloud of 128 ellipsoids. The
+    analytic terrain is rendered twice: with its round cones on the
+    CPU's camera rays (a cone's grazing hits move by ~1e-4 for an ulp of
+    the ray, and the card's camera rays are an ulp off the CPU's on ~40 %
+    of lanes, tests/test_torch_shapes.py::
+    test_round_cones_part_on_ulps_of_the_rays), so the bounce rays, the
+    surface fields and the BSDFs of cone lanes are the card's own; and
+    without its cones on the card's camera rays. The cone rows are also
+    held by their query on the same rays (_cone_rows_agreement)."""
+    T, side = mi.ScalarTransform4f, SHAPES_CHECK_SIDE
+    full = analytic_terrain_dict(small_terrain_dict, T)
+    cases = [
+        ("analytic small terrain with cones, the CPU's camera rays", full,
+         True),
+        ("analytic small terrain, no cones", analytic_terrain_dict(
+            small_terrain_dict, T, n_curves=0), False),
+        ("instanced field", instanced_field_dict(T, tiles=2, side=66,
+                                                 scatter=6), False),
+        ("sdf blob", sdf_terrain_dict(small_terrain_dict, T, side=32,
+                                      size=2.0), False),
+        ("ellipsoid cloud", ellipsoid_cloud_dict(T, n=128), False)]
+    for _, d, _ in cases:
+        d["sensor"]["film"].update(width=side, height=side)
+        d["integrator"] = dict(d["integrator"], max_depth=2)
+    with _accel("cells"):
+        out = {"cone rows, same rays": {
+            "max_abs_dt": _cone_rows_agreement(mi, full)}}
+        for tag, d, same_rays in cases:
+            scene_c = mi.load_dict(d, device="cpu")
+            with (_cpu_camera_rays(scene_c) if same_rays
+                  else contextlib.nullcontext()):
+                img_g = mi.render(mi.load_dict(d), seed=5, spp=4)
+            img_c = mi.render(scene_c, seed=5, spp=4)
+            g, c = img_g.cpu().numpy(), img_c.numpy()
+            out[tag] = {"close": _agree_images(
+                f"{tag} ({side}x{side}, 4 spp)", g, c),
+                "max_abs_diff": float(np.abs(g - c).max())}
+            print(f"# agreement {tag}: largest difference "
+                  f"{out[tag]['max_abs_diff']:.3g}")
+    return out
+
+
+def phase_shapes(mi, card: str):
+    """Implicit geometry on the card (nothing falls back to the CPU):
+    terrain64k under 64 analytic shapes and 400 round cones (path and its
+    PRB step, K1 in both modes), the instanced field (prototype R through
+    its own cellserve, prototype G dense; path, and its PRB step at
+    FIELD_PRB_SIDE^2), the SDF
+    blob on terrain64k (path; the grid gradient at 128^2 by plain
+    autograd), the ellipsoid cloud (a merge with 163,840 shell faces
+    through K1), then the card against the CPU."""
+    T = mi.ScalarTransform4f
+    out = {}
+    parts = (
+        ("analytic terrain64k", lambda: _shapes_render(
+            mi, card, "analytic terrain64k",
+            analytic_terrain_dict(terrain64k_dict, T), prb_side=512)),
+        ("instanced field", lambda: _shapes_render(
+            mi, card, "instanced field", instanced_field_dict(T),
+            prb_side=FIELD_PRB_SIDE)),
+        ("sdf blob", lambda: _shapes_render(
+            mi, card, "sdf blob", sdf_terrain_dict(terrain64k_dict, T))),
+        ("sdf grid gradient", lambda: _sdf_grid_grad(mi, card)),
+        ("ellipsoid cloud", lambda: _shapes_render(
+            mi, card, "ellipsoid cloud", ellipsoid_cloud_dict(T))),
+        ("agreement", lambda: _shapes_agreement(mi)))
+    for name, part in parts:
+        t0 = time.perf_counter()
+        out[name] = part()
+        print(f"# shapes {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(only=None):
     """The whole smoke test, or with `only` (``--phase media``,
-    ``--phase integrators`` or ``--phase materials``) the kernel build and
-    that phase alone, without the final line."""
+    ``--phase integrators``, ``--phase materials`` or ``--phase shapes``)
+    the kernel build and that phase alone, without the final line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -4479,7 +5046,7 @@ def main(only=None):
 
     if only is not None:
         phase = {"media": phase_media, "integrators": phase_integrators,
-                 "materials": phase_materials}[only]
+                 "materials": phase_materials, "shapes": phase_shapes}[only]
         result = timed(only, phase, mi, card)
         print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({only: result, "card": card}))
@@ -4520,6 +5087,11 @@ def main(only=None):
     media = timed("media", phase_media, mi, card)
     integrators = timed("integrators", phase_integrators, mi, card)
     new_materials = timed("materials", phase_materials, mi, card)
+    shapes = timed("shapes", phase_shapes, mi, card)
+    launches["cells.instanced"] = shapes["instanced field"]["k1_launches"]
+    rows += timed("kernels K1 instanced prototype", phase_kernels, mi, card,
+                  instanced_field_dict, ".instanced", _proto_rays,
+                  lambda scene: scene.proto_accels[0])
     k8_device = timed("K8 device times", phase_k8_device, card)
     rows += timed("kernels K5-K8", lambda: phase_kernels_attic(
         card, k8_device=k8_device))
@@ -4548,6 +5120,7 @@ def main(only=None):
     print(json.dumps({"media": media, "card": card}))
     print(json.dumps({"integrators": integrators, "card": card}))
     print(json.dumps({"slice_materials": new_materials, "card": card}))
+    print(json.dumps({"shapes": shapes, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

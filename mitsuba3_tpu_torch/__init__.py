@@ -18,8 +18,11 @@ sampler, sensor and reconstruction filter and the crop window, BSDFs
 (diffuse, conductor, roughconductor, plastic, roughplastic, dielectric,
 thindielectric, roughdielectric, null, mask, blendbsdf, normalmap,
 principled, principledthin, hair, measured and twosided, and a user's
-own through ``register_bsdf``), hair fibers as tessellated
-``linearcurve`` and ``bsplinecurve`` tubes, area lights (on meshes and
+own through ``register_bsdf``), analytic spheres, disks and cylinders,
+``linearcurve`` and ``bsplinecurve`` sets as analytic round cones (up to
+512) or tessellated tubes, SDF grids (``sdfgrid``), ``merge``,
+``ellipsoidsmesh`` shell clouds and ``shapegroup``s placed by
+``instance``s (prototypes stored once), area lights (on meshes and
 tessellated spheres, disks and cylinders; cone-sampled on spheres),
 directionalarea, point, spot, directional and projector lights and a
 constant, image or sun and sky environment, such as ``cornell_box()``,

@@ -21,6 +21,12 @@ imports nothing of JAX.
 A specfilm's response functions (``srfs``) are not ported: a scene that
 has them is refused.
 
+Implicit geometry comes across too: the analytic rows (``analytic_prims``),
+the SDF grids and rows, the instance table (``instances.<field>``), each
+prototype's accel (``proto_accels.<p>.<field>``, its kind in
+``meta["proto_accels"]``, ``"dense"`` for none), the prototypes' face
+ranges and ``n_query_faces``.
+
 The accel is None for the dense all-triangles test (kind ``"dense"``,
 no arrays), or one of cellserve (``MI3T_ACCEL`` auto or cells), bvh_serve
 (``serve``) or bvh_tiled (``tiled``); its kind is told by the fields it
@@ -52,7 +58,8 @@ from .ops.bvh_serve import BVHServe
 from .ops.bvh_tiled import BVHTiled
 from .ops.cellserve import CellServe
 from .render.film import FilmConfig
-from .render.scene import Scene
+from .render.instancing import INSTANCE_FIELDS, InstanceTable
+from .render.scene import Scene, reached_slots
 from .sensors import SensorConfig, SensorData
 
 SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
@@ -60,8 +67,8 @@ SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
                 "face_normals", "face_colors", "em_radiance", "ef_face",
                 "ef_cdf", "env_data", "env_scale", "bsdf_params",
                 "de_params", "medium_params", "medium_to_grid", "face_medium",
-                "em_sphere")
-TUPLES = ("medium_grids", "phase_tables")   # tuples of arrays
+                "em_sphere", "analytic_prims", "sdf_rows")
+TUPLES = ("medium_grids", "phase_tables", "sdf_grids")   # tuples of arrays
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
 # a measured BSDF's table: its arrays and its two SlicedMarginal2D warps
 MEASURED_ARRAYS = ("theta_i", "phi_i", "reduction", "spectra", "ndf",
@@ -147,9 +154,17 @@ def arrays_from_scene(scene):
         for name in SENSOR_ARRAYS:
             if getattr(sensor, name, None) is not None:
                 arrays[f"{prefix}.{name}"] = _np(getattr(sensor, name))
-    acc_arrays, acc_meta = ({}, {"kind": "dense"}) if scene.accel is None \
-        else accel_arrays(scene.accel)
+    acc_arrays, acc_meta = _accel_or_dense(scene.accel)
     arrays.update({f"accel.{name}": a for name, a in acc_arrays.items()})
+    if getattr(scene, "instances", None) is not None:
+        for name in INSTANCE_FIELDS:
+            arrays[f"instances.{name}"] = _np(getattr(scene.instances, name))
+    proto_meta = []
+    for p, acc in enumerate(getattr(scene, "proto_accels", ())):
+        acc_arrays, acc_p = _accel_or_dense(acc)
+        arrays.update({f"proto_accels.{p}.{name}": a
+                       for name, a in acc_arrays.items()})
+        proto_meta.append(acc_p)
 
     meta = {name: tuple(getattr(scene, name)) if name in (
         "em_sphere_slots", "em_directional") else getattr(scene, name)
@@ -163,7 +178,16 @@ def arrays_from_scene(scene):
     # max_null_events and shadow_segments), not a JAX config's others
     meta["integrator"] = config_to_dict(scene.integrator)
     meta["accel"] = acc_meta
+    meta["proto_accels"] = proto_meta
+    meta["proto_ranges"] = tuple(tuple(int(x) for x in r)
+                                 for r in getattr(scene, "proto_ranges", ()))
+    meta["n_query_faces"] = int(getattr(scene, "n_query_faces", 0))
     return arrays, meta
+
+
+def _accel_or_dense(acc):
+    """accel_arrays of `acc`, or no arrays and kind "dense" for None."""
+    return ({}, {"kind": "dense"}) if acc is None else accel_arrays(acc)
 
 
 def _sensor_prefixes(sensor):
@@ -234,7 +258,8 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
     else:
         sensor = SensorData(**group("sensor", SENSOR_ARRAYS))
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
-    for name in ("de_params", "face_colors", "face_medium", "em_sphere"):
+    for name in ("de_params", "face_colors", "face_medium", "em_sphere",
+                 "analytic_prims", "sdf_rows"):
         leaves.setdefault(name, None)
     for name in TUPLES:
         leaves[name] = tuple(t(f"{name}.{i}") for i in range(sum(
@@ -253,8 +278,20 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
          **{w: SlicedMarginal2D(**group(f"measured_tables.{i}.{w}",
                                         WARP_ARRAYS))
             for w in MEASURED_WARPS}} for i in range(n_measured))
+    instances = (InstanceTable(**group("instances", INSTANCE_FIELDS))
+                 if "instances.proto_of" in arrays else None)
+    proto_accels = tuple(
+        None if pm["kind"] == "dense" else accel_from_arrays(
+            {name[len(f"proto_accels.{p}."):]: a
+             for name, a in arrays.items()
+             if name.startswith(f"proto_accels.{p}.")}, pm, device)
+        for p, pm in enumerate(meta.get("proto_accels", ())))
     return Scene(
         **leaves,
+        instances=instances,
+        proto_accels=proto_accels,
+        proto_ranges=tuple(meta.get("proto_ranges", ())),
+        n_query_faces=meta.get("n_query_faces", 0),
         env_warp=SlicedMarginal2D(**group("env_warp", WARP_ARRAYS)),
         sensor=sensor,
         accel=(None if meta["accel"]["kind"] == "dense"
@@ -262,9 +299,9 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
         textures=tuple(t(f"textures.{i}") for i in range(n_tex)),
         texture_mips=mips,
         measured_tables=measured,
-        **bsdfs.dispatch_tables(
-            meta["bsdf_types"], rows, np.asarray(arrays["face_bsdf"])[
-                np.asarray(arrays["face_shape"]) >= 0]),
+        **bsdfs.dispatch_tables(meta["bsdf_types"], rows, reached_slots(
+            arrays["face_bsdf"], arrays["face_shape"],
+            arrays.get("analytic_prims"), arrays.get("sdf_rows"))),
         **{name: meta[name] for name in SCENE_META},
         projector_textures=emitters.projector_textures(
             meta["delta_emitter_types"], np.asarray(arrays.get(

@@ -5,7 +5,10 @@ MIS -> NEE with a deferred shadow test -> BSDF sample -> Russian
 roulette) as eager tensor code. Instead of masking finished lanes for a
 static bounce count, `sample` drops them after every bounce: lanes are
 independent and every lane draws the same sampler dimensions each bounce,
-so the estimate is unchanged.
+so the estimate is unchanged. Under plain autograd the Monte Carlo
+decisions are detached where JAX's (and the reference's) are: the MIS
+weights, the sampled direction, the Russian-roulette probability and the
+BSDF pdf carried to the next bounce.
 """
 from __future__ import annotations
 
@@ -31,11 +34,11 @@ class PathConfig:
 
 
 def mis_weight(pdf_a, pdf_b):
-    """Power heuristic (beta = 2)."""
+    """Power heuristic (beta = 2), detached."""
     pdf_a = pdf_a * pdf_a
     pdf_b = pdf_b * pdf_b
     w = m.safe_div(pdf_a, pdf_a + pdf_b)
-    return torch.where(torch.isfinite(w), w, 0.0)
+    return torch.where(torch.isfinite(w), w, 0.0).detach()
 
 
 @struct
@@ -137,6 +140,8 @@ def make_bounce(scene, cfg: PathConfig):
 
         # ---------------------- BSDF sampling -------------------------
         wo_world = si.to_world(bs.wo)
+        wo_world = Vec3(wo_world.x.detach(), wo_world.y.detach(),
+                        wo_world.z.detach())
         new_o = Vec3.where(active_next, si.offset_p(wo_world), s.ray_o)
         new_d = Vec3.where(active_next, wo_world, s.ray_d)
         throughput = Vec3.where(active_next, s.throughput * bsdf_weight,
@@ -148,7 +153,7 @@ def make_bounce(scene, cfg: PathConfig):
 
         # ---------------------- Russian roulette -----------------------
         throughput_max = throughput.max_component()
-        rr_prob = torch.clamp(throughput_max * m.sqr(eta), max=0.95)
+        rr_prob = torch.clamp(throughput_max * m.sqr(eta), max=0.95).detach()
         rr_active = depth >= cfg.rr_depth
         rng, rr_sample = sampler_mod.next_1d(rng)
         rr_continue = rr_sample < rr_prob
@@ -162,7 +167,8 @@ def make_bounce(scene, cfg: PathConfig):
             ray_o=new_o, ray_d=new_d, throughput=throughput, result=result,
             eta=eta, depth=depth, valid_ray=valid_ray,
             prev_p=Vec3.where(active_next, si.p, s.prev_p),
-            prev_bsdf_pdf=torch.where(active_next, bs.pdf, s.prev_bsdf_pdf),
+            prev_bsdf_pdf=torch.where(active_next, bs.pdf.detach(),
+                                      s.prev_bsdf_pdf),
             prev_bsdf_delta=torch.where(
                 active_next, (bs.sampled_type & bsdfs.DELTA) != 0,
                 s.prev_bsdf_delta),

@@ -3,15 +3,21 @@ for the plugins the port carries:
 
 - ``mesh`` shapes given as ``vertices``/``faces`` arrays (with optional
   per-vertex ``uvs`` and shading ``normals``), ``rectangle``, ``cube``,
-  the mesh files ``obj``, ``ply`` and ``serialized``, the tessellated
-  ``sphere``, ``disk`` and ``cylinder`` (where the JAX loader
-  tessellates them: an emitter attached, ``flip_normals``, or a to_world
-  that is not rigid with a uniform scale) and the ``linearcurve`` and
-  ``bsplinecurve`` tubes (where the JAX loader tessellates them:
-  ``tessellate``, an emitter, or more than 512 cones), each with a BSDF
-  (inline, named at the top level, or a ``ref`` to a named one) and
-  optionally an ``area`` or ``directionalarea`` emitter of constant
-  radiance (a sphere's also in ``em_sphere``, cone-sampled by NEE);
+  the mesh files ``obj``, ``ply`` and ``serialized``, ``sphere``,
+  ``disk`` and ``cylinder`` (analytic rows, ``scene.analytic_prims``,
+  unless an emitter, ``flip_normals`` or a to_world that is not rigid
+  with a uniform scale makes the JAX loader tessellate them),
+  ``linearcurve`` and ``bsplinecurve`` (round-cone rows, or tubes where
+  JAX tessellates them: ``tessellate``, an emitter, or more than 512
+  cones), ``sdfgrid`` (a grid or a ``.vol`` file, ``scene.sdf_grids``
+  and ``sdf_rows``), ``ellipsoidsmesh`` (baked shells, by default in a
+  vertex-color diffuse), the children of a ``merge``, and ``shapegroup``s
+  placed by ``instance``s (each group lowered once into prototype-space
+  faces past ``n_query_faces``, its own cellserve above 8192 faces, and
+  ``scene.instances``), each with a BSDF (inline, named at the top
+  level, or a ``ref`` to a named one) and optionally an ``area`` or
+  ``directionalarea`` emitter of constant radiance on a mesh (a
+  sphere's also in ``em_sphere``, cone-sampled by NEE);
 - the BSDFs ``diffuse``, ``conductor``, ``roughconductor``, ``plastic``,
   ``roughplastic``, ``dielectric``, ``thindielectric``,
   ``roughdielectric``, ``null``, ``mask``, ``blendbsdf``, ``normalmap``
@@ -65,8 +71,8 @@ for the plugins the port carries:
   device, ``serve`` gives ``bvh_serve`` and ``tiled`` gives ``bvh_tiled``;
   ``xla``, ``grid`` and ``none`` are not ported.
 
-Any other plugin raises ``NotImplementedError`` naming it: among them an
-analytic sphere, disk, cylinder or curve, the polarized BSDFs
+Any other plugin raises ``NotImplementedError`` naming it: among them the
+``ellipsoids`` Gaussian primitives, the polarized BSDFs
 (``pplastic``, ``polarizer``, ``retarder``, ``circular``,
 ``measured_polarized``), a spectral ``.bsdf``, the ``stokes``,
 ``volprim_rf_basic``, ``prb_projective`` and ``direct_projective``
@@ -99,15 +105,24 @@ from .emitters import sunsky
 from .integrators import config_from_dict as integrator_from_dict
 from .integrators.path import PathConfig
 from .ops import bvh_serve, bvh_tiled, cellserve
+from .ops import sdf as sdf_mod
 from .bsdfs import rough_transmittance as rtrans
+from .render import instancing
 from .render import sampler as sampler_mod
 from .render import texture as tex_mod
 from .render.film import RFILTERS, FilmConfig
 from .render.fresnel import CONDUCTOR_IOR
-from .render.scene import TRI_CHUNK, TRI_PAD, Scene
+from .render.scene import TRI_CHUNK, TRI_PAD, Scene, reached_slots
 from .render.texture_io import Texture, load_texture_spec
+from .shapes import curves as curves_mod
 
 ACCEL_MIN_FACES = 8192   # scenes above this many faces get an accel
+INSTANCE_PAD = 128       # the instance table's row granularity
+# the shape types a merge or a shapegroup may hold (ellipsoids: refused)
+GROUP_MEMBER_TYPES = tuple(shapes_pkg.SHAPE_KEYS) + ("ellipsoids",)
+# an ellipsoidsmesh's BSDF when it names none: its vertex colors
+ELLIPSOID_BSDF = {"type": "diffuse", "reflectance": {
+    "type": "mesh_attribute", "name": "vertex_color"}}
 ACCELS = {"auto": cellserve.build, "cells": cellserve.build,
           "serve": bvh_serve.build, "tiled": bvh_tiled.build}
 UNPORTED_ACCELS = ("xla", "grid", "none")
@@ -889,6 +904,122 @@ def _emitter_sampling(em_faces, em_areas, n_faces: int, n_emitters: int):
     return face_inv_total_area, np.asarray(ef_face, np.int32), ef_cdf
 
 
+def _tri_rows(vertices, faces):
+    """(p0, e1, e2) [F, 3] arrays of `faces`."""
+    p0 = vertices[faces[:, 0]]
+    return p0, vertices[faces[:, 1]] - p0, vertices[faces[:, 2]] - p0
+
+
+def _lower_prototypes(shapegroups, instance_specs, add_bsdf, n_shapes,
+                      vertices, faces, face_uv, face_normals, face_colors,
+                      face_shape, face_bsdf, face_emitter, face_medium,
+                      face_inv_total_area):
+    """The JAX loader's true instancing: each referenced shapegroup lowered
+    once into prototype-space faces appended to the face arrays (its
+    members tessellated by build_shape, padded to a TRI_CHUNK multiple),
+    and per instance its transforms and world AABB, the instance table
+    padded to a multiple of INSTANCE_PAD with never-hit rows. Returns the
+    extended arrays, the prototypes' (base, count) face ranges and the
+    InstanceTable's arrays."""
+    slots: dict[str, int] = {}
+    ranges, lo_g, hi_g = [], [], []
+    v_parts, f_parts = [vertices], [faces]
+    uv_p, ns_p, fs_p, fb_p = [], [], [], []
+    v_off, f_total = vertices.shape[0], faces.shape[0]
+    for gid, _ in instance_specs:
+        if gid in slots:
+            continue
+        if gid not in shapegroups:
+            raise ValueError(f"instance references unknown shapegroup "
+                             f"{gid!r}")
+        slots[gid] = len(ranges)
+        base = f_total
+        g_lo = np.full(3, np.inf, np.float32)
+        g_hi = np.full(3, -np.inf, np.float32)
+        for member in shapegroups[gid]:
+            mtype = member.get("type")
+            if mtype in ("sdfgrid", "ellipsoids"):
+                raise ValueError(f"shapegroup member type {mtype!r} cannot "
+                                 f"be instanced (triangle meshes only)")
+            if member.get("emitter") is not None:
+                raise ValueError(
+                    "emitters inside shapegroups are not supported "
+                    "(matches the reference instance.cpp restriction)")
+            mesh = shapes_pkg.build_shape(member)
+            bspec = member.get("bsdf")
+            b_idx = add_bsdf(bspec if bspec is not None
+                             else {"type": "diffuse"})
+            nf = mesh.faces.shape[0]
+            mv = mesh.vertices.astype(np.float32)
+            v_parts.append(mv)
+            f_parts.append((mesh.faces + v_off).astype(np.int32))
+            fs_p.extend([n_shapes] * nf)
+            fb_p.extend([b_idx] * nf)
+            uv_p.append(mesh.uvs[mesh.faces] if mesh.uvs is not None
+                        else np.zeros((nf, 3, 2)))
+            ns_p.append(mesh.normals[mesh.faces]
+                        if mesh.normals is not None else np.zeros((nf, 3, 3)))
+            g_lo = np.minimum(g_lo, mv.min(axis=0))
+            g_hi = np.maximum(g_hi, mv.max(axis=0))
+            v_off += mv.shape[0]
+            f_total += nf
+            n_shapes += 1
+        pad = (-(f_total - base)) % TRI_CHUNK
+        if pad:
+            f_parts.append(np.zeros((pad, 3), np.int32))
+            fs_p.extend([-1] * pad)
+            fb_p.extend([0] * pad)
+            uv_p.append(np.zeros((pad, 3, 2)))
+            ns_p.append(np.zeros((pad, 3, 3)))
+            f_total += pad
+        ranges.append((int(base), int(f_total - base)))
+        lo_g.append(g_lo)
+        hi_g.append(g_hi)
+    n_new = f_total - faces.shape[0]
+
+    def cat(a, b, dtype):
+        return np.concatenate([a, np.asarray(b, dtype).reshape(
+            (n_new,) + a.shape[1:])], 0)
+
+    n_inst = len(instance_specs)
+    n_pad = n_inst + (-n_inst) % INSTANCE_PAD
+    tables = {"to_world": np.tile(np.eye(3, 4, dtype=np.float32).reshape(
+        1, 12), (n_pad, 1)), "n_mat": np.tile(np.eye(
+            3, dtype=np.float32).reshape(1, 9), (n_pad, 1)),
+        # NaN boxes: every slab comparison is False, so a padding row is
+        # never a candidate
+        "aabb_lo": np.full((n_pad, 3), np.nan, np.float32),
+        "aabb_hi": np.full((n_pad, 3), np.nan, np.float32),
+        "proto_of": np.zeros(n_pad, np.int32)}
+    tables["to_proto"] = tables["to_world"].copy()
+    for ix, (gid, tw) in enumerate(instance_specs):
+        slot = slots[gid]
+        mtx = np.asarray(tw.matrix, np.float64)
+        inv = np.linalg.inv(mtx)
+        tables["proto_of"][ix] = slot
+        tables["to_world"][ix] = mtx[:3, :4].reshape(-1)
+        tables["to_proto"][ix] = inv[:3, :4].reshape(-1)
+        tables["n_mat"][ix] = inv[:3, :3].T.reshape(-1)
+        lo, hi = lo_g[slot], hi_g[slot]
+        corners = np.array([[x, y, z] for z in (lo[2], hi[2])
+                            for y in (lo[1], hi[1]) for x in (lo[0], hi[0])])
+        wc = corners @ mtx[:3, :3].T + mtx[:3, 3]
+        tables["aabb_lo"][ix] = wc.min(axis=0)
+        tables["aabb_hi"][ix] = wc.max(axis=0)
+    return (np.concatenate(v_parts, 0).astype(np.float32),
+            np.concatenate(f_parts, 0).astype(np.int32),
+            cat(face_uv, np.concatenate([np.zeros((0, 3, 2))] + uv_p, 0),
+                np.float32),
+            cat(face_normals, np.concatenate([np.zeros((0, 3, 3))] + ns_p,
+                                             0), np.float32),
+            cat(face_colors, np.zeros((n_new, 3, 3)), np.float32),
+            cat(face_shape, fs_p, np.int32), cat(face_bsdf, fb_p, np.int32),
+            cat(face_emitter, np.full(n_new, -1), np.int32),
+            cat(face_medium, np.full((n_new, 2), -2), np.int32),
+            cat(face_inv_total_area, np.zeros(n_new), np.float32),
+            tuple(ranges), tables)
+
+
 def load_dict(d: dict, device=None) -> Scene:
     """Lower a scene dict to a Scene on `device` (the card by default)."""
     dev = resolve_device(device)
@@ -943,8 +1074,14 @@ def load_dict(d: dict, device=None) -> Scene:
         return len(medium_types) - 1
 
     shape_items = []
+    instance_specs = []   # (shapegroup id, to_world) per instance
     env_spec = None
     delta_specs = []
+    # shapegroups may be referenced before they are defined
+    shapegroups = {key: [v for v in val.values() if isinstance(v, dict)
+                         and v.get("type") in GROUP_MEMBER_TYPES]
+                   for key, val in d.items() if isinstance(val, dict)
+                   and val.get("type") == "shapegroup"}
     for key, val in d.items():
         if key == "type" or not isinstance(val, dict):
             continue
@@ -960,7 +1097,23 @@ def load_dict(d: dict, device=None) -> Scene:
         elif vtype in MEDIUM_KEYS:
             add_medium(val, name=key)
         elif vtype in shapes_pkg.SHAPE_KEYS:
+            if vtype == "ellipsoidsmesh" and "bsdf" not in val:
+                # the shells default to their primitives' colors
+                val = dict(val, bsdf=ELLIPSOID_BSDF)
             shape_items.append(val)
+        elif vtype == "shapegroup":
+            pass   # read above
+        elif vtype == "instance":
+            ref = next(v for v in val.values()
+                       if isinstance(v, dict) and v.get("type") == "ref")
+            instance_specs.append((ref["id"], as_transform(
+                val.get("to_world", np.eye(4)))))
+        elif vtype == "merge":
+            # merge.cpp: every mesh lands in one face table anyway, so the
+            # children are inlined
+            shape_items.extend(
+                cv for cv in val.values() if isinstance(cv, dict)
+                and cv.get("type") in GROUP_MEMBER_TYPES)
         elif vtype in ENV_KEYS:
             _check_keys(val, ENV_KEYS[vtype], f"{vtype} emitter")
             env_spec = val
@@ -977,11 +1130,55 @@ def load_dict(d: dict, device=None) -> Scene:
     face_shape, face_bsdf, face_emitter, face_medium = [], [], [], []
     em_radiance, em_faces, em_areas = [], [], []
     em_sphere, em_directional = [], []   # per area emitter; its slots
+    analytic_rows, sdf_grids, sdf_rows = [], [], []
     v_off = f_off = 0
     any_colors = False
+
+    def implicit_media(spec):
+        """An analytic or SDF shape's (interior, exterior) media, -2 where
+        none is given."""
+        int_spec = spec.get("interior") or spec.get("interior_medium")
+        ext_spec = spec.get("exterior") or spec.get("exterior_medium")
+        return (add_medium(int_spec) if int_spec is not None else -2,
+                add_medium(ext_spec) if ext_spec is not None else -2)
+
     for s_idx, spec in enumerate(shape_items):
+        shapes_pkg.check_keys(spec)
+        arow = shapes_pkg.analytic_row(spec)
         bspec = spec.get("bsdf")
         b_idx = add_bsdf(bspec if bspec is not None else {"type": "diffuse"})
+        stype = spec["type"]
+        if stype == "sdfgrid":
+            # the grid in the to_world-mapped unit cube, sphere-traced at
+            # render time (ops/sdf.py)
+            row = np.zeros(sdf_mod.SDF_COLS, np.float32)
+            mtx = as_transform(spec.get("to_world", np.eye(4))).matrix
+            row[0:12] = np.linalg.inv(mtx)[:3, :4].reshape(-1)
+            row[13], row[14] = s_idx, b_idx
+            row[15], row[16] = implicit_media(spec)
+            row[12] = len(sdf_grids)
+            if "filename" in spec:
+                from .utils.vol_io import read_vol
+                sdf_grids.append(read_vol(spec["filename"])[0])
+            else:
+                sdf_grids.append(np.asarray(spec["grid"], np.float32))
+            sdf_rows.append(row)
+            continue
+        rows = None
+        if arow is not None:
+            rows = arow[None]
+        elif stype in ("linearcurve", "bsplinecurve") \
+                and not spec.get("tessellate", False) \
+                and spec.get("emitter") is None:
+            # exact swept-sphere curves: round-cone rows, a tube above
+            # MAX_CONES
+            rows = curves_mod.curve_cone_rows(spec, stype == "bsplinecurve")
+        if rows is not None:
+            # implicit: no faces, intersected analytically
+            rows[:, 15], rows[:, 16], rows[:, 17] = s_idx, b_idx, -1
+            rows[:, 18], rows[:, 19] = implicit_media(spec)
+            analytic_rows.extend(rows)
+            continue
         mesh = shapes_pkg.build_shape(spec)
         nf = mesh.faces.shape[0]
         e_idx = -1
@@ -1016,7 +1213,19 @@ def load_dict(d: dict, device=None) -> Scene:
         v_off += mesh.vertices.shape[0]
         f_off += nf
     if not all_verts:
-        raise ValueError("Scene contains no shapes")
+        if not analytic_rows and not sdf_rows:
+            raise ValueError("Scene contains no shapes")
+        # an all-implicit scene keeps one degenerate (never hit) triangle,
+        # so that the face tables are not empty
+        all_verts.append(np.zeros((3, 3)))
+        all_faces.append(np.zeros((1, 3), np.int64))
+        face_uv.append(np.zeros((1, 3, 2)))
+        face_ns.append(np.zeros((1, 3, 3)))
+        face_vc.append(np.zeros((1, 3, 3)))
+        face_medium.append((-2, -2))
+        face_shape.append(-1)
+        face_bsdf.append(0)
+        face_emitter.append(-1)
 
     vertices = np.concatenate(all_verts, 0).astype(np.float32)
     faces = np.concatenate(all_faces, 0).astype(np.int32)
@@ -1075,12 +1284,26 @@ def load_dict(d: dict, device=None) -> Scene:
     # small scenes keep the dense all-triangles test (accel None)
     accel = None
     if n_padded > ACCEL_MIN_FACES:
-        p0w = vertices[faces[:, 0]]
-        accel = _accel_builder()(p0w, vertices[faces[:, 1]] - p0w,
-                                 vertices[faces[:, 2]] - p0w, device=dev)
+        accel = _accel_builder()(*_tri_rows(vertices, faces), device=dev)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    instances, proto_accels, proto_ranges = None, (), ()
+    if instance_specs:
+        # prototype faces appended past the queried ones, in prototype
+        # space, each shapegroup once
+        (vertices, faces, face_uv, face_normals, face_colors, face_shape,
+         face_bsdf, face_emitter, face_medium, face_inv_total_area,
+         proto_ranges, tables) = _lower_prototypes(
+            shapegroups, instance_specs, add_bsdf, len(shape_items),
+            vertices, faces, face_uv, face_normals, face_colors, face_shape,
+            face_bsdf, face_emitter, face_medium, face_inv_total_area)
+        proto_accels = tuple(
+            cellserve.build(*_tri_rows(vertices, faces[b:b + c]), device=dev)
+            if c > ACCEL_MIN_FACES else None for b, c in proto_ranges)
+        instances = instancing.InstanceTable(
+            **{k: t(v) for k, v in tables.items()})
 
     return Scene(
         vertices=t(vertices),
@@ -1123,6 +1346,14 @@ def load_dict(d: dict, device=None) -> Scene:
                               if r is not None),
         em_directional=tuple(em_directional),
         projector_textures=em_pkg.projector_textures(de_types, de_rows),
+        analytic_prims=(t(np.stack(analytic_rows, 0)) if analytic_rows
+                        else None),
+        sdf_grids=tuple(t(g) for g in sdf_grids),
+        sdf_rows=t(np.stack(sdf_rows, 0)) if sdf_rows else None,
+        instances=instances,
+        proto_accels=proto_accels,
+        proto_ranges=proto_ranges,
+        n_query_faces=n_padded if instance_specs else 0,
         medium_types=tuple(medium_types),
         phase_types=tuple(phase_types),
         sensor_medium=sensor_medium,
@@ -1132,8 +1363,10 @@ def load_dict(d: dict, device=None) -> Scene:
         delta_emitter_types=de_types,
         bsdf_types=tuple(bsdf_types),
         texture_meta=tuple(tx.meta for tx in textures),
-        **bsdfs_pkg.dispatch_tables(bsdf_types, bsdf_params,
-                                    face_bsdf[:n_faces]),
+        **bsdfs_pkg.dispatch_tables(bsdf_types, bsdf_params, reached_slots(
+            face_bsdf, face_shape,
+            np.stack(analytic_rows, 0) if analytic_rows else None,
+            np.stack(sdf_rows, 0) if sdf_rows else None)),
         bsdf_flags=_slot_flags(bsdf_types, bsdf_params),
         adapter_max_depth=_adapter_chain_depth(bsdf_types, bsdf_params),
         film=film_cfg,

@@ -31,11 +31,14 @@ class Ray:
 
 @struct
 class PreliminaryIntersection:
-    """Distance + primitive id + barycentrics; shape_index -1 = miss."""
+    """Distance + primitive id + barycentrics; shape_index -1 = miss.
+    instance_index: the instance of an instanced hit (-1 on other lanes),
+    None in a scene without instances."""
     t: torch.Tensor
     prim_uv: Vec2
     prim_index: torch.Tensor
     shape_index: torch.Tensor
+    instance_index: torch.Tensor | None = None
 
     def is_valid(self):
         return self.shape_index >= 0

@@ -8,12 +8,21 @@ The JAX Scene's static fields are plain fields here; the per-face
 attribute table is built once from the leaves when the Scene is made. A
 scene with media adds the faces' (interior, exterior) medium columns to
 it; -2 (``NO_TRANSITION``) marks a face whose crossing keeps the medium.
+
+Implicit geometry is merged after the accel's hit, as in JAX: instances
+(``render/instancing.py``; their prototype faces live past
+``n_query_faces`` in prototype space), then the analytic rows
+(``ops/analytic.py``; prim F + row), then each SDF grid
+(``ops/sdf.py``; prim F + A + k), F counting every face. An analytic or
+SDF lane reads its mip LOD (``duv_scale``) and vertex color from the
+clamped last face, as JAX does.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from .. import emitters as em_pkg
@@ -25,10 +34,12 @@ from ..core.gather import take_rows
 from ..core.struct import struct
 from ..core.vec import Vec2, Vec3
 from ..emitters import envmap as env_mod
-from ..ops import bvh_serve, bvh_tiled, cellserve
+from ..ops import analytic, bvh_serve, bvh_tiled, cellserve
 from ..ops import intersect as ops_intersect
+from ..ops import sdf as sdf_mod
 from ..render.film import FilmConfig
 from ..sensors import SensorConfig, SensorData
+from . import instancing
 from . import texture as tex_mod
 from .records import (DirectionSample, PreliminaryIntersection, Ray,
                       SurfaceInteraction)
@@ -44,6 +55,25 @@ A_INV_AREA, A_EMITTER, A_BSDF, A_SHAPE = 15, 16, 17, 18
 A_NS = 19                        # per-corner shading normals, 9 columns
 A_MED = 28                       # interior, exterior medium (with media)
 # then the per-corner vertex colors, 9 columns (Scene.a_vc)
+
+
+def reached_slots(face_bsdf, face_shape, analytic_prims=None,
+                  sdf_rows=None):
+    """The BSDF slots a hit can name (numpy): the faces' but padding's
+    (face_shape -1), the analytic rows' and the SDF rows'."""
+    slots = [np.asarray(face_bsdf)[np.asarray(face_shape) >= 0]]
+    for rows, col in ((analytic_prims, 16), (sdf_rows, 14)):
+        if rows is not None:
+            slots.append(np.round(np.asarray(rows)[:, col]).astype(np.int32))
+    return np.concatenate(slots)
+
+
+def _soa(p):
+    """(p0, e1, e2) as Vec3 of [F] from corner positions [F, 3, 3]."""
+    p0 = Vec3(p[:, 0, 0], p[:, 0, 1], p[:, 0, 2])
+    p1 = Vec3(p[:, 1, 0], p[:, 1, 1], p[:, 1, 2])
+    p2 = Vec3(p[:, 2, 0], p[:, 2, 1], p[:, 2, 2])
+    return p0, p1 - p0, p2 - p0
 
 
 @struct
@@ -109,6 +139,16 @@ class Scene:
     # texture ids (k + 1) the projector rows of de_params name
     # (emitters.projector_textures; update() redoes it)
     projector_textures: tuple = ()
+    # implicit geometry: analytic rows [A, analytic.N_COLS], SDF grids
+    # [D, H, W] with their rows [S, sdf.SDF_COLS]; instances and, per
+    # prototype, its (base, count) face range and its accel (None: dense)
+    analytic_prims: torch.Tensor | None = None
+    sdf_grids: tuple = ()
+    sdf_rows: torch.Tensor | None = None
+    instances: instancing.InstanceTable | None = None
+    proto_accels: tuple = ()
+    proto_ranges: tuple = ()
+    n_query_faces: int = 0            # 0: every face is queried directly
     # static configuration
     n_emitters: int = 0
     n_area_emitters: int = 0
@@ -147,19 +187,24 @@ class Scene:
     # Geometry access
     # ------------------------------------------------------------------
 
-    def triangle_soa(self):
-        """(p0, e1, e2) as Vec3 of [F]; padding faces are degenerate."""
-        p = self.vertices[self.faces.long()]
-        p0 = Vec3(p[:, 0, 0], p[:, 0, 1], p[:, 0, 2])
-        p1 = Vec3(p[:, 1, 0], p[:, 1, 1], p[:, 1, 2])
-        p2 = Vec3(p[:, 2, 0], p[:, 2, 1], p[:, 2, 2])
-        return p0, p1 - p0, p2 - p0
+    def triangle_soa(self, query_only: bool = True):
+        """(p0, e1, e2) as Vec3 of [F]; padding faces are degenerate. With
+        query_only (the intersector's view) the prototype faces past
+        n_query_faces are left out: instances reach them."""
+        f = (self.faces[:self.n_query_faces]
+             if query_only and self.n_query_faces else self.faces)
+        return _soa(self.vertices[f.long()])
+
+    def proto_soa(self, p: int):
+        """(p0, e1, e2) of prototype p's faces, in prototype space."""
+        base, count = self.proto_ranges[p]
+        return _soa(self.vertices[self.faces[base:base + count].long()])
 
     def _face_table(self):
         """[F, 28] per-face attribute rows (columns A_*; int columns as
         exact f32), then a scene with media's two medium columns and the
         vertex colors' nine."""
-        p0, e1, e2 = self.triangle_soa()
+        p0, e1, e2 = self.triangle_soa(query_only=False)
         uv = self.face_uv
         ns = self.face_normals
         cols = [p0.x, p0.y, p0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z,
@@ -210,16 +255,79 @@ class Scene:
             return bvh_serve.intersect_bvh, bvh_serve.occluded_bvh
         return bvh_tiled.intersect_bvh, bvh_tiled.occluded_bvh
 
+    @property
+    def n_analytic(self) -> int:
+        return (0 if self.analytic_prims is None
+                else self.analytic_prims.shape[0])
+
     def ray_intersect_preliminary(self, ray: Ray, active=None):
         t, prim, uv, valid = self._queries()[0](
             self.accel, ray.o, ray.d, ray.maxt, active=active)
+        inst_idx = None
+        if self.instances is not None:
+            ti, pri, uvi, ii, vi = instancing.intersect_instances(
+                self, ray.o, ray.d, ray.maxt,
+                torch.ones_like(valid) if active is None else active)
+            better = vi & (~valid | (ti < t))
+            t = torch.where(better, ti, t)
+            prim = torch.where(better, pri, prim)
+            uv = Vec2(torch.where(better, uvi.x, uv.x),
+                      torch.where(better, uvi.y, uv.y))
+            valid = valid | better
+            prim = torch.where(valid, prim, -1)
+            inst_idx = torch.where(better, ii, -1)
+        f_count = self.faces.shape[0]
+        merges = []
+        if self.n_analytic:
+            # the table and the rays go in detached, as the triangle query's
+            # do: the hit's t and uv carry no gradient, and surface_fields
+            # re-attaches p and n to the rows (ROADMAP queue 3)
+            o_det = Vec3(ray.o.x.detach(), ray.o.y.detach(), ray.o.z.detach())
+            d_det = Vec3(ray.d.x.detach(), ray.d.y.detach(), ray.d.z.detach())
+            merges.append((f_count, lambda cap: analytic.intersect_analytic(
+                self.analytic_prims.detach(), o_det, d_det, cap.detach(),
+                active=active)))
+        for k, grid in enumerate(self.sdf_grids):
+            def sdf_hit(cap, k=k, grid=grid):
+                ts, ux, uy, vs = sdf_mod.intersect_sdf(
+                    grid, self.sdf_rows[k].detach(), ray.o, ray.d, cap,
+                    active=active)
+                return ts, 0, Vec2(ux, uy), vs
+            merges.append((f_count + self.n_analytic + k, sdf_hit))
+        for base, query in merges:
+            # each is capped at the hit so far and wins on a smaller t only
+            ta, aidx, uva, va = query(torch.where(valid, t, ray.maxt))
+            better = va & (~valid | (ta < t))
+            t = torch.where(better, ta, t)
+            prim = torch.where(better, base + aidx, prim)
+            uv = Vec2(torch.where(better, uva.x, uv.x),
+                      torch.where(better, uva.y, uv.y))
+            valid = valid | better
+            if inst_idx is not None:
+                inst_idx = torch.where(better, -1, inst_idx)
+        if merges:
+            prim = torch.where(valid, prim, -1)
         return PreliminaryIntersection(
             t=t, prim_uv=uv, prim_index=prim,
-            shape_index=torch.where(valid, prim, -1))
+            shape_index=torch.where(valid, prim, -1),
+            instance_index=inst_idx)
 
     def ray_test(self, ray: Ray, active=None):
-        return self._queries()[1](self.accel, ray.o, ray.d, ray.maxt,
-                                  active=active)
+        occ = self._queries()[1](self.accel, ray.o, ray.d, ray.maxt,
+                                 active=active)
+        if self.instances is not None:
+            act = (torch.ones_like(occ) if active is None else active) & ~occ
+            occ = occ | instancing.occluded_instances(
+                self, ray.o, ray.d, ray.maxt, act)
+        if self.n_analytic:
+            occ = occ | analytic.intersect_analytic(
+                self.analytic_prims.detach(), ray.o, ray.d, ray.maxt,
+                active=active)[3]
+        for k, grid in enumerate(self.sdf_grids):
+            occ = occ | sdf_mod.intersect_sdf(
+                grid, self.sdf_rows[k].detach(), ray.o, ray.d, ray.maxt,
+                active=active)[3]
+        return occ
 
     def compute_surface_interaction(self, ray: Ray,
                                     pi: PreliminaryIntersection):
@@ -244,14 +352,67 @@ class Scene:
                   a[n0 + 2] * w0 + a[n1 + 2] * b1 + a[n2 + 2] * b2)
         has_ns = ns.squared_norm() > 1e-12
         ns = Vec3.where(has_ns, ns.normalize(), ng)
-        sh_frame = Frame.from_normal(ns)
-        wi = sh_frame.to_local(-ray.d)
+        if self.instances is not None and pi.instance_index is not None:
+            # an instanced hit's prototype face lies in prototype space: the
+            # position goes through its instance's to_world, the normals
+            # through its inverse transpose; the transforms are not
+            # differentiable (as in JAX)
+            ii = pi.instance_index
+            k = torch.clamp(ii, 0, self.instances.proto_of.shape[0] - 1)
+            iw = self.instances.to_world.detach()[k.long()]
+            nm = self.instances.n_mat.detach()[k.long()]
+            is_inst = ii >= 0
+            p = Vec3.where(is_inst, instancing.affine_apply(iw, p), p)
+            ng = Vec3.where(is_inst,
+                            instancing.linear9_apply(nm, ng).normalize(), ng)
+            ns = Vec3.where(is_inst,
+                            instancing.linear9_apply(nm, ns).normalize(), ns)
         uv = Vec2(a[A_UV] * w0 + a[A_UV + 2] * b1 + a[A_UV + 4] * b2,
                   a[A_UV + 1] * w0 + a[A_UV + 3] * b1 + a[A_UV + 5] * b2)
         valid = pi.is_valid()
 
         def as_int(x):
             return torch.round(x).to(torch.int32)
+
+        shape_idx = torch.where(valid, as_int(a[A_SHAPE]), -1)
+        bsdf_idx = as_int(a[A_BSDF])
+        emitter_idx = torch.where(valid, as_int(a[A_EMITTER]), -1)
+        inv_total_area = a[A_INV_AREA]
+        med = ([as_int(a[A_MED]), as_int(a[A_MED + 1])] if self.has_media
+               else None)
+        f_count = self.faces.shape[0]
+        implicit = []   # (lanes, p, n, (shape, bsdf, medium in, out) rows)
+        if self.n_analytic:
+            # analytic lanes: p and n recomputed differentiably from the
+            # rows (sphere.cpp / disk.cpp compute_surface_interaction)
+            is_an = valid & (pi.prim_index >= f_count)
+            aidx = torch.clamp(pi.prim_index - f_count, 0,
+                               self.n_analytic - 1)
+            pa, nga, _, rows = analytic.surface_fields(
+                self.analytic_prims, aidx, pi.prim_uv, ray.o, ray.d, pi.t)
+            implicit.append((is_an, pa, nga, rows[15:20]))
+            uv = Vec2(torch.where(is_an, pi.prim_uv.x, uv.x),
+                      torch.where(is_an, pi.prim_uv.y, uv.y))
+        for k, grid in enumerate(self.sdf_grids):
+            is_sdf = valid & (pi.prim_index == f_count + self.n_analytic + k)
+            row = self.sdf_rows[k]
+            pw, nw = sdf_mod.surface_fields(grid, row, ray.o, ray.d, pi.t,
+                                            active=is_sdf)
+            implicit.append((is_sdf, pw, nw, [row[13], row[14], None,
+                                              row[15], row[16]]))
+        for lanes, pk, nk, r in implicit:
+            p = Vec3.where(lanes, pk, p)
+            ng = Vec3.where(lanes, nk, ng)
+            ns = Vec3.where(lanes, nk, ns)
+            shape_idx = torch.where(lanes, as_int(r[0]), shape_idx)
+            bsdf_idx = torch.where(lanes, as_int(r[1]), bsdf_idx)
+            emitter_idx = torch.where(lanes, -1, emitter_idx)
+            inv_total_area = torch.where(lanes, 0.0, inv_total_area)
+            if med is not None:
+                med = [torch.where(lanes, as_int(r[3]), med[0]),
+                       torch.where(lanes, as_int(r[4]), med[1])]
+        sh_frame = Frame.from_normal(ns)
+        wi = sh_frame.to_local(-ray.d)
 
         duv_scale = None
         if any(meta[2] for meta in self.texture_meta):
@@ -272,16 +433,12 @@ class Scene:
 
         si = SurfaceInteraction(
             p=p, t=pi.t, n=ng, sh_frame=sh_frame, uv=uv, wi=wi,
-            shape_index=torch.where(valid, as_int(a[A_SHAPE]), -1),
-            prim_index=pi.prim_index, vcolor=vcolor, duv_scale=duv_scale)
-        attrs = {
-            "bsdf": as_int(a[A_BSDF]),
-            "emitter": torch.where(valid, as_int(a[A_EMITTER]), -1),
-            "inv_total_area": a[A_INV_AREA],
-        }
-        if self.has_media:
-            attrs["medium_interior"] = as_int(a[A_MED])
-            attrs["medium_exterior"] = as_int(a[A_MED + 1])
+            shape_index=shape_idx, prim_index=pi.prim_index, vcolor=vcolor,
+            duv_scale=duv_scale)
+        attrs = {"bsdf": bsdf_idx, "emitter": emitter_idx,
+                 "inv_total_area": inv_total_area}
+        if med is not None:
+            attrs["medium_interior"], attrs["medium_exterior"] = med
         return si, attrs
 
     @staticmethod

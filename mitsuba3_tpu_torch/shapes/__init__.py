@@ -1,23 +1,23 @@
-"""Host-side shape -> triangle-mesh lowering — counterpart of
+"""Host-side shape lowering — counterpart of
 ``mitsuba3_tpu/shapes/__init__.py`` for the in-memory ``mesh`` (with
 optional per-vertex uvs, normals and colors), the ``rectangle``, the
-``cube``, the mesh files ``obj``, ``ply`` and ``serialized`` (``loaders.py``,
-``serialized_io.py``), the ``sphere``, ``disk`` and ``cylinder``
-tessellations that the JAX loader falls back to when it cannot make the
-shape analytic (an emitter attached, ``flip_normals``, or a to_world that
-is not rigid with a uniform scale; ``analytic`` says which), and the
-``linearcurve`` and ``bsplinecurve`` tubes where the JAX loader
-tessellates curves (``curves.tessellated``). The analytic shapes and
-curves themselves are not ported.
+``cube``, the mesh files ``obj``, ``ply`` and ``serialized``
+(``loaders.py``, ``serialized_io.py``), the ``sphere``, ``disk`` and
+``cylinder``, the ``linearcurve`` and ``bsplinecurve`` (``curves.py``) and
+the ``ellipsoidsmesh`` shell cloud (``make_ellipsoids_mesh``).
 
-Shapes become world-space triangle arrays (NumPy, float64) while the scene
-dict is lowered; the loader concatenates them into the scene's face table.
-Canonical geometry matches the reference plugins: the rectangle is
+A sphere, disk or cylinder with no emitter, no ``flip_normals`` and a
+rigid uniform-scale to_world becomes an analytic row
+(``analytic_row``, JAX's ``_try_analytic``; ``ops/analytic.py``); the
+others, and every one inside a shapegroup, are tessellated here as in
+JAX. Shapes become world-space triangle arrays (NumPy, float64) while the
+scene dict is lowered; the loader concatenates them into the scene's face
+table. Canonical geometry matches the reference plugins: the rectangle is
 [-1,1]^2 in the XY plane with a +Z normal (src/shapes/rectangle.cpp), the
 cube [-1,1]^3 with outward normals (src/shapes/cube.cpp), the sphere a
 32 x 64 lat-long unit sphere, the disk a 64-gon in the XY plane, the
 cylinder an open 64-gon tube of unit radius over z in [0, 1]. As in the
-JAX package, ``flip_normals`` flips nothing.
+JAX package, a tessellated shape's ``flip_normals`` flips nothing.
 """
 from __future__ import annotations
 
@@ -45,8 +45,14 @@ SHAPE_KEYS = {
     "cylinder": _COMMON + ("radius", "p0", "p1", "flip_normals"),
     "linearcurve": _COMMON + _CURVE,
     "bsplinecurve": _COMMON + _CURVE,
+    "ellipsoidsmesh": _COMMON + ("centers", "means", "scales", "quaternions",
+                                 "quats", "colors", "extent", "shell"),
+    # the loader's: a grid or a .vol file in the to_world-mapped unit cube
+    "sdfgrid": ("type", "bsdf", "to_world", "interior", "exterior",
+                "interior_medium", "exterior_medium", "grid", "filename"),
 }
 IMPLICIT = ("sphere", "disk", "cylinder")
+N_ANALYTIC_COLS = 24   # ops/analytic.py's row width
 
 
 class MeshData:
@@ -174,27 +180,61 @@ def _uniform_scale(spec: dict):
     return m, s
 
 
-def analytic(spec: dict) -> bool:
-    """True where the JAX loader makes a sphere, disk or cylinder an
-    analytic primitive (``_try_analytic``: no emitter, no
-    ``flip_normals``, a rigid uniform-scale to_world, a cylinder of
-    nonzero length): those are not ported. The others are tessellated
-    here as there."""
-    if spec.get("type") not in IMPLICIT or spec.get("emitter") is not None \
+def analytic_row(spec: dict):
+    """A sphere, disk or cylinder as an analytic row [N_ANALYTIC_COLS]
+    float32 (ops/analytic.py's layout, slots 15-19 left 0), or None where
+    JAX's ``_try_analytic`` tessellates it: an emitter, ``flip_normals``,
+    a to_world that is not rigid with a uniform scale, or a cylinder of
+    zero length."""
+    st = spec.get("type")
+    if st not in IMPLICIT or spec.get("emitter") is not None \
             or spec.get("flip_normals"):
-        return False
+        return None
     fit = _uniform_scale(spec)
     if fit is None:
-        return False
+        return None
     m, s = fit
     rot = m[:3, :3] / s
     if np.abs(rot.T @ rot - np.eye(3)).max() > 1e-4:
-        return False
-    if spec["type"] == "cylinder":
+        return None
+    row = np.zeros(N_ANALYTIC_COLS, np.float32)
+    if st == "sphere":
+        c = m[:3, :3] @ np.asarray(spec.get("center", [0, 0, 0]),
+                                   np.float64) + m[:3, 3]
+        row[1:4] = c
+        row[4:7] = rot[:, 2]
+        row[7] = s * float(spec.get("radius", 1.0))
+        row[9:12] = rot[:, 0]
+        row[12:15] = rot[:, 1]
+    elif st == "disk":
+        row[0] = 1
+        row[1:4] = m[:3, 3]
+        row[4:7] = rot[:, 2]
+        row[7] = s
+        row[9:12] = rot[:, 0]
+        row[12:15] = rot[:, 1]
+    else:
         p0 = np.asarray(spec.get("p0", [0, 0, 0]), np.float64)
         p1 = np.asarray(spec.get("p1", [0, 0, 1]), np.float64)
-        return bool(np.linalg.norm(m[:3, :3] @ (p1 - p0)) > 0)
-    return True
+        axis = m[:3, :3] @ (p1 - p0)
+        length = np.linalg.norm(axis)
+        if length <= 0:
+            return None
+        z = axis / length
+        x = np.cross([0.0, 1.0, 0.01], z)
+        nx = np.linalg.norm(x)
+        if nx < 1e-9:
+            x = np.cross([1.0, 0.0, 0.0], z)
+            nx = np.linalg.norm(x)
+        x /= nx
+        row[0] = 2
+        row[1:4] = m[:3, :3] @ p0 + m[:3, 3]
+        row[4:7] = z
+        row[7] = s * float(spec.get("radius", 1.0))
+        row[8] = length
+        row[9:12] = x
+        row[12:15] = np.cross(z, x)
+    return row
 
 
 def sphere_center_radius(spec: dict):
@@ -211,8 +251,8 @@ def sphere_center_radius(spec: dict):
                       np.float32)
 
 
-def build_shape(spec: dict) -> MeshData:
-    """Lower a scene-dict shape spec to a world-space MeshData."""
+def check_keys(spec: dict):
+    """Refuse a shape type or a property the port does not carry."""
     stype = spec["type"]
     if stype not in SHAPE_KEYS:
         raise NotImplementedError(f"shape type {stype!r} is not ported")
@@ -221,20 +261,21 @@ def build_shape(spec: dict) -> MeshData:
         raise NotImplementedError(
             f"{stype} properties {extra} are not ported (a {stype} takes "
             f"{', '.join(SHAPE_KEYS[stype][1:])})")
-    if analytic(spec):
-        raise NotImplementedError(
-            f"an analytic {stype!r} shape (no emitter, no flip_normals, a "
-            f"rigid uniform-scale to_world) is not ported to "
-            f"mitsuba3_tpu_torch: ROADMAP queue 1 item 5 (ops/analytic.py)")
+
+
+def build_shape(spec: dict) -> MeshData:
+    """Lower a scene-dict shape spec to a world-space MeshData, as JAX's
+    ``build_shape`` does: a sphere, disk, cylinder or curve set is
+    tessellated whatever the loader would make of it."""
+    check_keys(spec)
+    stype = spec["type"]
+    if stype == "sdfgrid":
+        raise ValueError(f"Unsupported shape type: {stype}")
     if stype in ("linearcurve", "bsplinecurve"):
         from . import curves
-        if not curves.tessellated(spec):
-            raise NotImplementedError(
-                f"a {stype} of at most {curves.MAX_CONES} round cones, no "
-                f"emitter and no tessellate (analytic in the JAX package) "
-                f"is not ported to mitsuba3_tpu_torch: ROADMAP queue 1 "
-                f"item 5 (ops/analytic.py)")
         mesh = curves.build_curve_mesh(spec, stype == "bsplinecurve")
+    elif stype == "ellipsoidsmesh":
+        mesh = make_ellipsoids_mesh(spec)
     elif stype == "rectangle":
         mesh = make_rectangle()
     elif stype == "cube":
@@ -280,3 +321,59 @@ def build_shape(spec: dict) -> MeshData:
     if spec.get("to_world") is not None:
         mesh = mesh.transformed(as_transform(spec["to_world"]))
     return mesh
+
+
+def _quat_to_rot(q: np.ndarray) -> np.ndarray:
+    """[N, 4] (w, x, y, z) unit quaternions -> [N, 3, 3] rotations."""
+    q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], 1)
+
+
+def make_ellipsoids_mesh(spec: dict) -> MeshData:
+    """The ellipsoid cloud's shell geometry (src/shapes/ellipsoidsmesh.cpp):
+    one shell mesh per ellipsoid with its extent-scaled transform baked,
+    per-vertex colors carrying the primitive's color (rendered through a
+    mesh_attribute reflectance). Shells: ``default``, ``ico_sphere`` and
+    ``uv_sphere`` (a 6 x 8 lat-long sphere) or ``box`` (the cube)."""
+    centers = np.asarray(spec.get("centers", spec.get("means")), np.float64)
+    n = centers.shape[0]
+    scales = np.asarray(spec.get("scales", np.full((n, 3), 0.1)),
+                        np.float64).reshape(n, -1)
+    if scales.shape[1] == 1:
+        scales = np.tile(scales, (1, 3))
+    quats = np.asarray(spec.get("quaternions", spec.get(
+        "quats", np.tile([1.0, 0, 0, 0], (n, 1)))), np.float64)
+    colors = np.asarray(spec.get("colors", np.full((n, 3), 0.5)), np.float64)
+    extent = float(spec.get("extent", 3.0))
+    shell = spec.get("shell", "default")
+    if shell in ("default", "ico_sphere", "uv_sphere"):
+        proto = make_sphere_mesh(subdiv_theta=6, subdiv_phi=8)
+    elif shell == "box":
+        proto = make_cube()
+    else:
+        raise ValueError(f"Unsupported shell type {shell!r}")
+    pv, pf = proto.vertices, proto.faces
+    lin = _quat_to_rot(quats) * (scales * extent)[:, None, :]   # R diag(se)
+    verts = np.einsum("nij,vj->nvi", lin, pv) + centers[:, None, :]
+    nv = pv.shape[0]
+    faces = pf[None, :, :] + (np.arange(n) * nv)[:, None, None]
+    normals = None
+    if proto.normals is not None:
+        # normals by the inverse transpose of the linear part
+        it = np.linalg.inv(lin).transpose(0, 2, 1)
+        nrm = np.einsum("nij,vj->nvi", it, proto.normals)
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True),
+                          1e-12)
+        normals = nrm.reshape(-1, 3)
+    uvs = np.tile(proto.uvs, (n, 1)) if proto.uvs is not None else None
+    return MeshData(verts.reshape(-1, 3), faces.reshape(-1, 3), uvs=uvs,
+                    normals=normals,
+                    colors=np.repeat(colors[:, None, :], nv,
+                                     axis=1).reshape(-1, 3))

@@ -1,13 +1,14 @@
-"""Curve shapes, the tube route — the port's copy of the tessellation in
-``mitsuba3_tpu/shapes/curves.py`` (``linearcurve`` and ``bsplinecurve``).
+"""Curve shapes — the port's copy of ``mitsuba3_tpu/shapes/curves.py``
+(``linearcurve`` and ``bsplinecurve``).
 
-The JAX loader lowers a curve set to analytic round cones when it has at
-most 512 cones, no emitter and no ``tessellate``; the port does not carry
-analytic cones (ROADMAP queue 1 item 5) and refuses those. Every other
-curve set, hair-scale inputs among them, becomes a swept-tube triangle
-mesh here exactly as there: parallel-transported frames, ``n_sides``-gon
-cross sections, per-point radii, B-splines sampled ``subdiv`` times per
-span.
+The JAX loader lowers a curve set to analytic round cones
+(``curve_cone_rows``, ops/analytic.py type 3: the exact swept-sphere
+surface per sub-segment) when it has at most MAX_CONES cones, no emitter
+and no ``tessellate``. Every other curve set, hair-scale inputs among
+them, becomes a swept-tube triangle mesh (``build_curve_mesh``):
+parallel-transported frames, ``n_sides``-gon cross sections, per-point
+radii, B-splines sampled ``subdiv`` times per span. As in JAX, the cone
+rows ignore a ``to_world``; the tubes take it.
 
 UV convention for the hair BSDF: uv.x is the arc-length parameter, uv.y
 = (sin(ring angle) + 1) / 2, so that h = 2 uv.y - 1 spans the fiber's
@@ -172,26 +173,48 @@ def _curves(spec: dict):
             for a, b in zip(seg[:-1], seg[1:]) if b - a >= 2]
 
 
-def cone_count(spec: dict, bspline: bool) -> int:
-    """The number of round cones the JAX loader's ``curve_cone_rows``
-    would make of the spec (sub-segments of nonzero length; a B-spline
-    sampled at ``subdiv``, default 8, at least 2, per span)."""
+def curve_cone_rows(spec: dict, bspline: bool):
+    """The curve set as round-cone analytic rows [M, 24] float32 (shape,
+    BSDF and medium slots 0, the emitter slot -1: the loader fills them),
+    one per sub-segment of nonzero length, or None where there is none or
+    more than MAX_CONES (JAX's ``curve_cone_rows``)."""
     subdiv = int(spec.get("subdiv", 8 if bspline else 1))
-    count = 0
+    rows = []
     for pts, rad in _curves(spec):
         if bspline:
             pts, rad = bspline_to_polyline(pts, rad, max(subdiv, 2))
-        seg_len = np.linalg.norm(np.diff(np.asarray(pts, np.float64),
-                                         axis=0), axis=1)
-        count += int((seg_len >= 1e-9).sum())
-    return count
-
-
-def tessellated(spec: dict) -> bool:
-    """True where the JAX loader makes the curve set a tube mesh:
-    ``tessellate``, an attached emitter, or no cone or more than
-    MAX_CONES of them."""
-    if spec.get("tessellate", False) or spec.get("emitter") is not None:
-        return True
-    n = cone_count(spec, spec["type"] == "bsplinecurve")
-    return n == 0 or n > MAX_CONES
+        p = np.asarray(pts, np.float64)
+        r = np.asarray(rad, np.float64)
+        seg_len = np.linalg.norm(np.diff(p, axis=0), axis=1)
+        arc = np.concatenate([[0.0], np.cumsum(seg_len)])
+        total = max(arc[-1], 1e-12)
+        _, frames = _transport_frames(p)
+        for i in range(p.shape[0] - 1):
+            if seg_len[i] < 1e-9:
+                continue
+            axis = (p[i + 1] - p[i]) / seg_len[i]
+            # the ring angle's frame, perpendicular to this segment's axis
+            u = frames[i, 0] - axis * np.dot(frames[i, 0], axis)
+            nu = np.linalg.norm(u)
+            if nu < 1e-9:
+                a = (np.array([0.0, 1.0, 0.0]) if abs(axis[1]) < 0.9
+                     else np.array([1.0, 0, 0]))
+                u = np.cross(axis, a)
+                nu = np.linalg.norm(u)
+            u /= nu
+            row = np.zeros(24, np.float32)
+            row[0] = 3.0
+            row[1:4] = p[i]
+            row[4:7] = axis
+            row[7] = r[i]
+            row[8] = seg_len[i]
+            row[9:12] = u
+            row[12:15] = np.cross(axis, u)
+            row[17] = -1.0
+            row[21] = r[i + 1]
+            row[22] = arc[i] / total
+            row[23] = arc[i + 1] / total
+            rows.append(row)
+    if not rows or len(rows) > MAX_CONES:
+        return None
+    return np.stack(rows, 0)

@@ -5,6 +5,7 @@
     python3 -m mitsuba3_tpu_torch.tools.count_ops --media [--size 16]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --integrators [--size 16]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --materials [--size 16]
+    python3 -m mitsuba3_tpu_torch.tools.count_ops --shapes [--size 16]
 
 Run from the repository root. For each sampler type, the scene is
 ``chip_smoke.cornell_xml``'s Cornell box (perspective sensor, Gaussian
@@ -49,6 +50,17 @@ principledthin, two measured tables of 16^2, half_diffuse) beside the
 diffuse Cornell box's, one forward pass of a hair ball (``chip_smoke``'s
 hair_dict with 64 strands of 17 points: 12,288 tube faces, cellserve) and
 of the small terrain in ``PRINCIPLED_TERRAIN_BSDF`` (cellserve).
+
+``--shapes`` counts one forward pass (2 of ``--spp`` samples per pixel,
+``max_depth`` 4) of ``chip_smoke``'s four shape scenes at their full
+geometry: the analytic terrain64k (464 analytic rows), the instanced
+field, the SDF blob on terrain64k and the ellipsoid cloud, with the
+instance loop's rounds; on the CPU K1 runs its plain version, whose
+operations are also given apart, and the count with each K1 call as one
+launch is the card's. The analytic rows are evaluated in chunks of at
+most ``ops/analytic.py``'s STEP_ELEMS rows x lanes, so at a full width
+of 2^20 lanes a query takes about 59 chunks where a small pass takes 4,
+and the instance loop's rounds follow the rays: scale those parts.
 """
 from __future__ import annotations
 
@@ -209,6 +221,46 @@ def count_materials(size: int, spp: int):
                   f"{int((scene.face_shape >= 0).sum())} faces: {c.n} ops")
 
 
+def count_shapes(size: int, spp: int):
+    import chip_smoke
+    import mitsuba3_tpu_torch as mt
+    from mitsuba3_tpu_torch.ops import cellserve
+    from mitsuba3_tpu_torch.render import integrator as ri
+    T = mt.ScalarTransform4f
+    scenes = (
+        ("analytic terrain64k", chip_smoke.analytic_terrain_dict(
+            chip_smoke.terrain64k_dict, T)),
+        ("instanced field", chip_smoke.instanced_field_dict(T, width=size)),
+        ("sdf blob", chip_smoke.sdf_terrain_dict(chip_smoke.terrain64k_dict,
+                                                 T)),
+        ("ellipsoid cloud", chip_smoke.ellipsoid_cloud_dict(T, width=size)))
+    for label, d in scenes:
+        d["sensor"]["film"].update(width=size, height=size)
+        with chip_smoke._accel("cells"):
+            scene = mt.load_dict(d, device="cpu")
+        c = _Count()
+        k1 = [0, 0]       # K1 calls, operations of their plain versions
+        serve = cellserve.serve_blocks
+
+        def one_launch(*args):
+            n0 = c.n
+            out = serve(*args)
+            k1[0] += 1
+            k1[1] += c.n - n0
+            return out
+        cellserve.serve_blocks = one_launch
+        try:
+            with torch.no_grad(), chip_smoke._BlockMeter() as blocks, c:
+                ri.render_pass(scene, 7, 2, 0, spp, base_seed=7)
+        finally:
+            cellserve.serve_blocks = serve
+        print(f"{label} path pass {size}x{size}, 2 of {spp} spp: {c.n} ops, "
+              f"{c.n - k1[1] + k1[0]} with each of the {k1[0]} K1 calls as "
+              f"one launch (their plain versions: {k1[1]} ops); "
+              f"{scene.n_analytic} analytic rows, {blocks.rounds} instance "
+              f"rounds in {blocks.queries} queries")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=16)
@@ -217,8 +269,12 @@ def main(argv=None) -> int:
     ap.add_argument("--media", action="store_true")
     ap.add_argument("--integrators", action="store_true")
     ap.add_argument("--materials", action="store_true")
+    ap.add_argument("--shapes", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
+    if args.shapes:
+        count_shapes(args.size, args.spp)
+        return 0
     if args.materials:
         count_materials(args.size, args.spp)
         return 0

@@ -5,7 +5,8 @@ A dict-like view of a Scene's differentiable tables under the JAX
 package's keys, with ``set_dirty`` batching. ``update()`` applies the
 pending writes, rebuilds the state derived from them (the environment's
 sampling tables after an ``env_data`` edit; the area-emitter tables and
-the accel after a ``vertices`` edit, as Scene::parameters_changed does;
+the accel over the queried faces and each prototype's cellserve after a
+``vertices`` edit, as Scene::parameters_changed does;
 the BSDF dispatch's texture and type tables after a ``bsdf_params`` edit;
 the textures the projector rows name after a ``de_params`` edit;
 the majorant of the medium rows that own a density grid after a grid
@@ -27,6 +28,7 @@ from .. import bsdfs
 from .. import emitters as em_pkg
 from ..emitters import envmap as env_mod
 from ..ops import bvh_serve, bvh_tiled, cellserve
+from ..render.scene import reached_slots
 
 
 class SceneParameters:
@@ -140,10 +142,12 @@ def _rebuild_dispatch_tables(scene):
     """Refresh the textures each BSDF type's rows name and the types each
     dispatch can meet after a ``bsdf_params`` edit, which may point a row
     at another texture or an adapter at another nested slot."""
-    face_slots = scene.face_bsdf[scene.face_shape >= 0].cpu().numpy()
+    def host(x):
+        return None if x is None else x.detach().cpu().numpy()
     return scene.replace(**bsdfs.dispatch_tables(
-        scene.bsdf_types, scene.bsdf_params.detach().cpu().numpy(),
-        face_slots))
+        scene.bsdf_types, host(scene.bsdf_params), reached_slots(
+            host(scene.face_bsdf), host(scene.face_shape),
+            host(scene.analytic_prims), host(scene.sdf_rows))))
 
 
 def _rebuild_env_tables(scene):
@@ -184,10 +188,12 @@ def _rebuild_geometry_derived(scene):
     updates["face_inv_total_area"] = torch.as_tensor(inv_total, device=dev)
     acc = scene.accel
     if acc is not None:
-        # the loader's accel type again: scene queries dispatch on it
-        p0 = p[:, 0]
-        e1 = p[:, 1] - p0
-        e2 = p[:, 2] - p0
+        # the loader's accel type again, over the queried faces only:
+        # scene queries dispatch on it
+        nq = scene.n_query_faces or p.shape[0]
+        p0 = p[:nq, 0]
+        e1 = p[:nq, 1] - p0
+        e2 = p[:nq, 2] - p0
         if isinstance(acc, cellserve.CellServe):
             acc = cellserve.build(p0, e1, e2, pair_slots=acc.pair_slots,
                                   device=dev)
@@ -200,6 +206,14 @@ def _rebuild_geometry_derived(scene):
                 f"rebuilding a {type(acc).__name__} accel is not ported to "
                 f"mitsuba3_tpu_torch")
         updates["accel"] = acc
+    if scene.proto_accels:
+        # prototype faces may share edited vertices: each prototype's
+        # cellserve again
+        updates["proto_accels"] = tuple(
+            None if pa is None else cellserve.build(
+                p[b:b + c, 0], p[b:b + c, 1] - p[b:b + c, 0],
+                p[b:b + c, 2] - p[b:b + c, 0], device=dev)
+            for pa, (b, c) in zip(scene.proto_accels, scene.proto_ranges))
     return scene.replace(**updates)
 
 

@@ -4,8 +4,9 @@ hair BSDF on them, against the JAX package.
 The tube meshes (vertices, faces, uvs, normals) of ``linearcurve`` and
 ``bsplinecurve`` are bit-equal to JAX's, from a curve file and from
 ``control_points``, with ``tessellate`` and for a set above 512 cones; a
-set JAX makes analytic round cones of raises ``NotImplementedError``
-naming ROADMAP item 5. tests/test_render.py:233's strands with the hair
+set of at most 512 cones is analytic round cones in both packages, with
+bit-equal rows and the same render. tests/test_render.py:233's strands
+with the hair
 BSDF render per pixel as JAX's do (equal ray counts), and the PRB
 gradients of the hair, principled and principledthin rows and of a
 principled base_color texture are within 1e-4 of ``jax.grad``'s largest
@@ -87,9 +88,8 @@ def test_curve_mesh_bit_equal_to_jax(ctype, source, mode, hair_file):
     for f in ("vertices", "faces", "uvs", "normals"):
         np.testing.assert_array_equal(getattr(mt_mesh, f),
                                       getattr(mj_mesh, f), err_msg=f)
-    assert curves_t.tessellated(spec)
     if mode == "many":
-        assert curves_t.cone_count(spec, bspline) > curves_t.MAX_CONES
+        assert curves_t.curve_cone_rows(spec, bspline) is None
         assert curves_j.curve_cone_rows(spec, bspline) is None
     d = {"type": "scene", "hair": dict(spec, bsdf={"type": "hair"})}
     sj, st = mj.load_dict(d), mt.load_dict(d, device="cpu")
@@ -102,21 +102,45 @@ def test_curve_mesh_bit_equal_to_jax(ctype, source, mode, hair_file):
 @pytest.mark.parametrize("ctype", ["linearcurve", "bsplinecurve"])
 def test_analytic_curves_raise(ctype, hair_file):
     """A set of at most 512 cones with no emitter and no tessellate is
-    analytic in JAX (ops/analytic.py round cones): refused by name, with
-    ROADMAP item 5; an emitter makes it a tube in both packages. (Five
-    strands: twelve B-splines, at 8 samples a span, make 864 cones.)"""
-    cp, seg = _control_points(_strands()[:5], 0.02)
+    analytic round cones (ops/analytic.py) in both packages: the loaded
+    rows are bit-equal and the strands render per pixel as JAX's (in a
+    diffuse BSDF: in hair, an ulp of the two packages' transcendentals
+    moves one pixel of the 12^2 by 1.4 %, ROADMAP queue 3); an emitter
+    makes it a tube in both. (Five strands: twelve B-splines, at 8 samples
+    a span, make 864 cones, so the B-spline set keeps two strands.)"""
+    bspline = ctype == "bsplinecurve"
+    cp, seg = _control_points(_strands()[:2 if bspline else 5], 0.02)
     spec = {"type": ctype, "control_points": cp.tolist(),
             "segment_indices": seg, "bsdf": {"type": "hair"}}
-    assert curves_j.curve_cone_rows(spec, ctype == "bsplinecurve") \
-        is not None
-    assert not curves_t.tessellated(spec)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mt.load_dict({"type": "scene", "hair": spec}, device="cpu")
+    rows_j = curves_j.curve_cone_rows(spec, bspline)
+    assert rows_j is not None
+    np.testing.assert_array_equal(curves_t.curve_cone_rows(spec, bspline),
+                                  rows_j)
+
+    def scene(pkg):
+        T = pkg.ScalarTransform4f
+        return {"type": "scene",
+                "integrator": {"type": "path", "max_depth": 2},
+                "sensor": {"type": "perspective", "fov": 45.0,
+                           "to_world": T().look_at(origin=[0, 0, -3],
+                                                   target=[0, 0, 0],
+                                                   up=[0, 1, 0]),
+                           "film": {"width": 12, "height": 12,
+                                    "rfilter": {"type": "box"}},
+                           "sampler": {"type": "independent",
+                                       "sample_count": 2}},
+                "hair": dict(spec, bsdf={"type": "diffuse"}),
+                "env": {"type": "constant", "radiance": 1.0}}
+    sj, st = mj.load_dict(scene(mj)), mt.load_dict(scene(mt), device="cpu")
+    np.testing.assert_array_equal(st.analytic_prims.numpy(),
+                                  np.asarray(sj.analytic_prims))
+    img_j = np.asarray(mj.render(sj, seed=1, spp=2))
+    img_t = mt.render(st, seed=1, spp=2).numpy()
+    assert np.isclose(img_t, img_j, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert img_t.min() < 0.9 * img_t.max()     # the strands occlude
     lit = dict(spec, emitter={"type": "area", "radiance": 1.0})
-    assert curves_t.tessellated(lit)
     st = mt.load_dict({"type": "scene", "hair": lit}, device="cpu")
-    assert st.n_area_emitters == 1
+    assert st.n_area_emitters == 1 and st.analytic_prims is None
 
 
 def _hair_scene(pkg, hair_file, extra=False):

@@ -113,11 +113,16 @@ def test_tessellated_shape_arrays_bit_equal(case):
     {"type": "cylinder"}])
 def test_analytic_shapes_refused(spec):
     """A sphere, disk or cylinder the JAX loader makes analytic (no
-    emitter, no flip_normals, rigid uniform scale) is not ported."""
-    d = mt.cornell_box(8, 8)
-    d["thing"] = spec
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mt.load_dict(d, device="cpu")
+    emitter, no flip_normals, rigid uniform scale) is an analytic row in
+    the port too: every scene array and static field equals JAX's, and the
+    shape adds no face."""
+    dj, dt = mj.cornell_box(8, 8), mt.cornell_box(8, 8)
+    dj["thing"] = dt["thing"] = spec
+    sj, st = mj.load_dict(dj), mt.load_dict(dt, device="cpu")
+    _equal_leaves(st, sj)
+    assert st.analytic_prims.shape[0] == 1
+    assert st.faces.shape == mt.load_dict(mt.cornell_box(8, 8),
+                                          device="cpu").faces.shape
 
 
 def test_uniform_cone_matches_jax(np_rng):

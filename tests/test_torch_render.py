@@ -177,16 +177,19 @@ def _sensor(d, **changes):
 
 BASE = chip_smoke.small_terrain_dict(mt.ScalarTransform4f)
 UNPORTED = {
-    # an analytic sphere or disk (no emitter): ROADMAP item 5
-    "shape": (_with(BASE, ball={"type": "sphere"}), "'sphere'"),
+    # the Gaussian-primitive ellipsoids shape (ROADMAP item 11)
+    "shape": (_with(BASE, ball={"type": "ellipsoids",
+                                "means": [[0.0, 0.0, 1.0]]}),
+              "'ellipsoids'"),
     # a polarized BSDF (ROADMAP item 9), under a twosided
     "bsdf": (_with(BASE, terrain=dict(BASE["terrain"], bsdf={
         "type": "twosided", "bsdf": {"type": "pplastic"}})), "'pplastic'"),
-    # a curve set JAX makes analytic round cones of (item 5)
+    # a curve property the JAX loader ignores (a curve's radii are its
+    # control points' fourth column)
     "curve": (_with(BASE, strand={
-        "type": "linearcurve", "control_points": [[0, 0, 0, 0.01],
-                                                  [0, 0, 1, 0.01]]}),
-        "item 5"),
+        "type": "linearcurve", "radius": 0.02,
+        "control_points": [[0, 0, 0, 0.01], [0, 0, 1, 0.01]]}),
+        r"linearcurve properties \['radius'\]"),
     # a spectral SPD emitter (ROADMAP item 7)
     "emitter": (_with(BASE, lamp={"type": "rectangle", "emitter": {
         "type": "area", "radiance": {"type": "blackbody",
@@ -207,7 +210,10 @@ UNPORTED = {
         "type": "diffuse", "reflectance": {"type": "bitmap", "data": [[0.5]],
                                            "format": "rgb"}})),
                 r"bitmap properties \['format'\]"),
-    "disk_shape": (_with(BASE, lid={"type": "disk"}), "'disk'"),
+    # a disk property the JAX loader ignores (a disk's size is its
+    # to_world's)
+    "disk_shape": (_with(BASE, lid={"type": "disk", "radius": 2.0}),
+                   r"disk properties \['radius'\]"),
     "area_emitter_type": (_with(BASE, panel={
         "type": "rectangle", "emitter": {"type": "spot"}}), "'spot'"),
 }
