@@ -151,10 +151,10 @@ Phases:
    integrators``;
 18. materials (after the integrators): a hair ball (HAIR_STRANDS strands
    from a seed, a linearcurve file the loader tessellates into 196,608
-   faces) in hair of eumelanin 1.3 and of a sigma_a, `path` at 512^2, 4
-   spp, max_depth 8 through cellserve (K1 closest and any-hit launches
-   counted from zero, device ms and bound by CUDA events, a profiled
-   render) and its PRB step at 256^2 (sigma_a gradient finite and
+   faces) in hair of eumelanin 1.3, `path` at 512^2, 4 spp, max_depth 8
+   through cellserve (K1 closest and any-hit launches counted from zero,
+   device ms and bound by CUDA events, a profiled render), and in hair of
+   a sigma_a its PRB step at 256^2 (sigma_a gradient finite and
    nonzero); principled terrain64k with the textured terrain's EXR as its
    base_color through K1 (both modes) and its PRB step (metallic,
    roughness, clearcoat and texture gradients nonzero); the materials
@@ -177,14 +177,31 @@ Phases:
    K1's launches in both modes from zero and its device ms and bound by
    CUDA events, the peak memory with the working set of one full-width
    analytic and instance query, the instance loop's rounds per query and
-   a profiled render; the four scenes cut to CPU size at 32^2 on the
-   card against the CPU (the analytic terrain without its cones, which
-   are held on the same rays instead); then K1 against its plain version
-   on the instanced field's prototype-R query of the first instance
-   round. Run it alone with ``python3 chip_smoke.py --phase shapes``;
-20. JSON lines of render, query, PRB, material, interior, loop, scene-file,
-   texture, media, integrator, slice-material, shape and per-kernel
-   numbers.
+   a profiled render (but the instanced field's); the four scenes cut to
+   CPU size at 32^2 on the card against the CPU (the analytic terrain
+   without its cones, which are held on the same rays instead); then K1
+   against its plain version on the instanced field's prototype-R query
+   of the first instance round. Run it alone with ``python3 chip_smoke.py
+   --phase shapes``;
+20. accels and spectra (after the shapes): terrain64k (512^2, 4 spp)
+   through ``MI3T_ACCEL=xla`` (the stackless BVH), ``grid`` (the DDA
+   grid) and a HybridAccel (the grid's closest hits, bvh_tiled's any-hit
+   through K4, whose launches and device ms must be above 0): per render
+   the build and wall seconds, Mrays/s, peak memory, the traversal steps
+   a query and the image held against cellserve's of the same seed, and
+   for the hybrid a profiled render; ``MI3T_ACCEL=none`` (the dense test
+   over all 65,536 faces) at NONE_SIDE^2; interior120k (256^2, 4 spp)
+   through xla and grid; the small terrain on the card against the CPU
+   through each of the four; ``update()`` after a vertex edit of
+   terrain64k under xla, grid and the hybrid (the rebuild's seconds, the
+   accel's type kept, a finite render); the Cornell box with a 6500 K
+   blackbody light and regular and irregular walls by `path` at 512^2,
+   16 spp, and it and an XML Cornell with a ``<spectrum value="...">``
+   wall (``load_string``) on the card against the CPU at 32^2. Run it
+   alone with ``python3 chip_smoke.py --phase accels``;
+21. JSON lines of render, query, PRB, material, interior, loop, scene-file,
+   texture, media, integrator, slice-material, shape, accel and
+   per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
 the script with a nonzero code before it. The script imports no JAX: the
@@ -1740,7 +1757,7 @@ def k8_device_main():
     return 0
 
 
-K8_DEVICE_ATTEMPTS = 3
+K8_DEVICE_ATTEMPTS = 2    # processes at most (~50 s each)
 # the rays bvh2's queries run on: a full-width bvh2 query is host-bound at
 # ~13 s, so its bounce-ray queries are left out to keep the script in its
 # time limit (K8's row still serves the first bvh2 round of the bounce rays)
@@ -2317,7 +2334,8 @@ def phase_every_bsdf(mi, card: str):
     principledthin and measured panels) with the path
     integrator at 512^2, 8 spp, max_depth 8: a one-pass warm-up, one
     timed render (Mrays/s as bench.py counts a forward render, peak
-    memory), one profiled pass; a PRB step at 128^2, 16 spp (gradients
+    memory), one profiled pass; a PRB step at 128^2, 16 spp (no warm-up
+    of its own; gradients
     of bsdf_params and em_radiance finite, wall and peak memory); 32^2
     renders on the card against the CPU, per pixel: the scene at
     max_depth 4, and at max_depth 8 with a diffuse small box
@@ -2362,7 +2380,8 @@ def phase_every_bsdf(mi, card: str):
     n_fwd, n_bwd = _bwd_ratio(scene)
     _check(n_fwd == n_bwd, f"every-BSDF replay issued {n_bwd} rays, primal "
            f"{n_fwd}")
-    _grad_step(scene, names, 0, EVERY_BSDF_PRB_SPP, passes=1)  # warm-up
+    # the step runs once, without a warm-up of its own (the render above
+    # ran its forward operations): the script keeps to its time limit
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2481,8 +2500,9 @@ def phase_terrain_prb(mi, card: str):
 
     # the small terrain's PRB step on the card against the CPU
     d = _prb_dict(small_terrain_dict(mi.ScalarTransform4f, width=16))
-    g_card = _grad_step(mi.load_dict(d), names, 5, 4)[2]
-    g_cpu = _grad_step(mi.load_dict(d, device="cpu"), names, 5, 4)[2]
+    with _accel("cells"):       # auto is bvh_xla on a CPU device
+        g_card = _grad_step(mi.load_dict(d), names, 5, 4)[2]
+        g_cpu = _grad_step(mi.load_dict(d, device="cpu"), names, 5, 4)[2]
     for k in names:
         a, b = g_card[k].cpu(), g_cpu[k]
         tol = 1e-2 * float(b.abs().max())
@@ -2575,8 +2595,10 @@ def phase_glossy_terrain(mi, card: str):
     torch.cuda.empty_cache()
 
     d = glossy(small_terrain_dict)(mi.ScalarTransform4f)
-    img_g = mi.render(mi.load_dict(d), seed=5, spp=4).cpu().numpy()
-    img_c = mi.render(mi.load_dict(d, device="cpu"), seed=5, spp=4).numpy()
+    with _accel("cells"):       # auto is bvh_xla on a CPU device
+        img_g = mi.render(mi.load_dict(d), seed=5, spp=4).cpu().numpy()
+        img_c = mi.render(mi.load_dict(d, device="cpu"), seed=5,
+                          spp=4).numpy()
     out.update(agreement_close=_agree_images(
         "glossy small terrain (24x24, 4 spp)", img_g, img_c))
     return launches, out
@@ -3184,10 +3206,11 @@ def phase_textures(mi, card: str):
 
         d = textured_terrain_dict(small_terrain_dict, mi.ScalarTransform4f,
                                   tmp)
-        out["terrain"]["agreement_close"] = _agree_images(
-            "textured small terrain (24x24, 4 spp)",
-            mi.render(mi.load_dict(d), seed=5).cpu().numpy(),
-            mi.render(mi.load_dict(d, device="cpu"), seed=5).numpy())
+        with _accel("cells"):   # auto is bvh_xla on a CPU device
+            out["terrain"]["agreement_close"] = _agree_images(
+                "textured small terrain (24x24, 4 spp)",
+                mi.render(mi.load_dict(d), seed=5).cpu().numpy(),
+                mi.render(mi.load_dict(d, device="cpu"), seed=5).numpy())
     return out
 
 
@@ -3788,8 +3811,9 @@ def _integ_moment_ptracer(mi, card: str):
 
 
 def _integ_lights(mi, card: str):
-    """The sphere-lit Cornell's PRB step (512^2, SPHERE_PRB_SPP;
-    em_radiance's gradient finite and nonzero), `path` renders of the
+    """The sphere-lit Cornell's PRB step (512^2, SPHERE_PRB_SPP, no
+    warm-up of its own; em_radiance's gradient finite and nonzero), `path`
+    renders of the
     directionalarea and projector Cornells (512^2, LIGHTS_SPP; a
     PROJECTOR_SIDE^2 bitmap), terrain64k under sunsky and timed_sunsky
     (512^2, 4 spp, K1 launched in both modes)."""
@@ -3801,7 +3825,8 @@ def _integ_lights(mi, card: str):
     _check(len(scene.em_sphere_slots) == 1, "sphere cornell: no sphere "
            "emitter slot")
     names = ("bsdf_params", "em_radiance")
-    _grad_step(scene, names, 0, SPHERE_PRB_SPP, passes=1)   # warm-up
+    # the step runs once, without a warm-up of its own (the Cornell steps
+    # before it ran its operations): the script keeps to its time limit
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss, rays, grads, n_passes = _grad_step(scene, names, 1,
@@ -4181,15 +4206,15 @@ HAIR_SIGMA_A = {"type": "hair", "sigma_a": {"type": "rgb",
 def _mat_hair(mi, card: str, tmp: str):
     """The hair ball: HAIR_STRANDS strands of HAIR_POINTS points written as
     a linearcurve file and tessellated by the loader (16,384 cones are
-    above the 512 that JAX makes analytic), in hair of eumelanin 1.3 and
-    then of a sigma_a, lit by a point light and a constant environment:
-    `path` at 512^2, 4 spp, max_depth 8 through cellserve; a warm-up, a
-    timed render with K1's launches counted from zero (closest and any-hit
-    must launch) and its device ms and bound by CUDA events (_K1Meter),
-    and for the first a profiled render (the second is not warmed up: it
-    runs the first's operations); then a PRB step of the sigma_a
-    ball at HAIR_PRB_SIDE^2, 4 spp (no warm-up of its own), whose sigma_a
-    gradient must be finite and nonzero."""
+    above the 512 that JAX makes analytic), in hair of eumelanin 1.3, lit
+    by a point light and a constant environment: `path` at 512^2, 4 spp,
+    max_depth 8 through cellserve; a timed render with K1's
+    launches counted from zero (closest and any-hit must launch) and its
+    device ms and bound by CUDA events (_K1Meter), and a profiled render;
+    then a PRB step of the ball in hair of a sigma_a at HAIR_PRB_SIDE^2,
+    4 spp (no warm-up of its own), whose sigma_a gradient must be finite
+    and nonzero. (The sigma_a ball's own 512^2 render, which ran the same
+    operations, is cut: the script keeps to its time limit.)"""
     import torch
     from mitsuba3_tpu_torch import bsdfs
     from mitsuba3_tpu_torch.ops import cellserve
@@ -4199,61 +4224,57 @@ def _mat_hair(mi, card: str, tmp: str):
                             HAIR_RADIUS)
     out = {}
     n_faces = HAIR_STRANDS * (HAIR_POINTS - 1) * HAIR_SIDES * 2
-    for name, bsdf in (("eumelanin", HAIR_EUMELANIN),
-                       ("sigma_a", HAIR_SIGMA_A)):
-        d = hair_dict(mi, path, 512, bsdf)
-        w = d["sensor"]["film"]["width"]
+    name = "eumelanin"
+    d = hair_dict(mi, path, 512, HAIR_EUMELANIN)
+    w = d["sensor"]["film"]["width"]
+    t0 = time.perf_counter()
+    scene = mi.load_dict(d)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    faces = int((scene.face_shape >= 0).sum())
+    _check(isinstance(scene.accel, cellserve.CellServe)
+           and faces == n_faces and scene.bsdf_types == (bsdfs.HAIR,),
+           f"hair ball: {faces} faces (not {n_faces}) or not cellserve")
+    # no warm-up render: the renders before it ran its operations
+    torch.cuda.reset_peak_memory_stats()
+    for k in cellserve.LAUNCHES:
+        cellserve.LAUNCHES[k] = 0
+    with _K1Meter() as meter:
         t0 = time.perf_counter()
-        scene = mi.load_dict(d)
+        img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                         max_wavefront=1 << 20)
         torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        faces = int((scene.face_shape >= 0).sum())
-        _check(isinstance(scene.accel, cellserve.CellServe)
-               and faces == n_faces and scene.bsdf_types == (bsdfs.HAIR,),
-               f"hair ball: {faces} faces (not {n_faces}) or not cellserve")
-        if name == "eumelanin":     # the second ball runs the same code
-            mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in cellserve.LAUNCHES:
-            cellserve.LAUNCHES[k] = 0
-        with _K1Meter() as meter:
-            t0 = time.perf_counter()
-            img, rays = mi.render_with_stats(scene, seed=1, spp=4,
-                                             max_wavefront=1 << 20)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        launches = dict(cellserve.LAUNCHES)
-        k1 = meter.summary()
-        peak = torch.cuda.max_memory_allocated()
-        _check(all(v > 0 for v in launches.values()),
-               f"hair ball ({name}): K1 not launched in both modes: "
-               f"{launches}")
-        _check(all(k1[m]["launches"] == launches[m] for m in launches),
-               f"hair ball: K1 meter {k1} disagrees with {launches}")
-        _check(tuple(img.shape) == (w, w, 3)
-               and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
-               f"hair ball ({name}): image misshaped, not finite or black")
-        mrays = rays / wall / 1e6
-        print(f"# materials hair ball ({name}) {faces} faces 512x512 4spp: "
-              f"{rays} rays in {wall:.3f} s = {mrays:.3f} Mrays/s, peak "
-              f"memory {peak / 2**30:.2f} GiB, load_dict {load_s:.2f} s, "
-              f"mean {float(img.mean()):.6f} [{card}]")
-        for mode, v in k1.items():
-            print(f"# materials hair ball ({name}) K1 {mode}: "
-                  f"{v['launches']} launches for {v['queries']} queries, "
-                  f"{v['device_ms']:.2f} device ms, bound "
-                  f"{v['bound_ms']:.3f} ms [{card}]")
-        out[name] = {"faces": faces, "rays": rays, "wall_s": wall,
-                     "mrays_per_s": mrays, "peak_bytes": peak,
-                     "load_dict_s": load_s, "mean": float(img.mean()),
-                     "k1": k1, "k1_launches": launches}
-        if name == "eumelanin":
-            out[name].update(_profile(lambda: mi.render_with_stats(
-                scene, seed=2, spp=4, max_wavefront=1 << 20), wall,
-                _accel_kernels("cells")[1]))
-        del scene, img
-        torch.cuda.empty_cache()
+        wall = time.perf_counter() - t0
+    launches = dict(cellserve.LAUNCHES)
+    k1 = meter.summary()
+    peak = torch.cuda.max_memory_allocated()
+    _check(all(v > 0 for v in launches.values()),
+           f"hair ball ({name}): K1 not launched in both modes: "
+           f"{launches}")
+    _check(all(k1[m]["launches"] == launches[m] for m in launches),
+           f"hair ball: K1 meter {k1} disagrees with {launches}")
+    _check(tuple(img.shape) == (w, w, 3)
+           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           f"hair ball ({name}): image misshaped, not finite or black")
+    mrays = rays / wall / 1e6
+    print(f"# materials hair ball ({name}) {faces} faces 512x512 4spp: "
+          f"{rays} rays in {wall:.3f} s = {mrays:.3f} Mrays/s, peak "
+          f"memory {peak / 2**30:.2f} GiB, load_dict {load_s:.2f} s, "
+          f"mean {float(img.mean()):.6f} [{card}]")
+    for mode, v in k1.items():
+        print(f"# materials hair ball ({name}) K1 {mode}: "
+              f"{v['launches']} launches for {v['queries']} queries, "
+              f"{v['device_ms']:.2f} device ms, bound "
+              f"{v['bound_ms']:.3f} ms [{card}]")
+    out[name] = {"faces": faces, "rays": rays, "wall_s": wall,
+                 "mrays_per_s": mrays, "peak_bytes": peak,
+                 "load_dict_s": load_s, "mean": float(img.mean()),
+                 "k1": k1, "k1_launches": launches}
+    out[name].update(_profile(lambda: mi.render_with_stats(
+        scene, seed=2, spp=4, max_wavefront=1 << 20), wall,
+        _accel_kernels("cells")[1]))
+    del scene, img
+    torch.cuda.empty_cache()
 
     # the step runs once, without a warm-up of its own (the renders above
     # ran its forward operations): the phase keeps to its time
@@ -4725,15 +4746,16 @@ def _block_peak(fn):
     return torch.cuda.max_memory_allocated() - base, out
 
 
-def _shapes_render(mi, card: str, tag: str, d: dict, prb_side=None):
+def _shapes_render(mi, card: str, tag: str, d: dict, prb_side=None,
+                   profiled: bool = True):
     """`d` loaded on the card and rendered at its film size, 4 spp: a
     warm-up at 1 spp, a timed render with K1 launches counted from zero
     and its device ms and bound by CUDA events (_K1Meter), the instance
     loop's rounds per query, the peak memory and the peak working set of
     one full-width primary query of the analytic rows and of the
-    instances, then a profiled render; with `prb_side`, a PRB step of
-    bsdf_params at prb_side^2 (no warm-up of its own). Returns its
-    numbers."""
+    instances, then, if `profiled`, a profiled render; with `prb_side`, a
+    PRB step of bsdf_params at prb_side^2 (no warm-up of its own).
+    Returns its numbers."""
     import torch
     from mitsuba3_tpu_torch.ops import analytic, cellserve
 
@@ -4796,9 +4818,10 @@ def _shapes_render(mi, card: str, tag: str, d: dict, prb_side=None):
         print(f"# shapes {tag} K1 {mode}: {v['launches']} launches for "
               f"{v['queries']} queries, {v['device_ms']:.2f} device ms, "
               f"bound {v['bound_ms']:.3f} ms [{card}]")
-    out.update(_profile(lambda: mi.render_with_stats(
-        scene, seed=2, spp=4, max_wavefront=1 << 20), wall,
-        _accel_kernels("cells")[1]))
+    if profiled:
+        out.update(_profile(lambda: mi.render_with_stats(
+            scene, seed=2, spp=4, max_wavefront=1 << 20), wall,
+            _accel_kernels("cells")[1]))
     del scene, img
     torch.cuda.empty_cache()
     if prb_side:
@@ -4980,9 +5003,11 @@ def phase_shapes(mi, card: str):
         ("analytic terrain64k", lambda: _shapes_render(
             mi, card, "analytic terrain64k",
             analytic_terrain_dict(terrain64k_dict, T), prb_side=512)),
+        # not profiled (456,909 launches, ~24 s under the profiler): the
+        # script keeps to its time limit
         ("instanced field", lambda: _shapes_render(
             mi, card, "instanced field", instanced_field_dict(T),
-            prb_side=FIELD_PRB_SIDE)),
+            prb_side=FIELD_PRB_SIDE, profiled=False)),
         ("sdf blob", lambda: _shapes_render(
             mi, card, "sdf blob", sdf_terrain_dict(terrain64k_dict, T))),
         ("sdf grid gradient", lambda: _sdf_grid_grad(mi, card)),
@@ -4996,10 +5021,368 @@ def phase_shapes(mi, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Spectra in an RGB scene and the other accels (bvh_xla, the DDA grid,
+# HybridAccel, the dense test above 8192 faces), with update() rebuilds
+# ---------------------------------------------------------------------------
+
+SPECTRAL_LIGHT = {"type": "blackbody", "temperature": 6500.0, "scale": 4e-4}
+SPECTRAL_RED = {"type": "regular", "lambda_min": 400.0, "lambda_max": 700.0,
+                "values": [0.05, 0.05, 0.06, 0.1, 0.45, 0.6, 0.6]}
+# an irregular spectrum as an XML <spectrum value="..."> gives it
+SPECTRAL_GREEN = ("400:0.05, 450:0.1, 500:0.35, 550:0.45, 600:0.15, "
+                  "650:0.08, 700:0.05")
+SPECTRAL_SPP = 16            # the spectral Cornell's path render, 512^2
+ACCELS_CHECK_SIDE = 32       # card against CPU
+NONE_SIDE = 128              # the dense test over terrain64k's faces
+UPDATE_SIDE = 32             # the renders after update()'s rebuilds
+NEW_ACCELS = ("xla", "grid", "hybrid")
+
+
+def spectral_cornell_dict(mi, width: int, height: int, max_depth: int = 8):
+    """``mi.cornell_box`` with its light's radiance a 6500 K blackbody, the
+    red wall a regular and the green wall an irregular reflectance."""
+    d = mi.cornell_box(width, height, max_depth=max_depth)
+    d["light"]["emitter"]["radiance"] = dict(SPECTRAL_LIGHT)
+    d["red"]["reflectance"] = dict(SPECTRAL_RED)
+    d["green"]["reflectance"] = {"type": "irregular", "value": SPECTRAL_GREEN}
+    return d
+
+
+def spectral_cornell_xml(width: int, height: int, max_depth: int = 8,
+                         spp: int = 16) -> str:
+    """The Cornell box as XML source for ``load_string``: rectangle walls,
+    the green wall's reflectance a ``<spectrum value="wavelength:value,
+    ...">``, the red one a ``<spectrum>`` of one value."""
+    walls = {"floor": ('<rotate x="1" angle="-90"/>', "0, -1, 0", "white"),
+             "ceiling": ('<rotate x="1" angle="90"/>', "0, 1, 0", "white"),
+             "back": ("", "0, 0, -1", "white"),
+             "green-wall": ('<rotate y="1" angle="-90"/>', "1, 0, 0",
+                            "green"),
+             "red-wall": ('<rotate y="1" angle="90"/>', "-1, 0, 0", "red")}
+    shapes = "\n".join(
+        f'  <shape type="rectangle" id="{k}"><transform name="to_world">'
+        f'{rot}<translate value="{tr}"/></transform><ref id="{b}"/>'
+        f'</shape>' for k, (rot, tr, b) in walls.items())
+    return f"""<scene version="3.0.0">
+  <integrator type="path"><integer name="max_depth" value="{max_depth}"/>
+  </integrator>
+{_sensor_xml("perspective", width, height, "independent", "gaussian",
+             None).replace("$spp", str(spp))}
+  <bsdf type="diffuse" id="white"><rgb name="reflectance"
+    value="0.885809, 0.698859, 0.666422"/></bsdf>
+  <bsdf type="diffuse" id="green"><spectrum name="reflectance"
+    value="{SPECTRAL_GREEN}"/></bsdf>
+  <bsdf type="diffuse" id="red"><spectrum name="reflectance" value="0.4"/>
+  </bsdf>
+  <shape type="rectangle" id="light">
+    <transform name="to_world"><scale value="0.23, 0.19, 0.19"/>
+      <rotate x="1" angle="90"/><translate value="0, 0.99, 0.01"/>
+    </transform>
+    <ref id="white"/>
+    <emitter type="area"><rgb name="radiance"
+      value="18.387, 13.9873, 6.75357"/></emitter>
+  </shape>
+{shapes}
+  <shape type="cube" id="small-box">
+    <transform name="to_world"><scale value="0.3"/>
+      <rotate y="1" angle="-17"/><translate value="0.335, -0.7, 0.38"/>
+    </transform>
+    <ref id="white"/>
+  </shape>
+</scene>
+"""
+
+
+def _steps_per_query():
+    """Per new accel module, mode: (steps, queries, steps a query) since
+    the counters' reset."""
+    from mitsuba3_tpu_torch.ops import bvh_xla
+    from mitsuba3_tpu_torch.ops import grid as grid_mod
+    return {name: {m: [mod.STEPS[m], mod.QUERIES[m],
+                       mod.STEPS[m] / max(mod.QUERIES[m], 1)]
+                   for m in mod.STEPS}
+            for name, mod in (("xla", bvh_xla), ("grid", grid_mod))}
+
+
+def _reset_accel_counters():
+    from mitsuba3_tpu_torch.ops import bvh_tiled, bvh_xla
+    from mitsuba3_tpu_torch.ops import grid as grid_mod
+    for counts in (bvh_xla.STEPS, bvh_xla.QUERIES, grid_mod.STEPS,
+                   grid_mod.QUERIES, bvh_tiled.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _load_accel(mi, d: dict, kind: str, device=None):
+    """(scene, build s): `d` loaded with MI3T_ACCEL=kind; for "hybrid"
+    loaded under "grid" and given a HybridAccel of that grid (closest)
+    and a bvh_tiled over the same faces (any-hit), as JAX's update()
+    makes one."""
+    import torch
+    from mitsuba3_tpu_torch.ops import bvh_tiled
+    from mitsuba3_tpu_torch.render.scene import HybridAccel
+    t0 = time.perf_counter()
+    with _accel("grid" if kind == "hybrid" else kind):
+        scene = mi.load_dict(d, device=device)
+    if kind == "hybrid":
+        p0, e1, e2 = (v.to_array().cpu().numpy()
+                      for v in scene.triangle_soa())
+        scene = scene.replace(accel=HybridAccel(
+            closest=scene.accel, anyhit=bvh_tiled.build(
+                p0, e1, e2, device=scene.device)))
+    if scene.device.type == "cuda":
+        torch.cuda.synchronize()
+    return scene, time.perf_counter() - t0
+
+
+def _accel_render(mi, card: str, tag: str, scene, build_s: float, spp: int,
+                  ref=None, profile_labels=None):
+    """One timed render of `scene` (seed 1) after counters' reset: rays,
+    wall, Mrays/s, peak, steps a query, K4 launches, the image held
+    against `ref`, (its accel's name, its image of the same seed): mean
+    within 1 %, the close share printed; with `profile_labels`, a profiled
+    render (seed 2) for launches and device ms. Returns (numbers,
+    image)."""
+    import torch
+    from mitsuba3_tpu_torch.ops import bvh_tiled
+    _reset_accel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, rays = mi.render_with_stats(scene, seed=1, spp=spp,
+                                     max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = _steps_per_query()
+    _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           f"{tag}: image not finite or black")
+    out = {"rays": rays, "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
+           "build_s": build_s, "peak_bytes": peak,
+           "mean": float(img.mean()), "steps": steps,
+           "k4_launches": dict(bvh_tiled.LAUNCHES)}
+    line = (f"# accels {tag}: {rays} rays in {wall:.3f} s = "
+            f"{rays / wall / 1e6:.3f} Mrays/s, build {build_s:.2f} s, peak "
+            f"{peak / 2**30:.2f} GiB, mean {float(img.mean()):.6f}, steps a "
+            f"query " + (", ".join(
+                f"{k} {m} {v[2]:.1f} ({v[1]} queries)"
+                for k, modes in steps.items() for m, v in modes.items()
+                if v[1]) or "none (no traversal loop)"))
+    if ref is not None:
+        ref_name, ref_img = ref
+        a, b = img.cpu().numpy(), ref_img.cpu().numpy()
+        close = float(np.isclose(a, b, rtol=1e-3, atol=1e-3).mean())
+        rel = abs(float(a.mean()) / float(b.mean()) - 1.0)
+        out.update(ref=ref_name, close_to_ref=close, mean_rel_to_ref=rel)
+        line += (f"; vs {ref_name}: mean {float(b.mean()):.6f} (rel "
+                 f"{rel:.2e}), {close:.5f} of values close")
+        _check(rel <= 0.01, f"{tag}: image mean {a.mean()} is not within "
+               f"1 % of the {ref_name} render's {b.mean()}")
+    print(line + f" [{card}]")
+    if profile_labels is not None:
+        out.update(_profile(lambda: mi.render_with_stats(
+            scene, seed=2, spp=spp, max_wavefront=1 << 20), wall,
+            profile_labels))
+    return out, img
+
+
+def _accels_terrain(mi, card: str, scenes: dict):
+    """terrain64k (bench.py's 512^2, 4 spp) through xla, grid and the
+    hybrid, each held against cellserve's image of the same seed, the
+    grid's and the hybrid's renders profiled; the hybrid's any-hit must
+    launch K4 (and its closest side never). The scenes stay in `scenes`
+    for the rebuilds. Then the dense test over every face
+    (MI3T_ACCEL=none) at NONE_SIDE^2 against cellserve's."""
+    import torch
+    d = terrain64k_dict(mi.ScalarTransform4f)
+    cells, _ = _load_accel(mi, d, "cells")
+    ref = ("cellserve", mi.render_with_stats(cells, seed=1, spp=4,
+                                             max_wavefront=1 << 20)[0])
+    out = {}
+    k4 = _accel_kernels("tiled")[1]
+    for kind in NEW_ACCELS:
+        scene, build_s = _load_accel(mi, d, kind)
+        if kind == "xla":       # the first: warms the render's code up
+            mi.render(_at_side(scene, 64), seed=0, spp=1)
+        # bvh_xla's render is not profiled: its ~535,000 launches take
+        # the profiler ~37 s (PERF.md)
+        out[kind], _ = _accel_render(
+            mi, card, f"terrain64k 512x512 4spp {kind}", scene, build_s, 4,
+            ref, None if kind == "xla" else k4 if kind == "hybrid" else {})
+        if kind == "hybrid":
+            n = out[kind]["k4_launches"]
+            prof = out[kind]["profiled_kernels"]
+            _check(n["anyhit"] > 0 and n["closest"] == 0,
+                   f"hybrid: K4 launches {n}: any-hit only expected")
+            _check(prof["K4 any-hit"]["launches"] > 0
+                   and prof["K4 any-hit"]["device_ms"] > 0,
+                   f"hybrid: the profiled render saw no K4 any-hit: {prof}")
+            print(f"# accels hybrid K4 any-hit: {n['anyhit']} launches, "
+                  f"{prof['K4 any-hit']['device_ms']:.2f} device ms in a "
+                  f"profiled render [{card}]")
+        scenes[kind] = scene
+    side = NONE_SIDE
+    small = dict(d, sensor=dict(d["sensor"], film={"width": side,
+                                                    "height": side}))
+    ref = ("cellserve", mi.render_with_stats(_at_side(cells, side), seed=1,
+                                             spp=4)[0])
+    scene, build_s = _load_accel(mi, small, "none")
+    _check(scene.accel is None, "MI3T_ACCEL=none built an accel")
+    out["none"], _ = _accel_render(
+        mi, card, f"terrain64k {side}x{side} 4spp none (dense, "
+        f"{scene.faces.shape[0]} faces)", scene, build_s, 4, ref)
+    del cells, scene
+    torch.cuda.empty_cache()
+    return out
+
+
+def _accels_interior(mi, card: str):
+    """interior120k (bench.py's 256^2, 4 spp) through xla and grid, each
+    image's mean held within 1 % of the other's."""
+    import torch
+    d = interior_dict(mi.ScalarTransform4f)
+    out, ref = {}, None
+    for kind in ("xla", "grid"):
+        scene, build_s = _load_accel(mi, d, kind)
+        out[kind], img = _accel_render(
+            mi, card, f"interior120k 256x256 4spp {kind}", scene, build_s, 4,
+            ref)
+        ref = (kind, img) if ref is None else ref
+        del scene
+        torch.cuda.empty_cache()
+    return out
+
+
+def _accels_agreement(mi):
+    """The small terrain (8,978 faces) on the card and on the CPU through
+    each new accel and the dense test, as phase_agreement holds them."""
+    out = {}
+    for kind in NEW_ACCELS + ("none",):
+        d = small_terrain_dict(mi.ScalarTransform4f)
+        img_g = mi.render(_load_accel(mi, d, kind)[0], seed=5, spp=4)
+        img_c = mi.render(_load_accel(mi, d, kind, "cpu")[0], seed=5, spp=4)
+        out[kind] = _agree_images(f"MI3T_ACCEL={kind} small terrain "
+                                  f"(24x24, 4 spp)", img_g.cpu().numpy(),
+                                  img_c.numpy())
+    return out
+
+
+def _accels_update(mi, card: str, scenes: dict):
+    """update() after a vertex edit of terrain64k (_bump) under each new
+    accel: the rebuild's seconds, the accel's type unchanged, and a
+    render of the rebuilt scene (UPDATE_SIDE^2, 1 spp) finite."""
+    import torch
+    from mitsuba3_tpu_torch.ops import bvh_tiled
+    from mitsuba3_tpu_torch.ops import grid as grid_mod
+    out = {}
+    for kind in NEW_ACCELS:
+        scene = scenes.pop(kind)
+        params = mi.traverse(scene)
+        params["vertices"] = torch.as_tensor(
+            _bump(scene.vertices.cpu().numpy()), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = params.update()
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        _check(type(new.accel) is type(scene.accel),
+               f"update() under {kind}: {type(new.accel).__name__}")
+        if kind == "hybrid":
+            _check(isinstance(new.accel.closest, grid_mod.GridAccel)
+                   and isinstance(new.accel.anyhit, bvh_tiled.BVHTiled),
+                   "update(): the hybrid's sides changed type")
+        small = _at_side(new, UPDATE_SIDE)
+        img = mi.render(small, seed=3, spp=1)
+        _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+               f"update() under {kind}: render not finite or black")
+        print(f"# accels update() terrain64k {kind}: rebuild "
+              f"{rebuild_s:.3f} s, {type(new.accel).__name__}, render "
+              f"{UPDATE_SIDE}x{UPDATE_SIDE} mean {float(img.mean()):.6f} "
+              f"[{card}]")
+        out[kind] = {"rebuild_s": rebuild_s, "mean": float(img.mean())}
+        del scene, new, small
+        torch.cuda.empty_cache()
+    return out
+
+
+def _at_side(scene, side: int):
+    """`scene` (square, uncropped) with its film resized to side^2: the
+    sensor keeps its field of view."""
+    import dataclasses
+    return scene.replace(film=dataclasses.replace(
+        scene.film, width=side, height=side, full_width=side,
+        full_height=side))
+
+
+def _accels_spectra(mi, card: str):
+    """The spectral Cornell (spectral_cornell_dict: a 6500 K blackbody
+    light, a regular and an irregular wall; dense) by `path` at 512^2,
+    SPECTRAL_SPP spp after a one-pass warm-up; then it and the XML Cornell
+    through load_string (spectral_cornell_xml) on the card against the
+    CPU at ACCELS_CHECK_SIDE^2."""
+    import torch
+    from mitsuba3_tpu_torch.render import integrator as ri
+    scene = mi.load_dict(spectral_cornell_dict(mi, 512, 512, 8))
+    light = scene.em_radiance[0].tolist()
+    print(f"# accels spectra: blackbody 6500 K x {SPECTRAL_LIGHT['scale']} "
+          f"-> RGB {light}; red wall {scene.bsdf_params[2, :3].tolist()}, "
+          f"green wall {scene.bsdf_params[1, :3].tolist()}")
+    sppc, n_passes = ri.plan_passes(scene, SPECTRAL_SPP)
+    mi.render_with_stats(scene, seed=0, spp=sppc)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, rays = mi.render_with_stats(scene, seed=1, spp=SPECTRAL_SPP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           "spectral cornell: image not finite or black")
+    print(f"# accels spectral cornell path 512x512 {SPECTRAL_SPP}spp: "
+          f"{rays} rays in {wall:.3f} s = {rays / wall / 1e6:.3f} Mrays/s "
+          f"in {n_passes} passes, mean {float(img.mean()):.6f} [{card}]")
+    out = {"light_rgb": light, "rays": rays, "wall_s": wall,
+           "mrays_per_s": rays / wall / 1e6, "mean": float(img.mean())}
+    side = ACCELS_CHECK_SIDE
+    d = spectral_cornell_dict(mi, side, side, 8)
+    xml = spectral_cornell_xml(side, side, 8, 16)
+    out["agreement_close"] = {
+        "load_dict": _agree_images(
+            f"spectral cornell ({side}x{side}, 16 spp)",
+            mi.render(mi.load_dict(d), seed=5, spp=16).cpu().numpy(),
+            mi.render(mi.load_dict(d, device="cpu"), seed=5,
+                      spp=16).numpy()),
+        "load_string": _agree_images(
+            f"spectral cornell XML ({side}x{side}, 16 spp)",
+            mi.render(mi.load_string(xml), seed=5).cpu().numpy(),
+            mi.render(mi.load_string(xml, device="cpu"), seed=5).numpy())}
+    return out
+
+
+def phase_accels(mi, card: str):
+    """The other accels and spectra on the card (nothing falls back to the
+    CPU): terrain64k through bvh_xla, the grid and a HybridAccel (K4
+    any-hit) and the dense test; interior120k through bvh_xla and the
+    grid; the small terrain on the card against the CPU through each;
+    update() rebuilds of terrain64k under each; the spectral Cornell."""
+    scenes = {}
+    out = {}
+    for name, part in (
+            ("terrain64k", lambda: _accels_terrain(mi, card, scenes)),
+            ("interior120k", lambda: _accels_interior(mi, card)),
+            ("agreement", lambda: _accels_agreement(mi)),
+            ("update", lambda: _accels_update(mi, card, scenes)),
+            ("spectra", lambda: _accels_spectra(mi, card))):
+        t0 = time.perf_counter()
+        out[name] = part()
+        print(f"# accels {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(only=None):
     """The whole smoke test, or with `only` (``--phase media``,
-    ``--phase integrators``, ``--phase materials`` or ``--phase shapes``)
-    the kernel build and that phase alone, without the final line."""
+    ``--phase integrators``, ``--phase materials``, ``--phase shapes`` or
+    ``--phase accels``) the kernel build and that phase alone, without the
+    final line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -5022,7 +5405,7 @@ def main(only=None):
     name = torch.cuda.get_device_name(0)
     card = smi.splitlines()[0] if smi else name
     print(f"# device: {name}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}")
+          f"{torch.version.cuda}, numpy {np.__version__}")
     print(smi)
 
     t0 = time.perf_counter()
@@ -5046,7 +5429,8 @@ def main(only=None):
 
     if only is not None:
         phase = {"media": phase_media, "integrators": phase_integrators,
-                 "materials": phase_materials, "shapes": phase_shapes}[only]
+                 "materials": phase_materials, "shapes": phase_shapes,
+                 "accels": phase_accels}[only]
         result = timed(only, phase, mi, card)
         print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({only: result, "card": card}))
@@ -5088,6 +5472,7 @@ def main(only=None):
     integrators = timed("integrators", phase_integrators, mi, card)
     new_materials = timed("materials", phase_materials, mi, card)
     shapes = timed("shapes", phase_shapes, mi, card)
+    accels = timed("accels", phase_accels, mi, card)
     launches["cells.instanced"] = shapes["instanced field"]["k1_launches"]
     rows += timed("kernels K1 instanced prototype", phase_kernels, mi, card,
                   instanced_field_dict, ".instanced", _proto_rays,
@@ -5121,6 +5506,7 @@ def main(only=None):
     print(json.dumps({"integrators": integrators, "card": card}))
     print(json.dumps({"slice_materials": new_materials, "card": card}))
     print(json.dumps({"shapes": shapes, "card": card}))
+    print(json.dumps({"accels": accels, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -28,13 +28,16 @@ prototype's accel (``proto_accels.<p>.<field>``, its kind in
 ranges and ``n_query_faces``.
 
 The accel is None for the dense all-triangles test (kind ``"dense"``,
-no arrays), or one of cellserve (``MI3T_ACCEL`` auto or cells), bvh_serve
-(``serve``) or bvh_tiled (``tiled``); its kind is told by the fields it
-has, and ``meta["accel"]["kind"]`` carries it across. ``accel_arrays`` and
-``accel_from_arrays`` do the same for an accel on its own, which may also
-be one of the attic's (``"pallas"`` for bvh_pallas, ``"bvh2"``; bvh_queue's
-is a ``"serve"`` accel); no scene holds an attic accel, so
-``scene_from_arrays`` refuses those two kinds.
+no arrays), or one of cellserve (``MI3T_ACCEL`` cells, or auto on the
+card), bvh_serve (``serve``), bvh_tiled (``tiled``), bvh_xla (``xla``, or
+auto on a CPU device), the DDA grid (``grid``) or a ``HybridAccel``
+(kind ``"hybrid"``: each side's arrays under ``closest.`` and
+``anyhit.``, each side's meta under its name); its kind is told by the
+fields it has, and ``meta["accel"]["kind"]`` carries it across.
+``accel_arrays`` and ``accel_from_arrays`` do the same for an accel on
+its own, which may also be one of the attic's (``"pallas"`` for
+bvh_pallas, ``"bvh2"``; bvh_queue's is a ``"serve"`` accel); no scene
+holds an attic accel, so ``scene_from_arrays`` refuses those two kinds.
 
 The JAX cellserve accel stores its cell occupancy as a packed byte
 bitmap (``occ_bytes``, cell c at byte c >> 3, bit c & 7); the port keeps
@@ -56,10 +59,12 @@ from .ops.attic.bvh2 import BVH2
 from .ops.attic.bvh_pallas import BVHData
 from .ops.bvh_serve import BVHServe
 from .ops.bvh_tiled import BVHTiled
+from .ops.bvh_xla import BVHXLA
 from .ops.cellserve import CellServe
+from .ops.grid import GridAccel
 from .render.film import FilmConfig
 from .render.instancing import INSTANCE_FIELDS, InstanceTable
-from .render.scene import Scene, reached_slots
+from .render.scene import HybridAccel, Scene, reached_slots
 from .sensors import SensorConfig, SensorData
 
 SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
@@ -87,7 +92,12 @@ ACCELS = {
     "pallas": (BVHData, ("node_bounds", "node_meta", "tris", "prim_order"),
                ("n_leaves",)),
     "bvh2": (BVH2, ("bounds", "tris"), ("n_nodes",)),
+    "xla": (BVHXLA, ("bounds", "left", "right", "parent", "is_left", "tri",
+                     "prim"), ("n_nodes",)),
+    "grid": (GridAccel, ("table", "lo", "inv_cell"),
+             ("res", "max_steps", "k")),
 }
+HYBRID_SIDES = ("closest", "anyhit")   # a HybridAccel's two accels
 ATTIC = ("pallas", "bvh2")   # standalone accels only: no scene holds one
 SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
               "delta_emitter_types", "bsdf_types", "bsdf_flags",
@@ -199,11 +209,14 @@ def _sensor_prefixes(sensor):
 
 
 def accel_kind(acc) -> str:
-    """"cells", "serve", "tiled", "pallas" or "bvh2", from the accel's
-    fields (a JAX or a port accel alike)."""
+    """"cells", "serve", "tiled", "xla", "grid", "hybrid", "pallas" or
+    "bvh2", from the accel's fields (a JAX or a port accel alike)."""
     for kind, marks in (("cells", ("start", "inv_cell")),
                         ("serve", ("sup", "m_pad")),
                         ("tiled", ("leaf_bounds", "scene_span")),
+                        ("xla", ("parent", "is_left")),
+                        ("grid", ("table", "max_steps")),
+                        ("hybrid", HYBRID_SIDES),
                         ("pallas", ("node_meta", "prim_order")),
                         ("bvh2", ("bounds", "n_nodes"))):
         if all(hasattr(acc, mark) for mark in marks):
@@ -216,6 +229,14 @@ def accel_arrays(acc):
     """(arrays, meta) of an accel alone: its array fields as numpy arrays,
     its static fields and its kind (meta["kind"])."""
     kind = accel_kind(acc)
+    if kind == "hybrid":
+        # each side's arrays under its name, its meta in meta[side]
+        arrays, meta = {}, {"kind": kind}
+        for side in HYBRID_SIDES:
+            side_arrays, meta[side] = accel_arrays(getattr(acc, side))
+            arrays.update({f"{side}.{name}": a
+                           for name, a in side_arrays.items()})
+        return arrays, meta
     _, array_names, meta_names = ACCELS[kind]
     arrays = {}
     for name in array_names:
@@ -232,7 +253,13 @@ def accel_arrays(acc):
 def accel_from_arrays(arrays: dict, meta: dict, device):
     """The port's accel from `accel_arrays` output, on `device`."""
     meta = dict(meta)
-    cls, array_names, _ = ACCELS[meta.pop("kind")]
+    kind = meta.pop("kind")
+    if kind == "hybrid":
+        return HybridAccel(**{side: accel_from_arrays(
+            {name[len(side) + 1:]: a for name, a in arrays.items()
+             if name.startswith(f"{side}.")}, meta[side], device)
+            for side in HYBRID_SIDES})
+    cls, array_names, _ = ACCELS[kind]
     return cls(**{name: torch.as_tensor(np.array(arrays[name]),
                                         device=device)
                   for name in array_names}, **meta)

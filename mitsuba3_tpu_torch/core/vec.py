@@ -32,6 +32,9 @@ class Vec3:
     def to_array(self):
         return torch.stack([self.x, self.y, self.z], dim=-1)
 
+    def detach(self):
+        return Vec3(self.x.detach(), self.y.detach(), self.z.detach())
+
     def __add__(self, o):
         if isinstance(o, Vec3):
             return Vec3(self.x + o.x, self.y + o.y, self.z + o.z)

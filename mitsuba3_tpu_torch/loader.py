@@ -51,7 +51,11 @@ for the plugins the port carries:
   parameters), and the samplers ``independent``, ``stratified``,
   ``multijitter``, ``ldsampler`` and ``orthogonal``;
 - constant colors given as a number, an RGB triple, or an ``rgb``,
-  ``uniform``, ``d65``, ``srgb`` or ``rawconstant`` spectrum;
+  ``uniform``, ``d65``, ``srgb`` or ``rawconstant`` spectrum, and colors
+  given as a ``blackbody``, ``regular`` or ``irregular`` spectrum,
+  projected to linear sRGB at load as the JAX loader's RGB variant does
+  (``core/spectrum.py``; a key the JAX loader ignores is refused, and so
+  is a sampled spectrum where a scalar is read);
 - participating media: ``homogeneous`` and ``heterogeneous`` (a density
   grid given as an array, a ``gridvolume`` with ``data`` or a ``.vol``
   ``filename`` and its ``to_world``) with the phase functions
@@ -67,9 +71,12 @@ for the plugins the port carries:
 - scenes of at most 8192 faces keep the dense all-triangles test
   (``accel`` None, ``ops/intersect.py``); above that, the accel that
   ``MI3T_ACCEL`` names, as the JAX package reads it: ``auto`` (the
-  default) and ``cells`` give cellserve (``ops/cellserve.py``) on every
-  device, ``serve`` gives ``bvh_serve`` and ``tiled`` gives ``bvh_tiled``;
-  ``xla``, ``grid`` and ``none`` are not ported.
+  default) gives ``xla`` on a CPU device and ``cells`` on the card;
+  ``cells`` gives cellserve (``ops/cellserve.py``), ``serve``
+  ``bvh_serve``, ``tiled`` ``bvh_tiled``, ``xla`` the stackless BVH
+  (``ops/bvh_xla.py``), ``grid`` the DDA grid (``ops/grid.py``) and
+  ``none`` the dense test over every face. A ``HybridAccel`` (the grid's
+  closest hits, bvh_tiled's any-hit) is made by hand, as in JAX.
 
 Any other plugin raises ``NotImplementedError`` naming it: among them the
 ``ellipsoids`` Gaussian primitives, the polarized BSDFs
@@ -77,13 +84,12 @@ Any other plugin raises ``NotImplementedError`` naming it: among them the
 ``measured_polarized``), a spectral ``.bsdf``, the ``stokes``,
 ``volprim_rf_basic``, ``prb_projective`` and ``direct_projective``
 integrators, a ``specfilm``, a batch sensor's ``medium``, an rfilter's
-parameters (which the JAX package ignores), the ``blackbody``,
-``regular`` and ``irregular`` spectra, a textured parameter outside
-``TEXTURED`` and an image format that ``utils/image_io.py`` does not
-read. XML scene files lower to the same dicts (``utils/xml.py``). The
-host-side table building is the JAX package's, so the scene's arrays
-equal its leaves. The scene lives on ``device``: the card unless the
-caller asks for the CPU.
+parameters (which the JAX package ignores), the spectral variant, a
+textured parameter outside ``TEXTURED`` and an image format that
+``utils/image_io.py`` does not read. XML scene files lower to the same
+dicts (``utils/xml.py``). The host-side table building is the JAX
+package's, so the scene's arrays equal its leaves. The scene lives on
+``device``: the card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -98,13 +104,15 @@ from . import media as media_pkg
 from . import phase as phase_pkg
 from . import shapes as shapes_pkg
 from . import sensors as sensors_pkg
+from .core import spectrum
 from .core.distr2d import SlicedMarginal2D
 from .core.transform import as_transform
 from .emitters import envmap as env_mod
 from .emitters import sunsky
 from .integrators import config_from_dict as integrator_from_dict
 from .integrators.path import PathConfig
-from .ops import bvh_serve, bvh_tiled, cellserve
+from .ops import bvh_serve, bvh_tiled, bvh_xla, cellserve
+from .ops import grid as grid_mod
 from .ops import sdf as sdf_mod
 from .bsdfs import rough_transmittance as rtrans
 from .render import instancing
@@ -123,9 +131,11 @@ GROUP_MEMBER_TYPES = tuple(shapes_pkg.SHAPE_KEYS) + ("ellipsoids",)
 # an ellipsoidsmesh's BSDF when it names none: its vertex colors
 ELLIPSOID_BSDF = {"type": "diffuse", "reflectance": {
     "type": "mesh_attribute", "name": "vertex_color"}}
-ACCELS = {"auto": cellserve.build, "cells": cellserve.build,
-          "serve": bvh_serve.build, "tiled": bvh_tiled.build}
-UNPORTED_ACCELS = ("xla", "grid", "none")
+# MI3T_ACCEL -> the accel's build (None: the dense test over every face);
+# "auto" is "xla" on a CPU device and "cells" on the card, as in JAX
+ACCELS = {"cells": cellserve.build, "serve": bvh_serve.build,
+          "tiled": bvh_tiled.build, "xla": bvh_xla.build,
+          "grid": grid_mod.build, "none": None}
 
 _FILM_KEYS = ("type", "width", "height", "rfilter", "pixel_format",
               "crop_width", "crop_height", "crop_offset_x", "crop_offset_y")
@@ -135,6 +145,13 @@ _SENSOR_KEYS = ("type", "to_world", "fov", "fov_axis", "near_clip",
                 "focus_distance")
 # constant spectra: their value (or scale) is the color
 _CONSTANT_SPECTRA = ("uniform", "d65", "srgb", "rawconstant")
+# sampled spectra, projected to RGB at load (core/spectrum.py), and the
+# keys each may have
+SAMPLED_SPECTRA = {
+    "blackbody": ("type", "temperature", "scale"),
+    "regular": ("type", "value", "values", "lambda_min", "lambda_max",
+                "wavelengths"),
+    "irregular": ("type", "value", "wavelengths", "values")}
 # every BSDF name the JAX loader knows; those outside BSDF_KEYS (or a
 # spectral parameter, or a textured one outside TEXTURED) raise
 # NotImplementedError
@@ -269,13 +286,46 @@ def _spectrum_value(spec: dict, what: str):
     raise _not_ported(f"{what} type {spec.get('type')!r}")
 
 
+def _sampled_rgb(spec: dict) -> np.ndarray:
+    """A ``blackbody``, ``regular`` or ``irregular`` spectrum projected to
+    linear sRGB on the host, in every form the JAX loader reads: a
+    blackbody's ``temperature`` and ``scale``; a regular spectrum's
+    ``values`` (or a list ``value``) spread over ``lambda_min`` ..
+    ``lambda_max``; ``value`` pairs, a ``"wavelength:value, ..."`` string
+    or ``wavelengths`` with ``values``. Keys the JAX loader ignores are
+    refused."""
+    stype = spec["type"]
+    _check_keys(spec, SAMPLED_SPECTRA[stype], f"{stype} spectrum")
+    if stype == "blackbody":
+        return spectrum.blackbody_rgb(float(spec.get(
+            "temperature", 5000.0))) * float(spec.get("scale", 1.0))
+    val = spec.get("value")
+    if val is None and "wavelengths" in spec:
+        val = list(zip(np.asarray(spec["wavelengths"], np.float64).tolist(),
+                       np.asarray(spec["values"], np.float64).tolist()))
+    if isinstance(val, str):
+        pairs = [p.split(":") for p in val.split(",")]
+        wl = [float(a) for a, _ in pairs]
+        sp = [float(b) for _, b in pairs]
+    elif stype == "regular":
+        sp = np.asarray(spec["values"] if "values" in spec else val,
+                        np.float64)
+        wl = np.linspace(float(spec.get("lambda_min", 360.0)),
+                         float(spec.get("lambda_max", 830.0)), sp.shape[0])
+    else:
+        wl, sp = zip(*val)
+    return spectrum.spd_to_rgb(wl, sp)
+
+
 def _rgb(spec, default=(0.5, 0.5, 0.5), what: str = "spectrum"):
     """A constant color: number | [r, g, b] | an ``rgb`` or constant
-    spectrum dict ({'type': 'uniform', 'value': ...} and the like)."""
+    spectrum dict ({'type': 'uniform', 'value': ...} and the like) | a
+    sampled spectrum projected to RGB (``_sampled_rgb``)."""
     if spec is None:
         return np.asarray(default, np.float32)
     if isinstance(spec, dict):
-        spec = _spectrum_value(spec, what)
+        spec = (_sampled_rgb(spec) if spec.get("type") in SAMPLED_SPECTRA
+                else _spectrum_value(spec, what))
     v = np.asarray(spec, np.float32).reshape(-1)
     if v.size == 1:
         v = np.repeat(v, 3)
@@ -849,11 +899,12 @@ def _delta_row(espec: dict, textures: list):
     return em_pkg.SPOT, row
 
 
-def _accel_builder():
-    """The accel build that ``MI3T_ACCEL`` selects."""
+def _accel_builder(dev: torch.device):
+    """The accel build that ``MI3T_ACCEL`` selects for a scene on `dev`
+    (None: the dense test)."""
     choice = os.environ.get("MI3T_ACCEL", "auto")
-    if choice in UNPORTED_ACCELS:
-        raise _not_ported(f"MI3T_ACCEL={choice!r}")
+    if choice == "auto":
+        choice = "xla" if dev.type == "cpu" else "cells"
     if choice not in ACCELS:
         raise ValueError(f"MI3T_ACCEL: unknown accel {choice!r}")
     return ACCELS[choice]
@@ -1020,8 +1071,12 @@ def _lower_prototypes(shapegroups, instance_specs, add_bsdf, n_shapes,
             tuple(ranges), tables)
 
 
-def load_dict(d: dict, device=None) -> Scene:
-    """Lower a scene dict to a Scene on `device` (the card by default)."""
+def load_dict(d: dict, device=None, spectral: bool = False) -> Scene:
+    """Lower a scene dict to a Scene on `device` (the card by default), in
+    the RGB variant: ``spectral=True`` (JAX's spectral variant) raises."""
+    if spectral:
+        raise _not_ported("the spectral variant (load_dict(..., "
+                          "spectral=True))")
     dev = resolve_device(device)
     if d.get("type") != "scene":
         raise ValueError("Top-level dict must have type='scene'")
@@ -1283,8 +1338,9 @@ def load_dict(d: dict, device=None) -> Scene:
 
     # small scenes keep the dense all-triangles test (accel None)
     accel = None
-    if n_padded > ACCEL_MIN_FACES:
-        accel = _accel_builder()(*_tri_rows(vertices, faces), device=dev)
+    build = _accel_builder(dev) if n_padded > ACCEL_MIN_FACES else None
+    if build is not None:
+        accel = build(*_tri_rows(vertices, faces), device=dev)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)

@@ -21,7 +21,6 @@ unresolved rays (JAX runs fixed widths because XLA compiles per shape).
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 import torch
@@ -33,6 +32,9 @@ from . import native
 BIG = 3.4e38       # "no hit" distance
 K = 128            # triangles per CSR row slab = pairs per serve sub-block
 MINT = 1e-6
+# cells of at least this many triangles get an aligned CSR range (JAX's
+# MI3T_CELLS_PAD_MIN default; the port reads no environment for it)
+PAD_MIN = 64
 PLAIN_CHUNK = 512  # sub-blocks per step of serve_blocks_plain ([512,128,128])
 
 # Kernel launches of `serve_blocks` by mode. Only the wrapper adds to these,
@@ -54,8 +56,9 @@ class CellServe:
 
 
 def build(p0, e1, e2, res: int | None = None, pair_slots: int = 8, *,
-          device) -> CellServe:
-    """Host-side build, identical to the JAX package's (NumPy)."""
+          device, pad_min: int = PAD_MIN) -> CellServe:
+    """Host-side build, identical to the JAX package's (NumPy) when
+    `pad_min` is the JAX build's ``MI3T_CELLS_PAD_MIN``."""
     p0 = np.asarray(p0, np.float32)
     e1 = np.asarray(e1, np.float32)
     e2 = np.asarray(e2, np.float32)
@@ -105,12 +108,10 @@ def build(p0, e1, e2, res: int | None = None, pair_slots: int = 8, *,
     cell_sorted = cell_ids[order]
     tri_sorted = tri_ids[order]
 
-    # cell-aligned CSR: cells with at least MI3T_CELLS_PAD_MIN triangles
-    # (default 64, read at each build as the JAX package reads it) get a
+    # cell-aligned CSR: cells with at least pad_min triangles get a
     # K-aligned start and a K-multiple length, so a sub-block whose pairs
     # sit inside one popular cell reads exactly that cell's rows. Small
     # cells stay packed. Gaps hold degenerate id=-1 slots (never hit).
-    pad_min = int(os.environ.get("MI3T_CELLS_PAD_MIN", "64"))
     counts_c = np.bincount(cell_sorted, minlength=C).astype(np.int64)
     start64 = np.zeros(C + 2, np.int64)
     off = 0

@@ -20,6 +20,7 @@ clamped last face, as JAX does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -34,7 +35,8 @@ from ..core.gather import take_rows
 from ..core.struct import struct
 from ..core.vec import Vec2, Vec3
 from ..emitters import envmap as env_mod
-from ..ops import analytic, bvh_serve, bvh_tiled, cellserve
+from ..ops import analytic, bvh_serve, bvh_tiled, bvh_xla, cellserve
+from ..ops import grid as grid_mod
 from ..ops import intersect as ops_intersect
 from ..ops import sdf as sdf_mod
 from ..render.film import FilmConfig
@@ -55,6 +57,28 @@ A_INV_AREA, A_EMITTER, A_BSDF, A_SHAPE = 15, 16, 17, 18
 A_NS = 19                        # per-corner shading normals, 9 columns
 A_MED = 28                       # interior, exterior medium (with media)
 # then the per-corner vertex colors, 9 columns (Scene.a_vc)
+
+
+# accel type -> its (closest, any-hit) queries, each taking (accel, o, d,
+# maxt, active)
+ACCEL_QUERIES = {
+    cellserve.CellServe: (cellserve.intersect_cells,
+                          cellserve.occluded_cells),
+    bvh_serve.BVHServe: (bvh_serve.intersect_bvh, bvh_serve.occluded_bvh),
+    bvh_tiled.BVHTiled: (bvh_tiled.intersect_bvh, bvh_tiled.occluded_bvh),
+    bvh_xla.BVHXLA: (bvh_xla.intersect_bvh, bvh_xla.occluded_bvh),
+    grid_mod.GridAccel: (grid_mod.intersect_grid, grid_mod.occluded_grid),
+}
+
+
+@struct
+class HybridAccel:
+    """Closest-hit and any-hit queries on two structures (JAX's
+    HybridAccel): the DDA grid's closest hits with bvh_tiled's any-hit
+    rounds (kernel K4), as ``update()`` rebuilds them, or any two of the
+    accels of ACCEL_QUERIES."""
+    closest: Any = None
+    anyhit: Any = None
 
 
 def reached_slots(face_bsdf, face_shape, analytic_prims=None,
@@ -106,8 +130,9 @@ class Scene:
     # BSDFs, sensor, accel
     bsdf_params: torch.Tensor         # [B, N_PARAMS]
     sensor: SensorData | tuple        # a batch sensor: one per sub-sensor
-    # None: the dense all-triangles test (scenes of at most 8192 faces)
-    accel: cellserve.CellServe | bvh_serve.BVHServe | bvh_tiled.BVHTiled | None
+    # an accel of ACCEL_QUERIES or a HybridAccel; None: the dense
+    # all-triangles test (scenes of at most 8192 faces, or MI3T_ACCEL=none)
+    accel: Any
     # derived from bsdf_params by bsdfs.dispatch_tables (update() redoes it):
     # (BSDF module name, texture ids its rows hold) and the BSDF types each
     # dispatch can meet
@@ -236,24 +261,26 @@ class Scene:
     # ------------------------------------------------------------------
 
     def _queries(self):
-        """(closest, any-hit) query functions of the scene's accel; the
-        dense test over every triangle, in TRI_CHUNK chunks, without one."""
+        """(closest, any-hit) queries of the scene's accel, each taking
+        (o, d, maxt, active): a HybridAccel's closest side for the one and
+        its any-hit side for the other; the dense test over every
+        triangle, in TRI_CHUNK chunks, without an accel."""
         if self.accel is None:
             tris = self.triangle_soa()
 
-            def closest(_, o, d, maxt, active=None):
+            def closest(o, d, maxt, active=None):
                 return ops_intersect.intersect_naive(
                     o, d, maxt, *tris, active=active, chunk=TRI_CHUNK)
 
-            def anyhit(_, o, d, maxt, active=None):
+            def anyhit(o, d, maxt, active=None):
                 return ops_intersect.occluded_naive(
                     o, d, maxt, *tris, active=active, chunk=TRI_CHUNK)
             return closest, anyhit
-        if isinstance(self.accel, cellserve.CellServe):
-            return cellserve.intersect_cells, cellserve.occluded_cells
-        if isinstance(self.accel, bvh_serve.BVHServe):
-            return bvh_serve.intersect_bvh, bvh_serve.occluded_bvh
-        return bvh_tiled.intersect_bvh, bvh_tiled.occluded_bvh
+        acc_c, acc_a = ((self.accel.closest, self.accel.anyhit)
+                        if isinstance(self.accel, HybridAccel)
+                        else (self.accel, self.accel))
+        return (functools.partial(ACCEL_QUERIES[type(acc_c)][0], acc_c),
+                functools.partial(ACCEL_QUERIES[type(acc_a)][1], acc_a))
 
     @property
     def n_analytic(self) -> int:
@@ -261,8 +288,8 @@ class Scene:
                 else self.analytic_prims.shape[0])
 
     def ray_intersect_preliminary(self, ray: Ray, active=None):
-        t, prim, uv, valid = self._queries()[0](
-            self.accel, ray.o, ray.d, ray.maxt, active=active)
+        t, prim, uv, valid = self._queries()[0](ray.o, ray.d, ray.maxt,
+                                                active=active)
         inst_idx = None
         if self.instances is not None:
             ti, pri, uvi, ii, vi = instancing.intersect_instances(
@@ -313,8 +340,7 @@ class Scene:
             instance_index=inst_idx)
 
     def ray_test(self, ray: Ray, active=None):
-        occ = self._queries()[1](self.accel, ray.o, ray.d, ray.maxt,
-                                 active=active)
+        occ = self._queries()[1](ray.o, ray.d, ray.maxt, active=active)
         if self.instances is not None:
             act = (torch.ones_like(occ) if active is None else active) & ~occ
             occ = occ | instancing.occluded_instances(

@@ -6,6 +6,7 @@
     python3 -m mitsuba3_tpu_torch.tools.count_ops --integrators [--size 16]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --materials [--size 16]
     python3 -m mitsuba3_tpu_torch.tools.count_ops --shapes [--size 16]
+    python3 -m mitsuba3_tpu_torch.tools.count_ops --accels [--size 16]
 
 Run from the repository root. For each sampler type, the scene is
 ``chip_smoke.cornell_xml``'s Cornell box (perspective sensor, Gaussian
@@ -61,6 +62,13 @@ launch is the card's. The analytic rows are evaluated in chunks of at
 most ``ops/analytic.py``'s STEP_ELEMS rows x lanes, so at a full width
 of 2^20 lanes a query takes about 59 chunks where a small pass takes 4,
 and the instance loop's rounds follow the rays: scale those parts.
+
+``--accels`` counts one forward pass (2 of ``--spp`` samples per pixel,
+``max_depth`` 4) of terrain64k (65,536 faces) through cellserve, bvh_xla,
+the grid, a HybridAccel and the dense test (``MI3T_ACCEL=none``), each K1
+or K4 call as one launch, with the traversal loops' steps. A loop's
+steps follow its slowest lane, and the dense test's ray steps the lane
+count (65,536 lanes a step): scale those parts.
 """
 from __future__ import annotations
 
@@ -261,6 +269,44 @@ def count_shapes(size: int, spp: int):
               f"rounds in {blocks.queries} queries")
 
 
+def count_accels(size: int, spp: int):
+    import chip_smoke
+    import mitsuba3_tpu_torch as mt
+    from mitsuba3_tpu_torch.ops import bvh_tiled, cellserve
+    from mitsuba3_tpu_torch.render import integrator as ri
+    d = chip_smoke.terrain64k_dict(mt.ScalarTransform4f)
+    d["sensor"]["film"].update(width=size, height=size)
+    for kind in ("cells", "xla", "grid", "hybrid", "none"):
+        scene = chip_smoke._load_accel(mt, d, kind, "cpu")[0]
+        c = _Count()
+        calls = [0, 0]    # K1 and K4 calls, operations of their plain versions
+        saved = cellserve.serve_blocks, bvh_tiled.run_round
+
+        def one_launch(fn):
+            def launch(*args):
+                n0 = c.n
+                out = fn(*args)
+                calls[0] += 1
+                calls[1] += c.n - n0
+                return out
+            return launch
+        cellserve.serve_blocks = one_launch(saved[0])
+        bvh_tiled.run_round = one_launch(saved[1])
+        chip_smoke._reset_accel_counters()
+        try:
+            with torch.no_grad(), c:
+                ri.render_pass(scene, 7, 2, 0, spp, base_seed=7)
+        finally:
+            cellserve.serve_blocks, bvh_tiled.run_round = saved
+        steps = "; ".join(
+            f"{name} {m} {v[0]} steps in {v[1]} queries"
+            for name, modes in chip_smoke._steps_per_query().items()
+            for m, v in modes.items() if v[1])
+        print(f"terrain64k {kind} path pass {size}x{size}, 2 of {spp} spp: "
+              f"{c.n} ops, {c.n - calls[1] + calls[0]} with each of the "
+              f"{calls[0]} K1/K4 calls as one launch; {steps or 'no loop'}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=16)
@@ -270,8 +316,12 @@ def main(argv=None) -> int:
     ap.add_argument("--integrators", action="store_true")
     ap.add_argument("--materials", action="store_true")
     ap.add_argument("--shapes", action="store_true")
+    ap.add_argument("--accels", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
+    if args.accels:
+        count_accels(args.size, args.spp)
+        return 0
     if args.shapes:
         count_shapes(args.size, args.spp)
         return 0

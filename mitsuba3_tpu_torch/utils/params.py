@@ -27,8 +27,9 @@ import torch
 from .. import bsdfs
 from .. import emitters as em_pkg
 from ..emitters import envmap as env_mod
-from ..ops import bvh_serve, bvh_tiled, cellserve
-from ..render.scene import reached_slots
+from ..ops import bvh_serve, bvh_tiled, bvh_xla, cellserve
+from ..ops import grid as grid_mod
+from ..render.scene import HybridAccel, reached_slots
 
 
 class SceneParameters:
@@ -194,17 +195,21 @@ def _rebuild_geometry_derived(scene):
         p0 = p[:nq, 0]
         e1 = p[:nq, 1] - p0
         e2 = p[:nq, 2] - p0
-        if isinstance(acc, cellserve.CellServe):
+        if isinstance(acc, HybridAccel):
+            # as JAX rebuilds a hybrid: the grid's closest hits and
+            # bvh_tiled's any-hit
+            acc = HybridAccel(closest=grid_mod.build(p0, e1, e2, device=dev),
+                              anyhit=bvh_tiled.build(p0, e1, e2,
+                                                     device=dev))
+        elif isinstance(acc, cellserve.CellServe):
             acc = cellserve.build(p0, e1, e2, pair_slots=acc.pair_slots,
                                   device=dev)
-        elif isinstance(acc, bvh_serve.BVHServe):
-            acc = bvh_serve.build(p0, e1, e2, device=dev)
-        elif isinstance(acc, bvh_tiled.BVHTiled):
-            acc = bvh_tiled.build(p0, e1, e2, device=dev)
         else:
-            raise NotImplementedError(
-                f"rebuilding a {type(acc).__name__} accel is not ported to "
-                f"mitsuba3_tpu_torch")
+            acc = {bvh_serve.BVHServe: bvh_serve.build,
+                   bvh_tiled.BVHTiled: bvh_tiled.build,
+                   bvh_xla.BVHXLA: bvh_xla.build,
+                   grid_mod.GridAccel: grid_mod.build}[type(acc)](
+                p0, e1, e2, device=dev)
         updates["accel"] = acc
     if scene.proto_accels:
         # prototype faces may share edited vertices: each prototype's

@@ -4,7 +4,7 @@ the plain versions of kernels K2 (cull), K3 (block serve) and K4 (tiled
 round) agree with JAX's Pallas kernels run in interpret mode; the queries
 agree with JAX's and with the dense oracle; the small terrain renders as
 JAX renders it under each accel, also when carried over from JAX's
-leaves; and the loader refuses the accels the port does not carry."""
+leaves; and the loader builds the accel MI3T_ACCEL names."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -684,14 +684,6 @@ def test_render_from_jax_leaves_matches_port(jax_render, monkeypatch):
                       atol=1e-3).mean() > 0.995
 
 
-@pytest.mark.parametrize("accel", ["xla", "grid", "none"])
-def test_loader_refuses_unported_accels(monkeypatch, accel):
-    monkeypatch.setenv("MI3T_ACCEL", accel)
-    d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f, width=8)
-    with pytest.raises(NotImplementedError, match=f"MI3T_ACCEL='{accel}'"):
-        mt.load_dict(d, device="cpu")
-
-
 def test_loader_rejects_unknown_accel(monkeypatch):
     monkeypatch.setenv("MI3T_ACCEL", "octree")
     d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f, width=8)
@@ -699,11 +691,15 @@ def test_loader_rejects_unknown_accel(monkeypatch):
         mt.load_dict(d, device="cpu")
 
 
-@pytest.mark.parametrize("accel,cls", [("auto", "CellServe"),
+@pytest.mark.parametrize("accel,cls", [("auto", "BVHXLA"),
                                        ("cells", "CellServe"),
                                        ("serve", "BVHServe"),
-                                       ("tiled", "BVHTiled")])
+                                       ("tiled", "BVHTiled"),
+                                       ("xla", "BVHXLA"),
+                                       ("grid", "GridAccel"),
+                                       ("none", "NoneType")])
 def test_loader_builds_the_named_accel(monkeypatch, accel, cls):
+    """On a CPU device; ``auto`` is ``xla`` there, as in JAX."""
     monkeypatch.setenv("MI3T_ACCEL", accel)
     d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f, width=8)
     assert type(mt.load_dict(d, device="cpu").accel).__name__ == cls

@@ -85,12 +85,13 @@ def test_build_bit_equal_terrain64k():
 
 @pytest.mark.parametrize("pad_min", ["64", "16"])
 def test_build_bit_equal_pad_min(monkeypatch, pad_min):
-    """MI3T_CELLS_PAD_MIN, read by both builds: the small interior (8,624
-    faces, res 8) has cells above and below 16 and 64 triangles, and the
-    aligned CSR equals JAX's at either threshold."""
+    """MI3T_CELLS_PAD_MIN, which JAX's build reads, and the port's build's
+    pad_min: the small interior (8,624 faces, res 8) has cells above and
+    below 16 and 64 triangles, and the aligned CSR equals JAX's at either
+    threshold."""
     monkeypatch.setenv("MI3T_CELLS_PAD_MIN", pad_min)
     p0, e1, e2 = chip_smoke.make_interior(9000)
-    t_acc = t_cs.build(p0, e1, e2, device="cpu")
+    t_acc = t_cs.build(p0, e1, e2, device="cpu", pad_min=int(pad_min))
     assert_build_equal(j_cs.build(p0, e1, e2), t_acc)
     counts = np.diff(t_acc.start.numpy()[:-1])
     assert (counts >= int(pad_min)).any() and (

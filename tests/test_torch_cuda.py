@@ -23,7 +23,10 @@ tube curves launching K1 in both modes, the measured materials Cornell
 against the CPU, a principled PRB step and a user's BSDF (half_diffuse)
 on the card; the instanced field's prototype query through K1 against its
 plain version, and instanced, analytic and SDF shapes rendered on the card
-against the CPU. Run on a machine with a CUDA device::
+against the CPU; the bvh_xla, grid and hybrid queries and the small
+terrain through them and through the dense test, and the spectral
+Cornell, on the card against the CPU. Run on a machine with a CUDA
+device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -547,6 +550,53 @@ def test_accel_render_on_card_matches_cpu(cuda, monkeypatch, accel):
     assert np.isfinite(img_g).all()
     assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
     assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+def _new_accel_queries(accel, tris, o, d, dev):
+    """(t, prim, valid, occluded) of `accel` ("xla", "grid", or "hybrid":
+    the grid's closest hits, bvh_tiled's any-hit) built on `dev`."""
+    from mitsuba3_tpu_torch.ops import bvh_xla, grid
+    from mitsuba3_tpu_torch.render.scene import ACCEL_QUERIES
+    closest = (bvh_xla if accel == "xla" else grid).build(*tris, device=dev)
+    anyhit = bt.build(*tris, device=dev) if accel == "hybrid" else closest
+    t, prim, _, valid = ACCEL_QUERIES[type(closest)][0](
+        closest, _vec(o, dev), _vec(d, dev), 1e30)
+    occ = ACCEL_QUERIES[type(anyhit)][1](anyhit, _vec(o, dev), _vec(d, dev),
+                                         2.0)
+    return [x.cpu() for x in (t, prim, valid, occ)]
+
+
+@pytest.mark.parametrize("accel", ["xla", "grid", "hybrid"])
+def test_new_accel_queries_on_card_match_cpu(cuda, np_rng, accel):
+    tris, o, d = _soup(np_rng, n_ray=16384)
+    before = bt.LAUNCHES["anyhit"]
+    (tg, pg, vg, og), (tc, pc, vc, oc) = (
+        _new_accel_queries(accel, tris, o, d, dev)
+        for dev in (cuda, torch.device("cpu")))
+    assert (bt.LAUNCHES["anyhit"] > before) == (accel == "hybrid")
+    assert torch.equal(vg, vc) and torch.equal(og, oc)
+    assert (pg[vc] == pc[vc]).float().mean() > 0.999
+    assert torch.allclose(tg[vc], tc[vc], rtol=1e-5)
+
+
+@pytest.mark.parametrize("accel", ["xla", "grid", "hybrid", "none"])
+def test_new_accel_render_on_card_matches_cpu(cuda, accel):
+    """The small terrain through MI3T_ACCEL=xla, grid and none and a
+    hand-made HybridAccel (chip_smoke._load_accel), card against CPU."""
+    d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f, width=16)
+    img_g, img_c = (
+        mt.render(chip_smoke._load_accel(mt, d, accel, dev)[0], seed=5,
+                  spp=4).cpu().numpy() for dev in (cuda, "cpu"))
+    assert np.isfinite(img_g).all()
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+def test_spectral_cornell_on_card_matches_cpu(cuda):
+    d = chip_smoke.spectral_cornell_dict(mt, 16, 16, 4)
+    img_g, img_c = (mt.render(mt.load_dict(d, device=dev), seed=5,
+                              spp=16).cpu().numpy() for dev in (cuda, "cpu"))
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
 
 
 # ---------------------------------------------------------------------------

@@ -77,10 +77,13 @@ CURVE_CASES = [(c, s, m) for c in ("linearcurve", "bsplinecurve")
 
 
 @pytest.mark.parametrize("ctype,source,mode", CURVE_CASES)
-def test_curve_mesh_bit_equal_to_jax(ctype, source, mode, hair_file):
+def test_curve_mesh_bit_equal_to_jax(ctype, source, mode, hair_file,
+                                     monkeypatch):
     """build_curve_mesh's vertices, faces, uvs and normals bit-equal to
     JAX's, and the loaded scene's face tables equal to JAX's; the port
-    tessellates where JAX does."""
+    tessellates where JAX does. A scene above 8192 faces gets cellserve on
+    both sides."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
     spec = _spec(ctype, source, mode, hair_file)
     bspline = ctype == "bsplinecurve"
     mj_mesh = curves_j.build_curve_mesh(spec, bspline)

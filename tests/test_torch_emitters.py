@@ -271,9 +271,11 @@ def test_projector_eval_delta_matches_jax(projector_scenes, np_rng):
     assert 0.1 < lit.mean() < 0.9
 
 
-def test_sunsky_env_data_matches_jax():
+def test_sunsky_env_data_matches_jax(monkeypatch):
     """sunsky and timed_sunsky baked at load: env_data [128, 256, 3],
-    env_scale and the warp tables equal JAX's (the same numpy)."""
+    env_scale and the warp tables equal JAX's (the same numpy). The small
+    terrain gets cellserve on both sides."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
     for timed in (False, True):
         dj = chip_smoke.sunsky_dict(chip_smoke.small_terrain_dict,
                                     mj.ScalarTransform4f, timed, width=8)

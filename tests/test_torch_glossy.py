@@ -210,16 +210,18 @@ UNPORTED = {
                   "bsdf": {"type": "diffuse"}},
     "bumpmap": {"type": "bumpmap", "bumpmap": 1.0,
                 "bsdf": {"type": "diffuse"}},
-    # principled, principledthin, hair and measured load: their cases give
-    # them a spectral color or table, which the port refuses (item 7)
-    "principled": {"type": "principled", "base_color": {
+    # principled, principledthin, hair and measured load, and a sampled
+    # spectrum as a color is projected to RGB: their cases give them a
+    # sampled spectrum where a scalar is read, or a spectral table, which
+    # the port refuses
+    "principled": {"type": "principled", "roughness": {
         "type": "regular", "lambda_min": 400, "lambda_max": 700,
-        "values": "0.2, 0.8"}},
-    "principledthin": {"type": "principledthin", "base_color": {
+        "values": [0.2, 0.8]}},
+    "principledthin": {"type": "principledthin", "spec_trans": {
         "type": "blackbody", "temperature": 3000.0}},
-    "hair": {"type": "hair", "sigma_a": {
+    "hair": {"type": "hair", "longitudinal_roughness": {
         "type": "regular", "lambda_min": 400, "lambda_max": 700,
-        "values": "0.2, 0.8"}},
+        "values": [0.2, 0.8]}},
     "measured": {"type": "measured", "tables": {
         "wavelengths": np.linspace(400, 700, 4)}},
     "pplastic": {"type": "pplastic"},
@@ -236,9 +238,9 @@ UNPORTED = {
         "type": "checkerboard"}},
     "volume": {"type": "dielectric", "specular_transmittance": {
         "type": "volume", "volume": {"type": "constvolume"}}},
-    "regular": {"type": "conductor", "eta": {
+    "regular": {"type": "mask", "opacity": {
         "type": "regular", "lambda_min": 400, "lambda_max": 700,
-        "values": "1, 2"}},
+        "values": [0.2, 0.8]}, "bsdf": {"type": "diffuse"}},
     "bitmap opacity": {"type": "mask", "opacity": {
         "type": "bitmap", "filename": "x.png", "format": "rgb"},
         "bsdf": {"type": "diffuse"}},

@@ -1,10 +1,10 @@
 """Port parity for ``utils/params.py``: ``traverse`` gives the JAX
 package's keys; ``update()`` after a vertex edit gives the JAX package's
-area-emitter tables and rebuilt accel (cellserve, bvh_serve, bvh_tiled)
-bit for bit, after an environment edit its sampling tables, and leaves
-the scene it started from as it was; and a two-step SGD loop on the
-small terrain's vertices through ``prb`` and ``update()`` ends where the
-JAX package's does."""
+area-emitter tables and rebuilt accel (cellserve, bvh_serve, bvh_tiled,
+bvh_xla, the grid and a HybridAccel) bit for bit, after an environment
+edit its sampling tables, and leaves the scene it started from as it
+was; and a two-step SGD loop on the small terrain's vertices through
+``prb`` and ``update()`` ends where the JAX package's does."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,10 +12,16 @@ import pytest
 import torch
 
 import mitsuba3_tpu as mj
+from mitsuba3_tpu.ops import bvh_tiled as j_bt
+from mitsuba3_tpu.ops import grid as j_grid
+from mitsuba3_tpu.render import scene as j_scene_mod
 
 import chip_smoke
 import mitsuba3_tpu_torch as mt
 from mitsuba3_tpu_torch.convert import arrays_from_scene
+from mitsuba3_tpu_torch.ops import bvh_tiled as t_bt
+from mitsuba3_tpu_torch.ops import grid as t_grid
+from mitsuba3_tpu_torch.render import scene as t_scene_mod
 
 torch.set_num_threads(1)
 
@@ -69,12 +75,36 @@ def test_traverse_keys_equal_jax(monkeypatch, make):
         pt["missing"] = 1.0
 
 
-@pytest.mark.parametrize("accel", ["cells", "serve", "tiled"])
+def with_hybrid(pkg_hybrid, grid_mod, tiled_mod, scene, **kw):
+    """`scene` (loaded under MI3T_ACCEL=grid) with a hand-made
+    HybridAccel: its grid for closest hits, bvh_tiled for any-hit."""
+    p = np.asarray(scene.vertices)[np.asarray(scene.faces)]
+    return scene.replace(accel=pkg_hybrid(
+        closest=scene.accel, anyhit=tiled_mod.build(
+            p[:, 0], p[:, 1] - p[:, 0], p[:, 2] - p[:, 0], **kw)))
+
+
+def accel_geometry(acc):
+    """The triangle array of an accel (a hybrid's closest side's)."""
+    acc = getattr(acc, "closest", acc)
+    for name in ("tris", "tri", "table"):
+        if hasattr(acc, name):
+            return getattr(acc, name)
+
+
+@pytest.mark.parametrize("accel", ["cells", "serve", "tiled", "xla", "grid",
+                                   "hybrid"])
 def test_vertex_update_rebuilds_accel_like_jax(monkeypatch, accel):
     """The small terrain (8,978 faces) under each accel: after a vertex
-    edit, update() rebuilds the loader's accel type, and every leaf of
-    the new scene equals JAX's bit for bit; the old scene is untouched."""
-    j_scene, t_scene = load_both(monkeypatch, terrain, accel)
+    edit, update() rebuilds the loader's accel type (a HybridAccel as a
+    grid and a bvh_tiled, as JAX rebuilds one), and every leaf of the new
+    scene equals JAX's bit for bit; the old scene is untouched."""
+    j_scene, t_scene = load_both(monkeypatch, terrain,
+                                 "grid" if accel == "hybrid" else accel)
+    if accel == "hybrid":
+        j_scene = with_hybrid(j_scene_mod.HybridAccel, j_grid, j_bt, j_scene)
+        t_scene = with_hybrid(t_scene_mod.HybridAccel, t_grid, t_bt, t_scene,
+                              device="cpu")
     v = bump(np.asarray(j_scene.vertices))
     old = arrays_from_scene(t_scene)
     pj, pt = mj.traverse(j_scene), mt.traverse(t_scene)
@@ -83,8 +113,12 @@ def test_vertex_update_rebuilds_accel_like_jax(monkeypatch, accel):
     new_t = pt.update()
     assert_scenes_equal(new_t, pj.update())
     assert type(new_t.accel) is type(t_scene.accel)
+    if accel == "hybrid":
+        assert type(new_t.accel.closest) is t_grid.GridAccel
+        assert type(new_t.accel.anyhit) is t_bt.BVHTiled
     assert_scenes_equal(t_scene, mt.convert.scene_from_arrays(*old, "cpu"))
-    assert not torch.equal(new_t.accel.tris, t_scene.accel.tris)
+    assert not torch.equal(accel_geometry(new_t.accel),
+                           accel_geometry(t_scene.accel))
 
 
 def test_vertex_update_area_tables_like_jax():

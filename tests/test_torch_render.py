@@ -33,8 +33,9 @@ def renders():
     return np.asarray(img), float(rays), scene
 
 
-def test_small_terrain_render_matches_jax(renders):
+def test_small_terrain_render_matches_jax(renders, monkeypatch):
     img_j, rays_j, _ = renders
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
     scene = mt.load_dict(chip_smoke.small_terrain_dict(mt.ScalarTransform4f),
                          device="cpu")
     img_t, rays_t = mt.render_with_stats(scene, seed=SEED, spp=SPP)
@@ -137,10 +138,11 @@ def test_vertical_wall_normals_match_exact_arithmetic():
     assert np.abs(z_jit[vertical]).max() < 1e-7
 
 
-def test_pass_split_render_is_deterministic():
+def test_pass_split_render_is_deterministic(monkeypatch):
     """Capping the wavefront splits the render into passes; each pass
     seeds its own streams, so the split render is reproducible and
     estimates the same image."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
     d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f, width=12)
     scene = mt.load_dict(d, device="cpu")
     one, _ = mt.render_with_stats(scene, seed=1, spp=4)
@@ -154,6 +156,7 @@ def test_pass_split_render_is_deterministic():
 
 def test_load_dict_needs_a_card_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
     d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mt.load_dict(d)
@@ -190,11 +193,12 @@ UNPORTED = {
         "type": "linearcurve", "radius": 0.02,
         "control_points": [[0, 0, 0, 0.01], [0, 0, 1, 0.01]]}),
         r"linearcurve properties \['radius'\]"),
-    # a spectral SPD emitter (ROADMAP item 7)
+    # a spectral SPD emitter in the spectral variant (ROADMAP item 7b;
+    # in the RGB variant it is projected to RGB at load)
     "emitter": (_with(BASE, lamp={"type": "rectangle", "emitter": {
         "type": "area", "radiance": {"type": "blackbody",
                                      "temperature": 3000.0}}}),
-        "'blackbody'"),
+        "the spectral variant", {"spectral": True}),
     "integrator": (_with(BASE, integrator={"type": "stokes"}), "'stokes'"),
     "specfilm": (_sensor(BASE, film={"type": "specfilm", "width": 8,
                                      "height": 8}), "'specfilm'"),
@@ -221,9 +225,9 @@ UNPORTED = {
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_plugins_raise(case):
-    d, name = UNPORTED[case]
+    d, name, *kw = UNPORTED[case]
     with pytest.raises(NotImplementedError, match=name):
-        mt.load_dict(d, device="cpu")
+        mt.load_dict(d, device="cpu", **(kw[0] if kw else {}))
 
 
 @pytest.mark.parametrize("side", [20, int(np.sqrt(65536 / 2)) + 1])

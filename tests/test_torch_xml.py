@@ -331,8 +331,11 @@ def test_load_file_device_rule_and_refusals(tmp_path, monkeypatch):
             ('<rfilter type="gaussian"/>',
              '<rfilter type="gaussian"><float name="stddev" value="0.3"/>'
              '</rfilter>', "rfilter parameters"),
-            ('<rgb name="reflectance" value="0.885809, 0.698859, 0.666422"/>',
-             '<spectrum name="reflectance" value="400:0.2, 700:0.8"/>',
+            # a sampled spectrum where a scalar is read
+            ('<bsdf type="diffuse" id="white"><rgb name="reflectance" '
+             'value="0.885809, 0.698859, 0.666422"/>',
+             '<bsdf type="principled" id="white"><spectrum '
+             'name="roughness" value="400:0.2, 700:0.8"/>',
              "'irregular'"),
             ('<sampler type="independent">',
              '<sampler type="independent"><integer name="seed" value="3"/>',
