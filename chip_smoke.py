@@ -82,13 +82,13 @@ Phases:
    width, and checked to launch every kernel of its module; per bvh2
    query K8's device ms (its launches recorded and replayed in that
    process);
-13. materials (after phase 7): the Cornell step of phase 6 again at 16
+13. materials (after phase 7): the Cornell step of phase 6 again at 8
    spp with tests/test_regression.py's cornell_glossy BSDFs
    (glossy_cornell_dict: a gold roughconductor, a plastic box), the
    roughconductor's alpha
    gradients nonzero; the every-BSDF Cornell
    (every_bsdf_dict: every BSDF type the port loads) rendered by `path`
-   at 512^2, 8 spp, max_depth 8, and its PRB step at 128^2, 16 spp; K1
+   at 512^2, 8 spp, max_depth 8, and its PRB step at 128^2, 8 spp; K1
    against its plain version on one full-width round of terrain64k
    bounce rays off a roughplastic (GGX, alpha 0.3) terrain; that glossy
    terrain64k rendered through cellserve (K1 launches and device ms per
@@ -110,7 +110,7 @@ Phases:
    checkerboard wall, a normalmap from a PNG around a roughplastic with a
    PNG reflectance and a mask with a PFM opacity, as an XML file whose
    ``load_file`` scene must equal ``load_dict``'s, its PRB step (512^2,
-   16 spp, max_depth 8) with every texture's gradient finite and nonzero,
+   8 spp, max_depth 8) with every texture's gradient finite and nonzero,
    a profiled pass and a 32^2 render on the card against the CPU; then
    terrain64k with a mipmapped 2048^2 EXR reflectance and an envmap from
    a 2048x1024 RGBE file: a 512^2, 4 spp render through K1 (K1 launched
@@ -119,7 +119,7 @@ Phases:
    card against the CPU;
 16. media (after the textures): the fog Cornell (tests/test_regression.py's
    fog cube, homogeneous sigma_t 0.4, albedo 0.7, in bench.py's Cornell
-   box) at 512^2, 16 spp, max_depth 6 under prbvolpath: a PRB step
+   box) at 512^2, 8 spp, max_depth 6 under prbvolpath: a PRB step
    (Mrays/s with its bwd_ratio, peak memory, gradients of the medium
    rows, BSDF rows and emitter radiance finite, sigma_t and albedo
    nonzero) and a profiled pass; interior120k with the camera in a
@@ -154,13 +154,13 @@ Phases:
    faces) in hair of eumelanin 1.3, `path` at 512^2, 4 spp, max_depth 8
    through cellserve (K1 closest and any-hit launches counted from zero,
    device ms and bound by CUDA events, a profiled render), and in hair of
-   a sigma_a its PRB step at 256^2 (sigma_a gradient finite and
+   a sigma_a its PRB step at 128^2 (sigma_a gradient finite and
    nonzero); principled terrain64k with the textured terrain's EXR as its
    base_color through K1 (both modes) and its PRB step (metallic,
    roughness, clearcoat and texture gradients nonzero); the materials
    Cornell (principled, principledthin, two measured tables read from
    .bsdf files through load_file of an XML scene, a half_diffuse
-   registered in torch) at 512^2, 16 spp and its PRB step at 4 spp; the
+   registered in torch) at 512^2, 8 spp and its PRB step at 4 spp; the
    Cornell, a principled small terrain and a tessellated bsplinecurve
    hair scene on the card against the CPU at 32^2. Run it alone with
    ``python3 chip_smoke.py --phase materials``;
@@ -171,7 +171,7 @@ Phases:
    step; an instanced field (prototype R, make_terrain(129) with its own
    cellserve, in 64 instances on an 8 x 8 grid; prototype G, a cube and a
    sphere, 3,980 faces on the dense test, in 256), `path` and its PRB
-   step at 256^2; a seeded 128^3 SDF blob on terrain64k, `path` and the
+   step at 128^2; a seeded 128^3 SDF blob on terrain64k, `path` and the
    grid's gradient at 128^2 by plain autograd; a merge of a ground and an
    ellipsoidsmesh of 2,048 ellipsoids (163,840 faces), `path`; per scene
    K1's launches in both modes from zero and its device ms and bound by
@@ -183,7 +183,7 @@ Phases:
    against its plain version on the instanced field's prototype-R query
    of the first instance round. Run it alone with ``python3 chip_smoke.py
    --phase shapes``;
-20. accels and spectra (after the shapes): terrain64k (512^2, 4 spp)
+20. accels (after the shapes): terrain64k (512^2, 4 spp)
    through ``MI3T_ACCEL=xla`` (the stackless BVH), ``grid`` (the DDA
    grid) and a HybridAccel (the grid's closest hits, bvh_tiled's any-hit
    through K4, whose launches and device ms must be above 0): per render
@@ -194,13 +194,24 @@ Phases:
    through xla and grid; the small terrain on the card against the CPU
    through each of the four; ``update()`` after a vertex edit of
    terrain64k under xla, grid and the hybrid (the rebuild's seconds, the
-   accel's type kept, a finite render); the Cornell box with a 6500 K
-   blackbody light and regular and irregular walls by `path` at 512^2,
-   16 spp, and it and an XML Cornell with a ``<spectrum value="...">``
-   wall (``load_string``) on the card against the CPU at 32^2. Run it
-   alone with ``python3 chip_smoke.py --phase accels``;
-21. JSON lines of render, query, PRB, material, interior, loop, scene-file,
-   texture, media, integrator, slice-material, shape, accel and
+   accel's type kept, a finite render); the hybrid's K4 any-hit launches
+   metered in an untimed rerun (_K4Meter: their summed bound, tests
+   counted by K4's own cull). Run it alone with ``python3
+   chip_smoke.py --phase accels``;
+21. the spectral variant (``phase_spectral``): terrain64k at
+   512^2, 4 spp through cellserve (K1 launches counted and timed, K1 held
+   bit-equal to its plain version on the render's largest launch of each
+   mode: the ``.spectral`` rows), its luminance against the RGB render's;
+   the spectral Cornell's PRB step at 512^2, 16 spp (primal = path
+   image), the dispersive glass box and a 4-channel specfilm; a few
+   RayDataLoader / render_batch steps; and on the card against the CPU at
+   32^2: the spectral Cornell by load_dict and by load_string after
+   set_variant, the glass box (GLASS_LIFT above the floor, max_depth 8;
+   on the floor, bounce by bounce), the specfilm, the small terrain, and
+   the RGB-projected spectral Cornell (dict and XML). Run it alone
+   with ``python3 chip_smoke.py --phase spectral``;
+22. JSON lines of render, query, PRB, material, interior, loop, scene-file,
+   texture, media, integrator, slice-material, shape, accel, spectral and
    per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check ends
@@ -1105,6 +1116,38 @@ def _k1_bytes(tris, n_pad: int, n_sub: int, want_uv: bool):
         + n_sub * 8
 
 
+def _k1_row(card: str, tag: str, mode: str, tris, rays, r0, nr,
+            n_pairs: int, **extra):
+    """K1 in `mode` on one launch's inputs (the slab table, the pair rays,
+    the sub-blocks' windows) held bit-equal to its plain version, BIG (no
+    hit) on the same pairs, and timed against it: the kernels row named
+    ``cellserve_serve.{mode}{tag}``, with `extra` in it."""
+    from mitsuba3_tpu_torch.ops import cellserve as cs
+    want_uv = mode == "closest"
+    kout = cs.serve_blocks(tris, rays, r0, nr, want_uv)
+    pout = cs.serve_blocks_plain(tris, rays, r0, nr, want_uv)
+    # the comparison call above is the plain version's warm-up
+    p_ms = _cuda_ms(lambda: cs.serve_blocks_plain(tris, rays, r0, nr,
+                                                  want_uv), 2, warm=False)
+    (kt, kp, _, _), (pt, pp, _, _) = kout, pout
+    big_k, big_p = kt >= cs.BIG, pt >= cs.BIG
+    _check(bool((big_k == big_p).all()),
+           f"K1 {mode}{tag}: BIG (no hit) differs on "
+           f"{int((big_k != big_p).sum())} pairs")
+    err, _ = _hold_t(f"K1 {mode}{tag}", kt, pt, ~big_p,
+                     *((kp, pp) if want_uv else ()))
+    _hold_equal(f"K1 {mode}{tag}", kout, pout,
+                ("t", "prim", "u", "v") if want_uv else ("t",))
+    k_ms = _cuda_ms(lambda: cs.serve_blocks(tris, rays, r0, nr, want_uv), 20)
+    tests = int(_k1_tests(tris, r0, nr, n_pairs))
+    return _row(
+        f"cellserve_serve.{mode}{tag}", "K1", "cellserve_serve.cu",
+        "mitsuba3_tpu/ops/cellserve.py:348", mode, err, k_ms, p_ms,
+        tests * OPS_PER_TEST, _k1_bytes(tris, rays.shape[1], r0.shape[0],
+                                        want_uv), card,
+        pairs=n_pairs, tests=tests, sub_blocks=int(r0.shape[0]), **extra)
+
+
 def phase_kernels(mi, card: str, make_dict=None, tag: str = "",
                   rays_of=None, accel_of=None):
     """K1 against its plain version on one full-width round (the primary
@@ -1128,36 +1171,13 @@ def phase_kernels(mi, card: str, make_dict=None, tag: str = "",
     n_pairs = pair.shape[0]
     n_sub = r0.shape[0]
     sum_nr = int(nr.sum())
-    tests = int(_k1_tests(acc.tris, r0, nr, n_pairs))
     print(f"# kernels{tag}: {n} lanes, {n_pairs} pairs, {n_sub} sub-blocks, "
           f"sum(nr) = {sum_nr} rows, slab table {acc.tris.shape[0]} rows "
           f"({acc.tris.numel() * 4 / 1e6:.1f} MB), res {acc.res}")
 
-    rows = []
-    for want_uv, mode in ((True, "closest"), (False, "anyhit")):
-        kout = cs.serve_blocks(acc.tris, rays, r0, nr, want_uv)
-        pout = cs.serve_blocks_plain(acc.tris, rays, r0, nr, want_uv)
-        # the comparison call above is the plain version's warm-up
-        p_ms = _cuda_ms(lambda: cs.serve_blocks_plain(acc.tris, rays, r0,
-                                                      nr, want_uv), 2,
-                        warm=False)
-        (kt, kp, _, _), (pt, pp, _, _) = kout, pout
-        big_k, big_p = kt >= cs.BIG, pt >= cs.BIG
-        _check(bool((big_k == big_p).all()),
-               f"K1 {mode}{tag}: BIG (no hit) differs on "
-               f"{int((big_k != big_p).sum())} pairs")
-        err, _ = _hold_t(f"K1 {mode}{tag}", kt, pt, ~big_p,
-                         *((kp, pp) if want_uv else ()))
-        _hold_equal(f"K1 {mode}{tag}", kout, pout,
-                    ("t", "prim", "u", "v") if want_uv else ("t",))
-        k_ms = _cuda_ms(lambda: cs.serve_blocks(acc.tris, rays, r0, nr,
-                                                want_uv), 20)
-        rows.append(_row(
-            f"cellserve_serve.{mode}{tag}", "K1", "cellserve_serve.cu",
-            "mitsuba3_tpu/ops/cellserve.py:348", mode, err, k_ms, p_ms,
-            tests * OPS_PER_TEST,
-            _k1_bytes(acc.tris, rays.shape[1], n_sub, want_uv), card,
-            accel="cells" + tag, sum_nr=sum_nr, pairs=n_pairs, tests=tests))
+    rows = [_k1_row(card, tag, mode, acc.tris, rays, r0, nr, n_pairs,
+                    accel="cells" + tag, sum_nr=sum_nr)
+            for mode in ("closest", "anyhit")]
     del scene
     torch.cuda.empty_cache()
     return rows
@@ -1169,7 +1189,13 @@ class _K1Meter:
     counted (``_k1_tests``, on the device; read after the run), and each
     query (``_trace``) records how many rounds, K1 launches, it took.
     ``summary()`` gives per mode the launches, device ms and bound ms,
-    and the queries' rounds."""
+    and the queries' rounds. With `keep_largest`, ``largest[mode]`` holds
+    the inputs (tris, rays, r0, nr, pairs) of the mode's launch with the
+    most sub-blocks, for _k1_row."""
+
+    def __init__(self, keep_largest: bool = False):
+        self.keep_largest = keep_largest
+        self.largest = {}
 
     def __enter__(self):
         import torch
@@ -1187,12 +1213,17 @@ class _K1Meter:
         def serve_blocks(tris, rays, r0, nr, want_uv):
             if r0.shape[0] == 0:      # no sub-block: no launch
                 return real_serve(tris, rays, r0, nr, want_uv)
+            mode = "closest" if want_uv else "anyhit"
+            if self.keep_largest and (
+                    mode not in self.largest
+                    or r0.shape[0] > self.largest[mode][2].shape[0]):
+                self.largest[mode] = (tris, rays, r0, nr, last["pairs"])
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = real_serve(tris, rays, r0, nr, want_uv)
             ev[1].record()
             self.launches.append((
-                "closest" if want_uv else "anyhit", ev,
+                mode, ev,
                 _k1_tests(tris, r0, nr, last["pairs"]),
                 _k1_bytes(tris, rays.shape[1], r0.shape[0], want_uv)))
             return out
@@ -1229,6 +1260,62 @@ class _K1Meter:
                 "rounds_per_query": len(runs) / max(len(rounds), 1),
                 "max_rounds": max(rounds, default=0)}
         return out
+
+
+class _K4Meter:
+    """Inside ``with``, every K4 launch (``bvh_tiled.run_round``) is counted
+    per mode with the ray-triangle tests its data needs, by K4's own cull:
+    the plain version runs first on the launch's inputs with ``stats``
+    (a slot is taken only while its entry is at or below the tile's worst
+    t, and in any-hit mode a ray stops at its first hit), K4_METER_TILES
+    tiles a step; and its bytes (the slab table, the slots, the rays in
+    and out). It doubles a render's work: meter a render that is not
+    timed. ``summary()`` gives per mode the launches, the tests and the
+    summed bound ms."""
+
+    def __init__(self):
+        self.launches = []
+
+    def __enter__(self):
+        from mitsuba3_tpu_torch.ops import bvh_tiled as bt
+        self.bt = bt
+        self.saved = bt.run_round, bt.PLAIN_TILES
+        real = self.saved[0]
+
+        def run_round(leaf_ids, entries, tris, o3, d3, t, prim, u, v,
+                      closest):
+            args = (leaf_ids, entries, tris, o3, d3, t, prim, u, v)
+            if leaf_ids.shape[0] == 0:      # no tile: no launch
+                return real(*args, closest)
+            work = {}
+            bt.run_round_plain(*args, closest, stats=work)
+            nbytes = (tris.numel() * 4 + leaf_ids.numel() * 8
+                      + t.shape[0] * (24 + 16 + (16 if closest else 8)))
+            self.launches.append(("closest" if closest else "anyhit",
+                                  work.get("tests", 0), nbytes))
+            return real(*args, closest)
+
+        bt.run_round, bt.PLAIN_TILES = run_round, K4_METER_TILES
+        return self
+
+    def __exit__(self, *exc):
+        self.bt.run_round, self.bt.PLAIN_TILES = self.saved
+
+    def summary(self):
+        out = {}
+        for mode in ("closest", "anyhit"):
+            runs = [r for r in self.launches if r[0] == mode]
+            out[mode] = {
+                "launches": len(runs),
+                "tests": sum(r[1] for r in runs),
+                "bound_ms": sum(_bound(r[1] * OPS_PER_TEST, r[2])[0]
+                                for r in runs)}
+        return out
+
+
+# tiles a step of the K4 meter's plain version: [256, 128, 1024] f32
+# temporaries of 128 MiB (bvh_tiled.PLAIN_TILES is 16)
+K4_METER_TILES = 256
 
 
 @contextlib.contextmanager
@@ -2149,7 +2236,7 @@ def phase_agreement(mi, accel: str):
 # ---------------------------------------------------------------------------
 
 CORNELL_SPP = 64
-GLOSSY_CORNELL_SPP = 16     # not 64: the script keeps to its time limit
+GLOSSY_CORNELL_SPP = 8      # not 64: the script keeps to its time limit
 TERRAIN_PRB_SPP = 4
 
 
@@ -2160,13 +2247,13 @@ def _prb_dict(d):
 
 def _grad_step(scene, names, seed: int, spp: int, passes=None, between=None):
     """bench.py's grad_step on the port: per pass, the image loss
-    mean((develop(pass image) - 0)^2) differentiated by PRB w.r.t. the θ
+    mean((develop(pass image) - 0)^2) (sRGB in the spectral variant)
+    differentiated by PRB w.r.t. the θ
     tables `names`; gradients add up over passes. `passes` limits the
     passes run (all by default); `between(stage)` is called after each
     pass's forward ("fwd") and backward ("bwd"). Returns (last loss, rays
     of the forward passes, {name: gradient}, passes run)."""
     import torch
-    from mitsuba3_tpu_torch.render import film as film_mod
     from mitsuba3_tpu_torch.render import integrator as ri
 
     def leaf(v):
@@ -2186,7 +2273,7 @@ def _grad_step(scene, names, seed: int, spp: int, passes=None, between=None):
             spp_total=spp, base_seed=seed)
         if between is not None:
             between("fwd")
-        loss = torch.mean(film_mod.develop(img_i, wgt_i) ** 2)
+        loss = torch.mean(ri.develop(scene, img_i, wgt_i) ** 2)
         grads = torch.autograd.grad(loss, flat)
         if between is not None:
             between("bwd")
@@ -2325,7 +2412,7 @@ def phase_cornell_prb(mi, card: str, make=None, tag: str = "cornell",
 
 EVERY_BSDF_PATH_SPP = 8
 EVERY_BSDF_PRB_SIDE = 128
-EVERY_BSDF_PRB_SPP = 16
+EVERY_BSDF_PRB_SPP = 8       # the script keeps to its time limit
 
 
 def phase_every_bsdf(mi, card: str):
@@ -3039,7 +3126,7 @@ def phase_scene_files(mi, card: str):
     return out
 
 
-TEXTURED_PRB_SPP = 16
+TEXTURED_PRB_SPP = 8         # the script keeps to its time limit
 
 
 def _check_texture_grads(tag, grads, n_textures: int):
@@ -3214,7 +3301,7 @@ def phase_textures(mi, card: str):
     return out
 
 
-MEDIA_FOG_SPP = 16          # the fog Cornell's PRB step, 512^2
+MEDIA_FOG_SPP = 8           # the fog Cornell's PRB step, 512^2
 MEDIA_SMOKE_SIDE = 256      # the smoke's density grid, side^3
 MEDIA_SMOKE_SPP = 4
 MEDIA_CHECK_SIDE = 32       # card against CPU
@@ -3948,14 +4035,14 @@ def phase_integrators(mi, card: str):
 # ---------------------------------------------------------------------------
 
 MEASURED_RES = 64            # the measured tables' warp side
-MAT_CORNELL_SPP = 16         # the materials Cornell's path render, 512^2
+MAT_CORNELL_SPP = 8          # the materials Cornell's path render, 512^2
 MAT_PRB_SPP = 4
 MAT_CHECK_SIDE = 32          # card against CPU
 HAIR_STRANDS = 1024
 HAIR_POINTS = 17             # 16 segments a strand
 HAIR_RADIUS = 0.004
 HAIR_SIDES = 6
-HAIR_PRB_SIDE = 256
+HAIR_PRB_SIDE = 128          # the script keeps to its time limit
 PRINCIPLED_TERRAIN_BSDF = {"type": "principled", "metallic": 0.4,
                            "roughness": 0.35, "anisotropic": 0.3,
                            "clearcoat": 0.6, "sheen": 0.3}
@@ -4490,7 +4577,8 @@ FIELD_SCATTER = 256            # prototype G (a cube and a sphere)
 SDF_SIDE = 128                 # the blob's grid, side^3 (8 MiB)
 CLOUD_SIZE = 2048              # ellipsoids: 80 faces each
 SHAPES_CHECK_SIDE = 32         # card against CPU
-FIELD_PRB_SIDE = 256           # the instanced field's PRB step (28 s at 512)
+FIELD_PRB_SIDE = 128           # the instanced field's PRB step (28 s at
+#                                512, 14.5 s at 256)
 
 
 def terrain_mesh(side: int, scale: float = 1.0, seed: int = 0):
@@ -5049,6 +5137,52 @@ def spectral_cornell_dict(mi, width: int, height: int, max_depth: int = 8):
     return d
 
 
+# the spectral variant normalizes a blackbody's SPD to a peak of 1 (the
+# RGB projection keeps Planck's radiance): this scale gives the light about
+# the RGB box's luminance
+SPECTRAL_VARIANT_LIGHT = {"type": "blackbody", "temperature": 6500.0,
+                          "scale": 14.0}
+SPECTRAL_FLOOR = {"type": "uniform", "value": 0.6}
+DISPERSIVE_GLASS = {"type": "dielectric", "int_ior": 1.5168,
+                    "dispersion": 0.00420}     # BK7's Cauchy B [um^2]
+SPECFILM_SRFS = {
+    "c_blue": {"type": "regular", "lambda_min": 400.0, "lambda_max": 520.0,
+               "values": [0.2, 1.0, 0.4, 0.0]},
+    "c_flat": {"type": "uniform", "value": 0.5},
+    "c_red": {"type": "irregular", "value": "560:0.0, 620:1.0, 700:0.3"},
+    "c_warm": {"type": "blackbody", "temperature": 3000.0}}
+
+
+# on the floor (0), the glass box's bottom face and the floor coincide:
+# which of the two a ray inside the box hits is an ulp of the ray, and the
+# card's camera rays are an ulp off the CPU's on ~40 % of lanes
+# (tests/test_torch_coincident_faces.py)
+GLASS_LIFT = 1e-3
+
+
+def spectral_variant_cornell_dict(mi, width: int, height: int,
+                                  max_depth: int = 8, extra=None,
+                                  glass_lift: float = GLASS_LIFT):
+    """The spectral Cornell for the spectral variant: spectral_cornell_dict
+    with its light a 6500 K blackbody of SPECTRAL_VARIANT_LIGHT's scale and
+    the floor a uniform reflectance. `extra`: "glass" makes the small box a
+    dispersive dielectric (DISPERSIVE_GLASS) standing `glass_lift` above
+    the floor, "specfilm" gives the sensor a specfilm of the four response
+    functions SPECFILM_SRFS."""
+    d = spectral_cornell_dict(mi, width, height, max_depth)
+    d["light"]["emitter"]["radiance"] = dict(SPECTRAL_VARIANT_LIGHT)
+    d["floor"]["bsdf"] = {"type": "diffuse",
+                          "reflectance": dict(SPECTRAL_FLOOR)}
+    if extra == "glass":
+        d["small-box"]["bsdf"] = dict(DISPERSIVE_GLASS)
+        d["small-box"]["to_world"] = mi.ScalarTransform4f().translate(
+            [0.0, glass_lift, 0.0]) @ d["small-box"]["to_world"]
+    elif extra == "specfilm":
+        d["sensor"]["film"] = {**d["sensor"]["film"], "type": "specfilm",
+                               **SPECFILM_SRFS}
+    return d
+
+
 def spectral_cornell_xml(width: int, height: int, max_depth: int = 8,
                          spp: int = 16) -> str:
     """The Cornell box as XML source for ``load_string``: rectangle walls,
@@ -5156,12 +5290,20 @@ def _accel_render(mi, card: str, tag: str, scene, build_s: float, spp: int,
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     steps = _steps_per_query()
+    launched = dict(bvh_tiled.LAUNCHES)
+    meter = _K4Meter()
+    if any(launched.values()):
+        # the same render again, metered: the bound of the timed one's
+        # launches
+        with meter:
+            mi.render_with_stats(scene, seed=1, spp=spp,
+                                 max_wavefront=1 << 20)
     _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
            f"{tag}: image not finite or black")
     out = {"rays": rays, "wall_s": wall, "mrays_per_s": rays / wall / 1e6,
            "build_s": build_s, "peak_bytes": peak,
            "mean": float(img.mean()), "steps": steps,
-           "k4_launches": dict(bvh_tiled.LAUNCHES)}
+           "k4_launches": launched, "k4": meter.summary()}
     line = (f"# accels {tag}: {rays} rays in {wall:.3f} s = "
             f"{rays / wall / 1e6:.3f} Mrays/s, build {build_s:.2f} s, peak "
             f"{peak / 2**30:.2f} GiB, mean {float(img.mean()):.6f}, steps a "
@@ -5218,9 +5360,15 @@ def _accels_terrain(mi, card: str, scenes: dict):
             _check(prof["K4 any-hit"]["launches"] > 0
                    and prof["K4 any-hit"]["device_ms"] > 0,
                    f"hybrid: the profiled render saw no K4 any-hit: {prof}")
+            k4m = out[kind]["k4"]["anyhit"]
+            _check(k4m["launches"] == n["anyhit"],
+                   f"hybrid: K4 meter {k4m} disagrees with {n}")
             print(f"# accels hybrid K4 any-hit: {n['anyhit']} launches, "
                   f"{prof['K4 any-hit']['device_ms']:.2f} device ms in a "
-                  f"profiled render [{card}]")
+                  f"profiled render, bound {k4m['bound_ms']:.4f} ms summed "
+                  f"over the timed render's launches ({k4m['tests']} "
+                  f"ray-triangle tests by K4's cull, counted in a rerun) "
+                  f"[{card}]")
         scenes[kind] = scene
     side = NONE_SIDE
     small = dict(d, sensor=dict(d["sensor"], film={"width": side,
@@ -5315,63 +5463,353 @@ def _at_side(scene, side: int):
         full_height=side))
 
 
-def _accels_spectra(mi, card: str):
-    """The spectral Cornell (spectral_cornell_dict: a 6500 K blackbody
-    light, a regular and an irregular wall; dense) by `path` at 512^2,
-    SPECTRAL_SPP spp after a one-pass warm-up; then it and the XML Cornell
-    through load_string (spectral_cornell_xml) on the card against the
-    CPU at ACCELS_CHECK_SIDE^2."""
+SPECTRAL_CHECK_SIDE = 32      # card against CPU
+SPECTRAL_LOADER_SIDE = 128    # the ray loader's reference image
+SPECTRAL_LOADER_BATCH = 16384
+SPECTRAL_LOADER_STEPS = 4
+
+
+def _spectral_terrain(mi, card: str):
+    """terrain64k (bench.py's 512^2, 4 spp, path max_depth 4) in the
+    spectral variant through cellserve: a warm-up, one timed render with
+    K1's launches counted from zero and timed by CUDA events (_K1Meter),
+    the largest launch of each mode kept for the K1 rows; its luminance
+    against the RGB render's of the same seed. Returns (numbers, K1
+    launches, K1 rows)."""
     import torch
+    from mitsuba3_tpu_torch.core import spectrum
+    from mitsuba3_tpu_torch.ops import cellserve as cs
+
+    d = terrain64k_dict(mi.ScalarTransform4f)
+    with _accel("cells"):
+        scene = mi.load_dict(d, spectral=True)
+        rgb = mi.load_dict(d)
+    _check(scene.spectral and isinstance(scene.accel, cs.CellServe),
+           "spectral terrain64k: not spectral or not cellserve")
+    mi.render_with_stats(scene, seed=0, spp=4, max_wavefront=1 << 20)
+    torch.cuda.synchronize()
+    for k in cs.LAUNCHES:
+        cs.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _K1Meter(keep_largest=True) as meter:
+        t0 = time.perf_counter()
+        img, rays = mi.render_with_stats(scene, seed=1, spp=4,
+                                         max_wavefront=1 << 20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(cs.LAUNCHES)
+    k1 = meter.summary()
+    peak = torch.cuda.max_memory_allocated()
+    _check(launches["closest"] > 0 and launches["anyhit"] > 0,
+           f"spectral terrain64k: K1 not launched in both modes: {launches}")
+    _check(all(k1[m]["launches"] == launches[m] for m in launches),
+           f"spectral terrain64k: K1 meter {k1} disagrees with {launches}")
+    _check(tuple(img.shape) == (512, 512, 3)
+           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+           "spectral terrain64k: image misshaped, not finite or black")
+    img_rgb = mi.render(rgb, seed=1, spp=4, max_wavefront=1 << 20)
+    lum = float(spectrum.luminance(img).mean())
+    lum_rgb = float(spectrum.luminance(img_rgb).mean())
+    mrays = rays / wall / 1e6
+    print(f"# spectral terrain64k 512x512 4spp path, cellserve: {rays} rays "
+          f"in {wall:.3f} s = {mrays:.3f} Mrays/s, peak "
+          f"{peak / 2**30:.2f} GiB, luminance {lum:.6f} against the RGB "
+          f"render's {lum_rgb:.6f} ({lum / lum_rgb - 1:+.4f}) [{card}]")
+    for mode, v in k1.items():
+        print(f"# spectral terrain64k K1 {mode}: {v['launches']} launches, "
+              f"{v['device_ms']:.2f} device ms, bound {v['bound_ms']:.3f} ms"
+              f" summed over them [{card}]")
+    out = {"scene": "terrain64k 512x512 4spp, path max_depth 4, spectral, "
+                    "cellserve", "rays": rays, "wall_s": wall,
+           "mrays_per_s": mrays, "peak_bytes": peak, "luminance": lum,
+           "luminance_rgb": lum_rgb, "k1": k1, "k1_launches": launches}
+    del scene, rgb, img, img_rgb
+    rows = [_k1_row(card, ".spectral", mode, *meter.largest[mode],
+                    accel="cells.spectral") for mode in ("closest", "anyhit")]
+    del meter
+    torch.cuda.empty_cache()
+    return out, launches, rows
+
+
+def _spectral_cornell(mi, card: str):
+    """spectral_variant_cornell_dict at 512^2, max_depth 8 in the spectral
+    variant: a prb grad_step at SPECTRAL_SPP spp after a one-pass warm-up
+    (Mrays/s x (1 + bwd_ratio); gradients finite, the white walls' row
+    nonzero), its primal against the path render at 128^2 (equal); then
+    the dispersive glass box and the 4-channel specfilm, path, 512^2,
+    SPECTRAL_SPP spp each."""
+    import torch
+    from mitsuba3_tpu_torch.integrators import config_from_dict
     from mitsuba3_tpu_torch.render import integrator as ri
-    scene = mi.load_dict(spectral_cornell_dict(mi, 512, 512, 8))
-    light = scene.em_radiance[0].tolist()
-    print(f"# accels spectra: blackbody 6500 K x {SPECTRAL_LIGHT['scale']} "
-          f"-> RGB {light}; red wall {scene.bsdf_params[2, :3].tolist()}, "
-          f"green wall {scene.bsdf_params[1, :3].tolist()}")
-    sppc, n_passes = ri.plan_passes(scene, SPECTRAL_SPP)
-    mi.render_with_stats(scene, seed=0, spp=sppc)           # warm-up
+
+    names = ("bsdf_params", "em_radiance", "textures", "env_data")
+    scene = mi.load_dict(_prb_dict(spectral_variant_cornell_dict(
+        mi, 512, 512, 8)), spectral=True)
+    n_fwd, n_bwd = _bwd_ratio(scene)
+    _check(n_fwd == n_bwd, f"spectral replay issued {n_bwd} rays, primal "
+           f"{n_fwd}")
+    bwd_ratio = n_bwd / max(n_fwd, 1)
+    _grad_step(scene, names, 0, SPECTRAL_SPP, passes=1)     # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img, rays = mi.render_with_stats(scene, seed=1, spp=SPECTRAL_SPP)
+    loss, rays, grads, n_passes = _grad_step(scene, names, 1, SPECTRAL_SPP)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
-           "spectral cornell: image not finite or black")
-    print(f"# accels spectral cornell path 512x512 {SPECTRAL_SPP}spp: "
-          f"{rays} rays in {wall:.3f} s = {rays / wall / 1e6:.3f} Mrays/s "
-          f"in {n_passes} passes, mean {float(img.mean()):.6f} [{card}]")
-    out = {"light_rgb": light, "rays": rays, "wall_s": wall,
-           "mrays_per_s": rays / wall / 1e6, "mean": float(img.mean())}
-    side = ACCELS_CHECK_SIDE
-    d = spectral_cornell_dict(mi, side, side, 8)
-    xml = spectral_cornell_xml(side, side, 8, 16)
-    out["agreement_close"] = {
-        "load_dict": _agree_images(
-            f"spectral cornell ({side}x{side}, 16 spp)",
-            mi.render(mi.load_dict(d), seed=5, spp=16).cpu().numpy(),
-            mi.render(mi.load_dict(d, device="cpu"), seed=5,
-                      spp=16).numpy()),
-        "load_string": _agree_images(
-            f"spectral cornell XML ({side}x{side}, 16 spp)",
-            mi.render(mi.load_string(xml), seed=5).cpu().numpy(),
-            mi.render(mi.load_string(xml, device="cpu"), seed=5).numpy())}
+    _check_grads("spectral cornell prb", grads, ())
+    # slot 0 is "white" (RGB); the sampled walls' rows hold only their
+    # projection, which the spectral variant does not read
+    g_white = grads["bsdf_params"][0, :3]
+    _check(bool((g_white != 0).all()), f"spectral cornell prb: the white "
+           f"walls' gradient has a zero: {g_white.tolist()}")
+    mrays = (1.0 + bwd_ratio) * rays / wall / 1e6
+    print(f"# spectral cornell fwd+PRB bwd 512x512 {SPECTRAL_SPP}spp: {rays} "
+          f"forward rays, bwd_ratio {bwd_ratio:.6f}, step {wall:.3f} s in "
+          f"{n_passes} passes = {mrays:.3f} Mrays/s, loss {loss:.6g} "
+          f"[{card}]")
+    out = {"prb": {"forward_rays": rays, "bwd_ratio": bwd_ratio,
+                   "wall_s": wall, "passes": n_passes,
+                   "mrays_per_s": mrays, "loss": loss}}
+    small = _at_side(scene, 128)
+    img_prb = mi.render(small, seed=3, spp=SPECTRAL_SPP).detach()
+    img_path = mi.render(small.replace(integrator=config_from_dict(
+        {"type": "path", "max_depth": 8})), seed=3, spp=SPECTRAL_SPP)
+    err = float((img_prb - img_path).abs().max())
+    _check(err <= 1e-5, f"spectral cornell: the prb primal is not the path "
+           f"image (max |diff| {err})")
+    print(f"# spectral cornell 128x128: prb primal = path image (max |diff| "
+          f"{err:.3g})")
+    out["prb"]["primal_vs_path_max_abs"] = err
+    del scene, small, grads
+    torch.cuda.empty_cache()
+    for extra in ("glass", "specfilm"):
+        scene = mi.load_dict(spectral_variant_cornell_dict(
+            mi, 512, 512, 8, extra), spectral=True)
+        sppc, n_passes = ri.plan_passes(scene, SPECTRAL_SPP)
+        mi.render_with_stats(scene, seed=0, spp=sppc)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, rays = mi.render_with_stats(scene, seed=1, spp=SPECTRAL_SPP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nch = 4 if extra == "specfilm" else 3
+        _check(tuple(img.shape) == (512, 512, nch)
+               and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+               f"spectral {extra}: image misshaped, not finite or black")
+        means = img.mean(dim=(0, 1)).tolist()
+        print(f"# spectral cornell {extra} path 512x512 {SPECTRAL_SPP}spp: "
+              f"{rays} rays in {wall:.3f} s = {rays / wall / 1e6:.3f} "
+              f"Mrays/s in {n_passes} passes, channel means {means} "
+              f"[{card}]")
+        out[extra] = {"rays": rays, "wall_s": wall,
+                      "mrays_per_s": rays / wall / 1e6, "means": means}
+        del scene, img
+        torch.cuda.empty_cache()
     return out
 
 
+def _spectral_loader(mi, card: str):
+    """A few render_batch steps from a RayDataLoader: the reference is the
+    spectral Cornell's XYZ film at SPECTRAL_LOADER_SIDE^2; its BSDF rows
+    scaled by 0.6 and stepped by SGD on SPECTRAL_LOADER_BATCH-pixel
+    batches through prb; the error of a fixed batch must fall."""
+    import torch
+    from mitsuba3_tpu_torch.core import spectrum
+
+    side = SPECTRAL_LOADER_SIDE
+    scene = mi.load_dict(_prb_dict(spectral_variant_cornell_dict(
+        mi, side, side, 4)), spectral=True)
+    ref = spectrum.srgb_to_xyz(mi.render(scene, seed=0, spp=64).detach())
+    loader = mi.ad.RayDataLoader(ref.cpu().numpy(), SPECTRAL_LOADER_BATCH,
+                                 seed=1, device=scene.device)
+    fixed = next(loader)
+    rows = (scene.bsdf_params * 0.6).detach().requires_grad_(True)
+    opt = torch.optim.SGD([rows], lr=8.0)
+
+    def err(batch, seed):
+        img = mi.ad.render_batch(scene.replace(bsdf_params=rows), batch[0],
+                                 seed=seed, spp=4)
+        return torch.mean((img - batch[1]) ** 2)
+
+    with torch.no_grad():
+        errors = [float(err(fixed, 5))]
+    t0 = time.perf_counter()
+    for step in range(SPECTRAL_LOADER_STEPS):
+        opt.zero_grad()
+        err(next(loader), 10 + step).backward()
+        opt.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        errors.append(float(err(fixed, 5)))
+    _check(errors[1] < errors[0], f"ray loader: the error did not fall: "
+           f"{errors}")
+    print(f"# spectral ray loader: {SPECTRAL_LOADER_STEPS} render_batch "
+          f"steps of {SPECTRAL_LOADER_BATCH} pixels x 4 spp in {wall:.3f} "
+          f"s, fixed batch error {errors[0]:.6g} -> {errors[1]:.6g} "
+          f"[{card}]")
+    return {"steps": SPECTRAL_LOADER_STEPS, "wall_s": wall,
+            "errors": errors}
+
+
+def _leaves(obj, name: str = "") -> dict:
+    """Every tensor of `obj` (a record of tensors and records) by its
+    dotted field name."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return {name: obj}
+    out = {}
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            out.update(_leaves(getattr(obj, f.name), f"{name}.{f.name}"))
+    return out
+
+
+def _glass_on_the_floor(mi):
+    """The dispersive glass box standing on the floor (glass_lift 0) at
+    SPECTRAL_CHECK_SIDE^2, 16 spp, max_depth 8, in the spectral variant:
+    each bounce of ``path`` on the card and on the CPU from the same state
+    (the CPU's, moved to the card), every field compared: liveness, the
+    depth and the sampler equal, no value apart by more than 1e-3 (rtol
+    and atol), so one bounce on the card differs from the CPU's by ulps
+    alone. Rendered whole (from the card's camera rays and from the
+    CPU's), the box parts card vs CPU: its bottom face and the floor
+    coincide, and a ray inside hits the one or the other as an ulp
+    decides (GLASS_LIFT); printed, not held, with the camera directions'
+    lanes that differ. Returns those numbers."""
+    import torch
+    from mitsuba3_tpu_torch.integrators import path as path_mod
+    from mitsuba3_tpu_torch.render import integrator as ri
+    side = SPECTRAL_CHECK_SIDE
+    d = spectral_variant_cornell_dict(mi, side, side, 8, "glass",
+                                      glass_lift=0.0)
+    scene_c = mi.load_dict(d, device="cpu", spectral=True)
+    scene_g = mi.load_dict(d, spectral=True)
+    img_c = mi.render(scene_c, seed=5, spp=16).numpy()
+    close = {}
+    for rays in ("card's", "CPU's"):
+        with (_cpu_camera_rays(scene_c) if rays == "CPU's"
+              else contextlib.nullcontext()):
+            img_g = mi.render(scene_g, seed=5, spp=16).cpu().numpy()
+        close[rays] = float(np.isclose(img_g, img_c, rtol=1e-3,
+                                       atol=1e-3).mean())
+    rng, ray, _ = ri._gen_camera_rays(scene_c, ri.pass_seed(5, 0), 16, 0,
+                                      16)
+    ray_g = ri._gen_camera_rays(scene_g, ri.pass_seed(5, 0), 16, 0, 16)[1]
+    cam = [int((getattr(ray_g.d, c).cpu() != getattr(ray.d, c)).sum())
+           for c in "xyz"]
+    state = path_mod.init_state(scene_c, rng, ray, scene_c.integrator)
+    step_c = path_mod.make_bounce(scene_c, scene_c.integrator)
+    step_g = path_mod.make_bounce(scene_g, scene_g.integrator)
+    n = state.active.shape[0]
+    ulps = []
+    for depth in range(8):
+        out_c, _ = step_c(state)
+        out_g, _ = step_g(_to_device(state, scene_g.device))
+        fc, fg = _leaves(out_c), _leaves(_to_device(out_g, "cpu"))
+        differ = torch.zeros(n, dtype=torch.bool)
+        for name, a in fc.items():
+            b = fg[name]
+            if a.is_floating_point():
+                ok = torch.isclose(b, a, rtol=1e-3, atol=1e-3,
+                                   equal_nan=True)
+                _check(bool(ok.all()), f"glass on the floor, bounce "
+                       f"{depth}: {name} apart by more than 1e-3 on "
+                       f"{int((~ok).sum())} lanes")
+            else:
+                _check(torch.equal(a, b), f"glass on the floor, bounce "
+                       f"{depth}: {name} differs")
+            if a.shape[:1] == (n,):
+                differ |= (a != b).reshape(n, -1).any(dim=1)
+        ulps.append(int(differ.sum()))
+        state = out_c
+    print(f"# agreement spectral glass on the floor ({side}x{side}, 16 spp, "
+          f"max_depth 8): the card's camera directions differ from the "
+          f"CPU's on {cam} of {n} lanes (x, y, z); rendered whole "
+          + ", ".join(f"from the {k} camera rays {v:.5f}"
+                      for k, v in close.items())
+          + f" of values close (the coincident faces); bounce by bounce "
+          f"from one state, lanes an ulp apart {ulps}, none by more than "
+          f"1e-3")
+    return {"camera_lanes_differ": cam, "close_whole": close,
+            "ulp_lanes_per_bounce": ulps}
+
+
+def _spectral_agreement(mi):
+    """Card against CPU at SPECTRAL_CHECK_SIDE^2, 16 spp, in the spectral
+    variant: the spectral Cornell by load_dict and (set_variant) by
+    load_string, the dispersive box (GLASS_LIFT above the floor), the
+    specfilm and the small terrain (K1 on the card), and the box on the
+    floor bounce by bounce (_glass_on_the_floor); in RGB, the spectral
+    Cornell (spectra projected to RGB) by load_dict and load_string."""
+    side = SPECTRAL_CHECK_SIDE
+    out = {}
+
+    def pair(tag, load, **kw):
+        img_g = mi.render(load(None), seed=5, **kw).cpu().numpy()
+        out[tag] = _agree_images(
+            f"spectral {tag} ({img_g.shape[1]}x{img_g.shape[0]})", img_g,
+            mi.render(load("cpu"), seed=5, **kw).numpy())
+
+    for extra in (None, "glass", "specfilm"):
+        d = spectral_variant_cornell_dict(mi, side, side, 8, extra)
+        pair(extra or "cornell", lambda dev, d=d: mi.load_dict(
+            d, device=dev, spectral=True), spp=16)
+    xml = spectral_cornell_xml(side, side, 8, 16)
+    mi.set_variant("cuda_ad_spectral")
+    try:
+        pair("cornell XML", lambda dev: mi.load_string(xml, device=dev))
+    finally:
+        mi.set_variant("cuda_ad_rgb")
+    with _accel("cells"):
+        d = small_terrain_dict(mi.ScalarTransform4f)
+        pair("small terrain", lambda dev: mi.load_dict(d, device=dev,
+                                                      spectral=True), spp=4)
+    out["glass on the floor"] = _glass_on_the_floor(mi)
+    d = spectral_cornell_dict(mi, side, side, 8)
+    pair("RGB-projected cornell", lambda dev: mi.load_dict(d, device=dev),
+         spp=16)
+    pair("RGB-projected cornell XML", lambda dev: mi.load_string(
+        xml, device=dev))
+    return out
+
+
+def phase_spectral(mi, card: str):
+    """The spectral variant on the card (nothing falls back to the CPU):
+    terrain64k through cellserve (K1), the spectral Cornell's PRB step,
+    the dispersive box and the specfilm, the ray loader's steps, and the
+    card against the CPU. Returns (numbers, K1 launches of the terrain
+    render, K1 rows)."""
+    out, parts = {}, {}
+    t0 = time.perf_counter()
+    out["terrain64k"], launches, rows = _spectral_terrain(mi, card)
+    parts["terrain64k"] = time.perf_counter() - t0
+    for name, part in (("cornell", lambda: _spectral_cornell(mi, card)),
+                       ("loader", lambda: _spectral_loader(mi, card)),
+                       ("agreement", lambda: _spectral_agreement(mi))):
+        t0 = time.perf_counter()
+        out[name] = part()
+        parts[name] = time.perf_counter() - t0
+    for name, s_ in parts.items():
+        print(f"# spectral {name}: {s_:.1f} s")
+    out["part_s"] = parts
+    return out, launches, rows
+
+
 def phase_accels(mi, card: str):
-    """The other accels and spectra on the card (nothing falls back to the
-    CPU): terrain64k through bvh_xla, the grid and a HybridAccel (K4
-    any-hit) and the dense test; interior120k through bvh_xla and the
-    grid; the small terrain on the card against the CPU through each;
-    update() rebuilds of terrain64k under each; the spectral Cornell."""
+    """The other accels on the card (nothing falls back to the CPU):
+    terrain64k through bvh_xla, the grid and a HybridAccel (K4 any-hit)
+    and the dense test; interior120k through bvh_xla and the grid; the
+    small terrain on the card against the CPU through each; update()
+    rebuilds of terrain64k under each. (The spectra are
+    phase_spectral's.)"""
     scenes = {}
     out = {}
     for name, part in (
             ("terrain64k", lambda: _accels_terrain(mi, card, scenes)),
             ("interior120k", lambda: _accels_interior(mi, card)),
             ("agreement", lambda: _accels_agreement(mi)),
-            ("update", lambda: _accels_update(mi, card, scenes)),
-            ("spectra", lambda: _accels_spectra(mi, card))):
+            ("update", lambda: _accels_update(mi, card, scenes))):
         t0 = time.perf_counter()
         out[name] = part()
         print(f"# accels {name}: {time.perf_counter() - t0:.1f} s")
@@ -5380,9 +5818,9 @@ def phase_accels(mi, card: str):
 
 def main(only=None):
     """The whole smoke test, or with `only` (``--phase media``,
-    ``--phase integrators``, ``--phase materials``, ``--phase shapes`` or
-    ``--phase accels``) the kernel build and that phase alone, without the
-    final line."""
+    ``--phase integrators``, ``--phase materials``, ``--phase shapes``,
+    ``--phase accels`` or ``--phase spectral``) the kernel build and that
+    phase alone, without the final line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -5430,7 +5868,8 @@ def main(only=None):
     if only is not None:
         phase = {"media": phase_media, "integrators": phase_integrators,
                  "materials": phase_materials, "shapes": phase_shapes,
-                 "accels": phase_accels}[only]
+                 "accels": phase_accels,
+                 "spectral": lambda m, c: phase_spectral(m, c)[0]}[only]
         result = timed(only, phase, mi, card)
         print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({only: result, "card": card}))
@@ -5473,6 +5912,9 @@ def main(only=None):
     new_materials = timed("materials", phase_materials, mi, card)
     shapes = timed("shapes", phase_shapes, mi, card)
     accels = timed("accels", phase_accels, mi, card)
+    spectral, launches["cells.spectral"], spectral_rows = timed(
+        "spectral", phase_spectral, mi, card)
+    rows += spectral_rows
     launches["cells.instanced"] = shapes["instanced field"]["k1_launches"]
     rows += timed("kernels K1 instanced prototype", phase_kernels, mi, card,
                   instanced_field_dict, ".instanced", _proto_rays,
@@ -5507,6 +5949,7 @@ def main(only=None):
     print(json.dumps({"slice_materials": new_materials, "card": card}))
     print(json.dumps({"shapes": shapes, "card": card}))
     print(json.dumps({"accels": accels, "card": card}))
+    print(json.dumps({"spectral": spectral, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -33,9 +33,14 @@ backpropagation: gradients of the scene's tables through
 six phase functions) render under ``volpath`` and ``volpathmis`` and
 differentiate under ``prbvolpath``; small scenes use the dense
 intersector, large ones the accel that ``MI3T_ACCEL`` names (cellserve,
-bvh_serve or bvh_tiled); see ``loader.py``.
+bvh_serve or bvh_tiled); see ``loader.py``. ``load_dict(d,
+spectral=True)`` (or ``set_variant("cuda_ad_spectral")`` before a load)
+renders the spectral variant: hero wavelengths, sampled-spectrum
+emitters and reflectances, ``specfilm`` and dielectric dispersion
+(``core/spectral.py``).
 
-The inverse-rendering loop is ported too: ``traverse(scene)`` gives the
+The inverse-rendering loop is ported too (with ``ad.RayDataLoader`` and
+``ad.render_batch`` for pixel mini-batches): ``traverse(scene)`` gives the
 scene's parameters under the JAX package's keys, and its ``update()``
 rebuilds what an edit invalidates (the accel after a vertex edit);
 ``ad.Adam``, ``ad.SGD`` and ``ad.RMSProp`` step them with optax's rules,
@@ -63,6 +68,35 @@ from .utils.xml import load_file, load_string
 ScalarTransform4f = Transform4f
 
 
+# the variant (the JAX package's set_variant): a backend prefix is taken
+# and ignored (the scene's device is the load's `device`); a name with
+# "spectral" selects hero-wavelength spectral transport, others RGB
+_VARIANT = "rgb"
+_KNOWN_VARIANTS = ("rgb", "spectral", "scalar_rgb", "llvm_rgb", "cuda_rgb",
+                   "llvm_ad_rgb", "cuda_ad_rgb", "scalar_spectral",
+                   "llvm_ad_spectral")
+
+
+def set_variant(*names):
+    """Select the variant of later loads (``load_dict``, ``load_file``,
+    ``load_string`` without `spectral`): the first of `names` that is
+    known or names "rgb" or "spectral"."""
+    global _VARIANT
+    for name in names:
+        if name in _KNOWN_VARIANTS or "rgb" in name or "spectral" in name:
+            _VARIANT = "spectral" if "spectral" in name else "rgb"
+            return
+    raise ValueError(f"Unknown variant(s) {names!r}")
+
+
+def variant() -> str:
+    return _VARIANT
+
+
+def variants():
+    return list(_KNOWN_VARIANTS)
+
+
 def register_bsdf(name, module, lower=None):
     """Register a user's BSDF plugin under the scene-dict type `name` (the
     JAX package's ``register_bsdf``); returns its type id. See
@@ -74,4 +108,5 @@ def register_bsdf(name, module, lower=None):
 
 __all__ = ["Scene", "SceneParameters", "ScalarTransform4f", "Transform4f",
            "ad", "cornell_box", "load_dict", "load_file", "load_string",
-           "register_bsdf", "render", "render_with_stats", "traverse"]
+           "register_bsdf", "render", "render_with_stats", "set_variant",
+           "traverse", "variant", "variants"]

@@ -21,7 +21,10 @@ bounce. Memory stays O(1) in the path depth.
 θ is ``DIFF_PARAM_NAMES``: BSDF rows, emitter radiance, textures,
 environment map, vertices (positions, normals and frames re-attached from
 the detached barycentrics, and the NEE sample re-attached to moving
-emitter geometry) and delta-emitter rows. Intersections stay detached, so
+emitter geometry) and delta-emitter rows. In the spectral variant the
+loop carries the path's wavelengths through every bounce, as ``path``
+does (JAX's ``prb`` loop drops them: ROADMAP queue 3). Intersections stay
+detached, so
 the accels' kernels run in both passes and need no backward. Like the
 path integrator, the loop drops lanes whose path has ended: they add
 nothing more to L or to the gradients.
@@ -42,7 +45,7 @@ from .. import bsdfs
 from ..core import math as m
 from ..core.struct import struct, take_lanes
 from ..core.vec import Vec3
-from ..integrators.path import mis_weight
+from ..integrators.path import collapse_wavelengths, mis_weight
 from ..render import sampler as sampler_mod
 from ..render import texture as tex_mod
 from ..render.records import Ray
@@ -70,9 +73,10 @@ def substitute_theta(scene, theta):
     return scene.replace(**theta)
 
 
-def _attached_em_weight(scene_t, ds) -> Vec3:
+def _attached_em_weight(scene_t, ds, wl=None) -> Vec3:
     """The NEE emitter weight re-evaluated attached to θ, over the
-    detached pdf (prb.py:207-210 em_val_diff * detach(rcp(pdf)))."""
+    detached pdf (prb.py:207-210 em_val_diff * detach(rcp(pdf))), at the
+    path's wavelengths `wl` in the spectral variant."""
     ok = ds.pdf > 0.0
     inv_pdf = torch.where(ok, 1.0 / torch.clamp(ds.pdf, min=1e-20), 0.0)
     radiance = scene_t.gather_em_radiance(
@@ -91,6 +95,7 @@ def _attached_em_weight(scene_t, ds) -> Vec3:
         rad_d = scene_t._eval_delta_emitter(_RefPoint(p=ref_p, t=ds.dist),
                                              k)[3]
         radiance = Vec3.where(is_delta, rad_d, radiance)
+    radiance = scene_t.spectral_radiance(radiance, ds.emitter_index, wl)
     return radiance * inv_pdf.detach()
 
 
@@ -142,6 +147,7 @@ def _relative(a, det):
 class PRBState:
     ray_o: Vec3
     ray_d: Vec3
+    wl: Vec3 | None          # the path's wavelengths (spectral variant)
     L: Vec3                  # primal: accumulates up; backward: counts down
     beta: Vec3
     eta: torch.Tensor
@@ -200,7 +206,7 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
     dev = ray.o.x.device
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     state = PRBState(
-        ray_o=ray.o, ray_d=ray.d,
+        ray_o=ray.o, ray_d=ray.d, wl=ray.wl,
         L=Vec3.zeros(n, dev) if primal else L_in,
         beta=Vec3.ones(n, dev), eta=ones,
         depth=torch.zeros(n, dtype=torch.int32, device=dev),
@@ -218,7 +224,7 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
     n_rays = 0
 
     def bounce(s: PRBState):
-        cur_ray = Ray.make(s.ray_o, s.ray_d)
+        cur_ray = Ray.make(s.ray_o, s.ray_d, wl=s.wl)
         pi = scene.ray_intersect_preliminary(cur_ray, active=s.active)
         si, attrs = scene.compute_surface_interaction(cur_ray, pi)
 
@@ -227,7 +233,7 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
         emitted_det = scene.eval_emitter(si, attrs)
         ds_pdf = scene.pdf_emitter_direction_hit(s.prev_p, si, attrs)
         if scene.env_emitter >= 0:
-            emitted_det = Vec3.where(miss, scene.eval_env(cur_ray.d),
+            emitted_det = Vec3.where(miss, scene.eval_env(cur_ray.d, s.wl),
                                      emitted_det)
             ds_pdf = torch.where(
                 miss, scene.pdf_emitter_direction_miss(cur_ray.d), ds_pdf)
@@ -290,14 +296,14 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
                 si_a = scene_t.compute_surface_interaction(cur_ray, pi)[0]
                 emitted_a = scene_t.eval_emitter(si_a, attrs)
                 if scene.env_emitter >= 0:
-                    emitted_a = Vec3.where(miss, scene_t.eval_env(cur_ray.d),
-                                           emitted_a)
+                    emitted_a = Vec3.where(
+                        miss, scene_t.eval_env(cur_ray.d, s.wl), emitted_a)
                 Le_a = (s.beta * emitted_a * mis).mask(s.active)
                 # Lr_dir(θ): detached visibility; attached radiance, BSDF
                 # and emitter-sample geometry
                 d_a, jac = _attached_nee_geometry(scene_t, ds, si_a.p)
-                em_weight_a = (_attached_em_weight(scene_t, ds) * jac).mask(
-                    em_weight_det.any_positive())
+                em_weight_a = (_attached_em_weight(scene_t, ds, s.wl)
+                               * jac).mask(em_weight_det.any_positive())
                 bsdf_val_em_a = bsdfs.eval_pdf(scene_t, bsdf_idx, si_a,
                                                si_a.to_local(d_a))[0]
                 Lr_dir_a = (s.beta * bsdf_val_em_a * em_weight_a
@@ -324,6 +330,7 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
 
         # ---------------- loop variables, Russian roulette --------------
         beta = Vec3.where(active_next, s.beta * bsdf_weight_det, s.beta)
+        wl = collapse_wavelengths(s.wl, active_next, bs, bsdf_weight_det)
         eta = torch.where(active_next, s.eta * bs.eta, s.eta)
         depth = torch.where(si.is_valid() & s.active, s.depth + 1, s.depth)
         beta_max = beta.max_component()
@@ -336,7 +343,8 @@ def _loop(scene, rng, ray, cfg: PRBConfig, mode: str, dL=None, L_in=None,
         new_active = (active_next & (~rr_active | rr_continue)
                       & (beta_max != 0.0))
         new_state = PRBState(
-            ray_o=new_o, ray_d=new_d, L=L, beta=beta, eta=eta, depth=depth,
+            ray_o=new_o, ray_d=new_d, wl=wl, L=L, beta=beta, eta=eta,
+            depth=depth,
             active=new_active,
             prev_p=Vec3.where(active_next, si.p, s.prev_p),
             prev_bsdf_pdf=torch.where(active_next, bs.pdf, s.prev_bsdf_pdf),

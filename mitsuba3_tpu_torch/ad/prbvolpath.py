@@ -22,7 +22,9 @@ grid's lookups read its cell table (``media.cell_table``); the replay
 builds the table once per pass as a leaf that every bounce shares and
 sends its summed gradient back through the table's build at the end of
 the pass, as it does for the textures' quad tables. Like the other
-integrators, the loop drops lanes whose path has ended.
+integrators, the loop drops lanes whose path has ended; in the spectral
+variant it carries the path's wavelengths (JAX's drops them: ROADMAP
+queue 3).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from .. import bsdfs, media, phase
 from ..core import math as m
 from ..core.struct import struct, take_lanes
 from ..core.vec import Vec3
-from ..integrators.path import mis_weight
+from ..integrators.path import collapse_wavelengths, mis_weight
 from ..integrators.volpath import (attenuated_visibility, n_bounces,
                                    sample_channel, update_medium)
 from ..render import sampler as sampler_mod
@@ -62,6 +64,7 @@ DIFF_PARAM_NAMES = ("bsdf_params", "em_radiance", "textures", "env_data",
 class VPState:
     ray_o: Vec3
     ray_d: Vec3
+    wl: Vec3 | None          # the path's wavelengths (spectral variant)
     L: Vec3                  # primal: accumulates up; backward: counts down
     beta: Vec3
     eta: torch.Tensor
@@ -105,7 +108,7 @@ def _loop(scene, rng, ray, cfg: PRBVolpathConfig, mode: str, dL=None,
     rng, channel = sample_channel(rng)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     state = VPState(
-        ray_o=ray.o, ray_d=ray.d,
+        ray_o=ray.o, ray_d=ray.d, wl=ray.wl,
         L=Vec3.zeros(n, dev) if primal else L_in,
         beta=Vec3.ones(n, dev), eta=ones,
         depth=torch.zeros(n, dtype=torch.int32, device=dev),
@@ -128,7 +131,7 @@ def _loop(scene, rng, ray, cfg: PRBVolpathConfig, mode: str, dL=None,
 
     def bounce(s: VPState):
         n = s.ray_o.x.shape[0]
-        cur_ray = Ray.make(s.ray_o, s.ray_d)
+        cur_ray = Ray.make(s.ray_o, s.ray_d, wl=s.wl)
         pi = scene.ray_intersect_preliminary(cur_ray, active=s.active)
         si, attrs = scene.compute_surface_interaction(cur_ray, pi)
         t_surf = torch.where(si.is_valid(), si.t, float("inf"))
@@ -154,7 +157,7 @@ def _loop(scene, rng, ray, cfg: PRBVolpathConfig, mode: str, dL=None,
                              scene.pdf_emitter_direction_hit(s.prev_p, si,
                                                              attrs))
         if scene.env_emitter >= 0:
-            emitted_det = Vec3.where(miss, scene.eval_env(cur_ray.d),
+            emitted_det = Vec3.where(miss, scene.eval_env(cur_ray.d, s.wl),
                                      emitted_det)
             ds_pdf = torch.where(
                 miss, scene.pdf_emitter_direction_miss(cur_ray.d), ds_pdf)
@@ -177,7 +180,7 @@ def _loop(scene, rng, ray, cfg: PRBVolpathConfig, mode: str, dL=None,
         rng, s1_em = sampler_mod.next_1d(rng)
         rng, s2_em = sampler_mod.next_2d(rng)
         ds, em_weight_det = scene.sample_emitter_direction_from(
-            ref_p, s1_em, s2_em)
+            ref_p, s1_em, s2_em, wavelengths=s.wl)
         active_em = active_em & (ds.pdf > 0.0)
         origin = Vec3.where(medium_scatter, ref_p, si.offset_p(ds.d))
         med_nee = torch.where(medium_scatter, s.medium, update_medium(
@@ -246,12 +249,12 @@ def _loop(scene, rng, ray, cfg: PRBVolpathConfig, mode: str, dL=None,
                 emitted_a = scene_t.eval_emitter(si, attrs).mask(
                     ~medium_scatter)
                 if scene.env_emitter >= 0:
-                    emitted_a = Vec3.where(miss, scene_t.eval_env(cur_ray.d),
-                                           emitted_a)
+                    emitted_a = Vec3.where(
+                        miss, scene_t.eval_env(cur_ray.d, s.wl), emitted_a)
                 Le_a = (beta_med * emitted_a * mis).mask(s.active)
                 # NEE attached: radiance, transmittance, BSDF/phase value
-                em_weight_a = prb._attached_em_weight(scene_t, ds).mask(
-                    em_weight_det.any_positive())
+                em_weight_a = prb._attached_em_weight(
+                    scene_t, ds, s.wl).mask(em_weight_det.any_positive())
                 tr_a = attenuated_visibility(
                     scene_t, origin, ds, med_nee, rng_vis, s.channel,
                     active_em, cfg.shadow_segments)[0]
@@ -293,6 +296,8 @@ def _loop(scene, rng, ray, cfg: PRBVolpathConfig, mode: str, dL=None,
         new_o = Vec3.where(medium_scatter, ref_p, si.offset_p(new_d))
         beta = Vec3.where(cont, beta_med * scatter_w_det, beta_med)
         eta = torch.where(cont & on_surface, s.eta * bs.eta, s.eta)
+        wl = collapse_wavelengths(s.wl, cont & on_surface, bs,
+                                  bsdf_weight_det)
         depth = torch.where(cont & real_scatter, s.depth + 1, s.depth)
         new_medium = torch.where(cont & on_surface, update_medium(
             scene, si, attrs, new_d, s.medium), s.medium)
@@ -307,7 +312,8 @@ def _loop(scene, rng, ray, cfg: PRBVolpathConfig, mode: str, dL=None,
         upd_prev = cont & real_scatter
         new_state = VPState(
             ray_o=Vec3.where(cont, new_o, s.ray_o),
-            ray_d=Vec3.where(cont, new_d, s.ray_d), L=L, beta=beta, eta=eta,
+            ray_d=Vec3.where(cont, new_d, s.ray_d), wl=wl, L=L, beta=beta,
+            eta=eta,
             depth=depth, medium=new_medium, channel=s.channel,
             active=new_active, prev_p=Vec3.where(upd_prev, ref_p, s.prev_p),
             prev_pdf=torch.where(upd_prev, scatter_pdf, s.prev_pdf),

@@ -20,7 +20,7 @@ FLAGS = 0x0002 | 0x0008 | 0x2000  # Diffuse|Glossy|Front (conservative)
 
 def _weight(scene, params, si):
     c = eval_color(scene, Vec3(params[0], params[0], params[0]), params[1],
-                   si, scene.texture_ids("blendbsdf"))
+                   si, scene.texture_ids("blendbsdf"), raw=True)
     return torch.clamp(c.mean(), 0.0, 1.0)
 
 

@@ -20,7 +20,7 @@ FLAGS = 0x0001 | 0x0002 | 0x0008 | 0x2000 | 0x4000  # Null|Smooth-ish|2-sided
 
 def _opacity(scene, params, si):
     c = eval_color(scene, Vec3(params[0], params[0], params[0]), params[1],
-                   si, scene.texture_ids("mask"))
+                   si, scene.texture_ids("mask"), raw=True)
     return torch.clamp(c.mean(), 0.0, 1.0)
 
 

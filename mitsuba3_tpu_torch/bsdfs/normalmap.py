@@ -24,7 +24,7 @@ def _perturbed_si(scene, params, si):
     (normalmap.cpp frame): n = 2 * tex - 1 in tangent space."""
     half = torch.full_like(si.t, 0.5)
     c = eval_color(scene, Vec3(half, half, torch.ones_like(si.t)),
-                   params[1], si, scene.texture_ids("normalmap"))
+                   params[1], si, scene.texture_ids("normalmap"), raw=True)
     n_tan = Vec3(c.x * 2.0 - 1.0, c.y * 2.0 - 1.0,
                  torch.clamp(c.z * 2.0 - 1.0, min=1e-3)).normalize()
     frame = Frame.from_normal(si.sh_frame.to_world(n_tan))

@@ -14,12 +14,13 @@ sphere emitters' and directionalarea emitters' slots and the
 integrator's config, a volumetric one's ``max_null_events`` and
 ``shadow_segments`` and the nested config of a ``moment`` or an ``aov``
 included, as specs ``integrators.config_from_dict`` reads). The sphere
-emitters' cone rows (``em_sphere``) are an array like the others. It
-takes a JAX ``Scene`` or a port ``Scene`` alike, by attribute names, and
-imports nothing of JAX.
+emitters' cone rows (``em_sphere``) are an array like the others. The
+spectral variant comes across whole: the flag ``spectral``, the
+emitters' and reflectances' SPDs (``em_spd``, ``bsdf_spd``), the SPD
+emitters' slots and a specfilm's response functions (the film's
+``srfs``). It takes a JAX ``Scene`` or a port ``Scene`` alike, by
+attribute names, and imports nothing of JAX.
 ``scene_from_arrays`` builds the port's ``Scene`` from them on a device.
-A specfilm's response functions (``srfs``) are not ported: a scene that
-has them is refused.
 
 Implicit geometry comes across too: the analytic rows (``analytic_prims``),
 the SDF grids and rows, the instance table (``instances.<field>``), each
@@ -72,7 +73,8 @@ SCENE_ARRAYS = ("vertices", "faces", "face_shape", "face_bsdf",
                 "face_normals", "face_colors", "em_radiance", "ef_face",
                 "ef_cdf", "env_data", "env_scale", "bsdf_params",
                 "de_params", "medium_params", "medium_to_grid", "face_medium",
-                "em_sphere", "analytic_prims", "sdf_rows")
+                "em_sphere", "analytic_prims", "sdf_rows", "em_spd",
+                "bsdf_spd")
 TUPLES = ("medium_grids", "phase_tables", "sdf_grids")   # tuples of arrays
 WARP_ARRAYS = ("density", "marg_cdf", "cond_cdf")
 # a measured BSDF's table: its arrays and its two SlicedMarginal2D warps
@@ -103,7 +105,8 @@ SCENE_META = ("n_emitters", "n_area_emitters", "env_emitter",
               "delta_emitter_types", "bsdf_types", "bsdf_flags",
               "adapter_max_depth", "spp", "sampler_type", "texture_meta",
               "medium_types", "phase_types", "sensor_medium",
-              "em_sphere_slots", "em_directional")
+              "em_sphere_slots", "em_directional", "em_spd_slots",
+              "spectral")
 
 
 def _np(x):
@@ -134,10 +137,6 @@ def pack_occupancy(occ, n_groups: int) -> np.ndarray:
 def arrays_from_scene(scene):
     """(arrays, meta) of `scene`: arrays maps dotted leaf names to numpy
     arrays, meta holds the static fields."""
-    if getattr(scene.film, "srfs", ()):
-        raise NotImplementedError(
-            "specfilm response functions (srfs) are not ported to "
-            "mitsuba3_tpu_torch")
     arrays = {}
     for name in SCENE_ARRAYS:
         value = getattr(scene, name)
@@ -177,8 +176,9 @@ def arrays_from_scene(scene):
         proto_meta.append(acc_p)
 
     meta = {name: tuple(getattr(scene, name)) if name in (
-        "em_sphere_slots", "em_directional") else getattr(scene, name)
-        for name in SCENE_META}
+        "em_sphere_slots", "em_directional", "em_spd_slots")
+        else getattr(scene, name) for name in SCENE_META}
+    meta["spectral"] = bool(scene.spectral)
     meta["texture_meta"] = tuple(
         (str(w), str(f), bool(mip), tuple(float(x) for x in extra))
         for w, f, mip, extra in scene.texture_meta)
@@ -286,7 +286,7 @@ def scene_from_arrays(arrays: dict, meta: dict, device) -> Scene:
         sensor = SensorData(**group("sensor", SENSOR_ARRAYS))
     leaves = {name: t(name) for name in SCENE_ARRAYS if name in arrays}
     for name in ("de_params", "face_colors", "face_medium", "em_sphere",
-                 "analytic_prims", "sdf_rows"):
+                 "analytic_prims", "sdf_rows", "em_spd", "bsdf_spd"):
         leaves.setdefault(name, None)
     for name in TUPLES:
         leaves[name] = tuple(t(f"{name}.{i}") for i in range(sum(

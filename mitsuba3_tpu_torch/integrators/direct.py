@@ -51,6 +51,8 @@ def sample(scene, rng, ray: Ray, cfg: DirectConfig):
     # visible emitters and the environment
     emitted = scene.eval_emitter(si, attrs)
     if scene.env_emitter >= 0:
+        # the environment in RGB in the spectral variant too, as JAX's
+        # direct reads it
         emitted = Vec3.where(si.is_valid(), emitted, scene.eval_env(ray.d))
     result = Vec3.zeros(n, ray.o.x.device)
     if not cfg.hide_emitters:

@@ -41,10 +41,24 @@ def mis_weight(pdf_a, pdf_b):
     return torch.where(torch.isfinite(w), w, 0.0).detach()
 
 
+def collapse_wavelengths(wl, active_next, bs, bsdf_weight):
+    """The path's wavelengths after a bounce: where a dispersive dielectric
+    transmitted (delta transmission, the secondary channels' weight zeroed)
+    the path goes on at its hero wavelength alone (None stays None)."""
+    if wl is None:
+        return None
+    collapsed = (active_next
+                 & ((bs.sampled_type & bsdfs.DELTA_TRANSMISSION) != 0)
+                 & (bsdf_weight.x > 0.0) & (bsdf_weight.y == 0.0)
+                 & (bsdf_weight.z == 0.0))
+    return Vec3.where(collapsed, Vec3(wl.x, wl.x, wl.x), wl)
+
+
 @struct
 class PathState:
     ray_o: Vec3
     ray_d: Vec3
+    wl: Vec3 | None              # the path's wavelengths (spectral variant)
     throughput: Vec3
     result: Vec3
     eta: torch.Tensor
@@ -61,7 +75,7 @@ def init_state(scene, rng, ray: Ray, cfg: PathConfig) -> PathState:
     n = ray.o.x.shape[0]
     dev = ray.o.x.device
     return PathState(
-        ray_o=ray.o, ray_d=ray.d,
+        ray_o=ray.o, ray_d=ray.d, wl=ray.wl,
         throughput=Vec3.ones(n, dev),
         result=Vec3.zeros(n, dev),
         eta=torch.ones(n, dtype=torch.float32, device=dev),
@@ -79,7 +93,7 @@ def make_bounce(scene, cfg: PathConfig):
     """The per-bounce body: state -> (new state, closest + shadow ray
     queries issued)."""
     def bounce(s: PathState):
-        cur_ray = Ray.make(s.ray_o, s.ray_d)
+        cur_ray = Ray.make(s.ray_o, s.ray_d, wl=s.wl)
         pi = scene.ray_intersect_preliminary(cur_ray, active=s.active)
         si, attrs = scene.compute_surface_interaction(cur_ray, pi)
 
@@ -88,7 +102,8 @@ def make_bounce(scene, cfg: PathConfig):
         ds_pdf = scene.pdf_emitter_direction_hit(s.prev_p, si, attrs)
         if scene.env_emitter >= 0:
             miss = ~si.is_valid()
-            emitted = Vec3.where(miss, scene.eval_env(cur_ray.d), emitted)
+            emitted = Vec3.where(miss, scene.eval_env(cur_ray.d, s.wl),
+                                 emitted)
             ds_pdf = torch.where(
                 miss, scene.pdf_emitter_direction_miss(cur_ray.d), ds_pdf)
         em_pdf = torch.where(s.prev_bsdf_delta, 0.0, ds_pdf)
@@ -146,6 +161,7 @@ def make_bounce(scene, cfg: PathConfig):
         new_d = Vec3.where(active_next, wo_world, s.ray_d)
         throughput = Vec3.where(active_next, s.throughput * bsdf_weight,
                                 s.throughput)
+        wl = collapse_wavelengths(s.wl, active_next, bs, bsdf_weight)
         eta = torch.where(active_next, s.eta * bs.eta, s.eta)
         sampled_null = (bs.sampled_type & bsdfs.NULL_FLAG) != 0
         valid_ray = valid_ray | (active_next & si.is_valid() & ~sampled_null)
@@ -164,7 +180,8 @@ def make_bounce(scene, cfg: PathConfig):
                       & (throughput_max != 0.0) & (bs.pdf > 0.0))
 
         new_state = PathState(
-            ray_o=new_o, ray_d=new_d, throughput=throughput, result=result,
+            ray_o=new_o, ray_d=new_d, wl=wl, throughput=throughput,
+            result=result,
             eta=eta, depth=depth, valid_ray=valid_ray,
             prev_p=Vec3.where(active_next, si.p, s.prev_p),
             prev_bsdf_pdf=torch.where(active_next, bs.pdf.detach(),

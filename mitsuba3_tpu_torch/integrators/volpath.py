@@ -12,7 +12,9 @@ The draw order per bounce is JAX's (free flight, NEE, shadow tracking,
 scatter, Russian roulette). As in the path integrator, lanes whose path
 has ended are dropped after every bounce; the loop runs at most
 ``max_depth`` bounces, plus ``max_null_events`` with media or null-capable
-BSDFs (null crossings do not count as depth).
+BSDFs (null crossings do not count as depth). In the spectral variant the
+state carries the path's wavelengths through every bounce and into NEE,
+as ``path`` does (JAX's loop drops them: ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from ..core.vec import Vec3
 from ..render import sampler as sampler_mod
 from ..render.records import Ray
 from ..render.sampler import Sampler
-from .path import mis_weight
+from .path import collapse_wavelengths, mis_weight
 
 NO_TRANSITION = -2   # face_medium: crossing the face keeps the medium
 NULL_CAPABLE = (bsdfs.NULL, bsdfs.MASK)
@@ -156,6 +158,7 @@ class _Segment:
 class VolPathState:
     ray_o: Vec3
     ray_d: Vec3
+    wl: Vec3 | None               # the path's wavelengths (spectral variant)
     throughput: Vec3
     result: Vec3
     eta: torch.Tensor
@@ -184,7 +187,7 @@ def make_bounce(scene, cfg: VolPathConfig):
 
     def bounce(s: VolPathState):
         n = s.ray_o.x.shape[0]
-        cur_ray = Ray.make(s.ray_o, s.ray_d)
+        cur_ray = Ray.make(s.ray_o, s.ray_d, wl=s.wl)
         pi = scene.ray_intersect_preliminary(cur_ray, active=s.active)
         si, attrs = scene.compute_surface_interaction(cur_ray, pi)
         t_surf = torch.where(si.is_valid(), si.t, float("inf"))
@@ -211,7 +214,8 @@ def make_bounce(scene, cfg: VolPathConfig):
                                                              attrs))
         if scene.env_emitter >= 0:
             miss = ~si.is_valid() & ~medium_scatter
-            emitted = Vec3.where(miss, scene.eval_env(cur_ray.d), emitted)
+            emitted = Vec3.where(miss, scene.eval_env(cur_ray.d, s.wl),
+                                 emitted)
             ds_pdf = torch.where(
                 miss, scene.pdf_emitter_direction_miss(cur_ray.d), ds_pdf)
         em_pdf = torch.where(s.prev_delta, 0.0, ds_pdf)
@@ -236,8 +240,8 @@ def make_bounce(scene, cfg: VolPathConfig):
         active_em = (on_surface & smooth & depth_ok) | sample_em_med
         rng, s1_em = sampler_mod.next_1d(rng)
         rng, s2_em = sampler_mod.next_2d(rng)
-        ds, em_weight = scene.sample_emitter_direction_from(ref_p, s1_em,
-                                                            s2_em)
+        ds, em_weight = scene.sample_emitter_direction_from(
+            ref_p, s1_em, s2_em, wavelengths=s.wl)
         active_em = active_em & (ds.pdf > 0.0)
         # shadow origin: offset along the normal on surfaces
         origin = Vec3.where(medium_scatter, ref_p, si.offset_p(ds.d))
@@ -284,6 +288,7 @@ def make_bounce(scene, cfg: VolPathConfig):
         new_o = Vec3.where(cont, new_o, s.ray_o)
         throughput2 = Vec3.where(cont, throughput * scatter_w, throughput)
         eta = torch.where(cont & on_surface, s.eta * bs.eta, s.eta)
+        wl = collapse_wavelengths(s.wl, cont & on_surface, bs, bsdf_weight)
         depth = torch.where(cont & real_scatter, s.depth + 1, s.depth)
         valid_ray = valid_ray | (cont & real_scatter)
         new_medium = torch.where(cont & on_surface, update_medium(
@@ -301,7 +306,7 @@ def make_bounce(scene, cfg: VolPathConfig):
         is_delta = on_surface & ((bs.sampled_type & bsdfs.DELTA) != 0)
         upd_prev = cont & real_scatter
         new_state = VolPathState(
-            ray_o=new_o, ray_d=Vec3.where(cont, new_d, s.ray_d),
+            ray_o=new_o, ray_d=Vec3.where(cont, new_d, s.ray_d), wl=wl,
             throughput=throughput2, result=result, eta=eta, depth=depth,
             valid_ray=valid_ray, medium=new_medium, channel=s.channel,
             prev_p=Vec3.where(upd_prev, ref_p, s.prev_p),
@@ -326,7 +331,7 @@ def sample(scene, rng, ray: Ray, cfg: VolPathConfig):
     rng, channel = sample_channel(rng)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     state = VolPathState(
-        ray_o=ray.o, ray_d=ray.d, throughput=Vec3.ones(n, dev),
+        ray_o=ray.o, ray_d=ray.d, wl=ray.wl, throughput=Vec3.ones(n, dev),
         result=Vec3.zeros(n, dev), eta=ones,
         depth=torch.zeros(n, dtype=torch.int32, device=dev),
         valid_ray=torch.full((n,), scene.env_emitter >= 0

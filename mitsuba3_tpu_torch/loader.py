@@ -83,9 +83,9 @@ Any other plugin raises ``NotImplementedError`` naming it: among them the
 (``pplastic``, ``polarizer``, ``retarder``, ``circular``,
 ``measured_polarized``), a spectral ``.bsdf``, the ``stokes``,
 ``volprim_rf_basic``, ``prb_projective`` and ``direct_projective``
-integrators, a ``specfilm``, a batch sensor's ``medium``, an rfilter's
-parameters (which the JAX package ignores), the spectral variant, a
-textured parameter outside ``TEXTURED`` and an image format that
+integrators, a batch sensor's ``medium``, an rfilter's parameters
+(which the JAX package ignores), a textured parameter outside
+``TEXTURED`` and an image format that
 ``utils/image_io.py`` does not read. XML scene files lower to the same
 dicts (``utils/xml.py``). The host-side table building is the JAX
 package's, so the scene's arrays equal its leaves. The scene lives on
@@ -104,6 +104,7 @@ from . import media as media_pkg
 from . import phase as phase_pkg
 from . import shapes as shapes_pkg
 from . import sensors as sensors_pkg
+from .core import spectral as spectral_mod
 from .core import spectrum
 from .core.distr2d import SlicedMarginal2D
 from .core.transform import as_transform
@@ -174,9 +175,9 @@ BSDF_KEYS = {
                                  "specular_reflectance", "alpha",
                                  "distribution"),
     "dielectric": _IOR_KEYS + ("specular_reflectance",
-                               "specular_transmittance"),
+                               "specular_transmittance", "dispersion"),
     "thindielectric": _IOR_KEYS + ("specular_reflectance",
-                                   "specular_transmittance"),
+                                   "specular_transmittance", "dispersion"),
     "roughdielectric": _IOR_KEYS + ("specular_reflectance",
                                     "specular_transmittance") + _ROUGH_KEYS,
     "null": ("transmittance",),
@@ -299,6 +300,11 @@ def _sampled_rgb(spec: dict) -> np.ndarray:
     if stype == "blackbody":
         return spectrum.blackbody_rgb(float(spec.get(
             "temperature", 5000.0))) * float(spec.get("scale", 1.0))
+    return spectrum.spd_to_rgb(*_sampled_points(spec))
+
+
+def _sampled_points(spec: dict):
+    """(wavelengths, values) of a ``regular`` or ``irregular`` spectrum."""
     val = spec.get("value")
     if val is None and "wavelengths" in spec:
         val = list(zip(np.asarray(spec["wavelengths"], np.float64).tolist(),
@@ -307,14 +313,59 @@ def _sampled_rgb(spec: dict) -> np.ndarray:
         pairs = [p.split(":") for p in val.split(",")]
         wl = [float(a) for a, _ in pairs]
         sp = [float(b) for _, b in pairs]
-    elif stype == "regular":
+    elif spec["type"] == "regular":
         sp = np.asarray(spec["values"] if "values" in spec else val,
                         np.float64)
         wl = np.linspace(float(spec.get("lambda_min", 360.0)),
                          float(spec.get("lambda_max", 830.0)), sp.shape[0])
     else:
         wl, sp = zip(*val)
-    return spectrum.spd_to_rgb(wl, sp)
+    return wl, sp
+
+
+# the spectra that keep their SPD in the spectral variant (a reflectance,
+# a specfilm's response function; an emitter's but uniform)
+SPD_SPECTRA = ("regular", "irregular", "blackbody", "d65", "uniform")
+
+
+def _spd_row(spec):
+    """A sampled spectrum's [SPD_N] SPD on the spectral grid, as the JAX
+    loader's ``_spd_row`` makes it (a regular or irregular spectrum's
+    ``scale`` applies here, not to its RGB projection), or None for a
+    color that is not one."""
+    if not isinstance(spec, dict):
+        return None
+    stype = spec.get("type")
+    scale = float(spec.get("scale", 1.0))
+    if stype in ("regular", "irregular"):
+        _check_keys(spec, SAMPLED_SPECTRA[stype] + ("scale",),
+                    f"{stype} spectrum")
+        wl, vals = _sampled_points(spec)
+        return spectral_mod.resample_spd(np.asarray(wl),
+                                         np.asarray(vals, np.float64) * scale)
+    if stype == "blackbody":
+        return spectral_mod.blackbody_spd(
+            float(spec.get("temperature", 5000.0))) * np.float32(scale)
+    if stype == "d65":
+        return spectral_mod.d65_spd() * np.float32(scale)
+    return None
+
+
+def _spd_or_uniform(spec) -> np.ndarray:
+    """_spd_row, or a ``uniform`` spectrum's value on every grid point."""
+    if spec.get("type") == "uniform":
+        return np.full(spectral_mod.SPD_N, float(spec.get("value", 1.0)),
+                       np.float32)
+    return np.asarray(_spd_row(spec), np.float32)
+
+
+def _projected(spec):
+    """A spectrum as its RGB projection reads it in the spectral variant:
+    a regular or irregular spectrum's ``scale`` belongs to its SPD."""
+    if isinstance(spec, dict) and spec.get("type") in ("regular",
+                                                       "irregular"):
+        return {k: v for k, v in spec.items() if k != "scale"}
+    return spec
 
 
 def _rgb(spec, default=(0.5, 0.5, 0.5), what: str = "spectrum"):
@@ -441,13 +492,17 @@ def measured_tables(spec: dict, dev) -> dict:
         "sigma": t_(sigma[None] if sigma.ndim == 2 else sigma)}
 
 
-def _bsdf_row(spec: dict, add_bsdf, textures: list, measured: list):
+def _bsdf_row(spec: dict, add_bsdf, textures: list, measured: list,
+              spds=None):
     """Lower a BSDF spec -> (type id, params row [N_PARAMS]), as the JAX
     loader does. `add_bsdf` registers a nested BSDF (mask, blendbsdf,
     normalmap) and returns its slot; nested slots come before their
     adapter's. A texture a parameter names is appended to `textures` and
     its row slot holds its index + 1 (-1 for vertex colors); a measured
-    BSDF's spec is appended to `measured` and its row holds its index."""
+    BSDF's spec is appended to `measured` and its row holds its index. In
+    the spectral variant (`spds` a list) a reflectance given as a sampled
+    spectrum keeps its SPD: appended to `spds`, its texture slot -(k + 2)
+    names row k, and its RGB slots hold the projection."""
     btype = spec.get("type")
     custom = bsdfs_pkg.custom_type(btype)
     if custom is not None:
@@ -487,6 +542,12 @@ def _bsdf_row(spec: dict, add_bsdf, textures: list, measured: list):
         if isinstance(cspec, dict) and cspec.get("type") in _TEXTURE_TYPES:
             texture(cspec, tex_slot)
             params[rgb_slot:rgb_slot + 3] = 0.5
+        elif (spds is not None and isinstance(cspec, dict)
+              and cspec.get("type") in SPD_SPECTRA):
+            spds.append(_spd_or_uniform(cspec))
+            params[tex_slot] = -(len(spds) + 1)
+            params[rgb_slot:rgb_slot + 3] = _rgb(_projected(cspec), default,
+                                                 f"{btype}'s {key}")
         else:
             params[rgb_slot:rgb_slot + 3] = color(key, default)
 
@@ -501,7 +562,8 @@ def _bsdf_row(spec: dict, add_bsdf, textures: list, measured: list):
     if btype == "twosided":
         if len(nests) != 1:
             raise ValueError("twosided needs exactly one nested BSDF")
-        tid, params = _bsdf_row(nests[0], add_bsdf, textures, measured)
+        tid, params = _bsdf_row(nests[0], add_bsdf, textures, measured,
+                                spds)
         params[16] = 1.0
         return tid, params
     if btype == "mask":
@@ -583,6 +645,8 @@ def _bsdf_row(spec: dict, add_bsdf, textures: list, measured: list):
         params[0] = int_ior / ext_ior
         params[1:4] = color("specular_reflectance", (1, 1, 1))
         params[4:7] = color("specular_transmittance", (1, 1, 1))
+        # the Cauchy dispersion coefficient [um^2] (spectral variant)
+        params[8] = float(spec.get("dispersion", 0.0))
         return (bsdfs_pkg.DIELECTRIC if btype == "dielectric"
                 else bsdfs_pkg.THIN_DIELECTRIC), params
     if btype == "roughdielectric":
@@ -777,10 +841,17 @@ def _film_crop_fields(film_spec: dict) -> dict:
                 crop_ox=ox, crop_oy=oy)
 
 
-def _film_config(film_spec: dict) -> FilmConfig:
-    _check_keys(film_spec, _FILM_KEYS, "film")
-    if film_spec.get("type", "hdrfilm") != "hdrfilm":
-        raise _not_ported(f"film type {film_spec['type']!r}")
+def _film_config(film_spec: dict, batch: bool = False) -> FilmConfig:
+    """The film of a sensor: an hdrfilm, or a specfilm whose nested
+    spectra are its channels' response functions (``srfs``, read by the
+    spectral variant; a batch sensor's film has none, as in JAX)."""
+    ftype = film_spec.get("type", "hdrfilm")
+    if ftype not in ("hdrfilm", "specfilm"):
+        raise _not_ported(f"film type {ftype!r}")
+    srf_specs = [v for v in film_spec.values() if ftype == "specfilm"
+                 and isinstance(v, dict) and v.get("type") in SPD_SPECTRA]
+    _check_keys({k: v for k, v in film_spec.items()
+                 if not any(v is x for x in srf_specs)}, _FILM_KEYS, "film")
     if film_spec.get("pixel_format", "rgb") != "rgb":
         raise _not_ported(f"pixel_format {film_spec['pixel_format']!r}")
     rf = film_spec.get("rfilter") or {}
@@ -789,7 +860,9 @@ def _film_config(film_spec: dict) -> FilmConfig:
         raise _not_ported(f"rfilter {rtype!r}")
     if set(rf) - {"type"}:
         raise _not_ported(f"rfilter parameters {sorted(set(rf) - {'type'})}")
-    return FilmConfig(rfilter=rtype, **_film_crop_fields(film_spec))
+    srfs = () if batch else tuple(
+        tuple(float(x) for x in _spd_or_uniform(v)) for v in srf_specs)
+    return FilmConfig(rfilter=rtype, srfs=srfs, **_film_crop_fields(film_spec))
 
 
 def _sampler_config(sampler_spec: dict):
@@ -814,7 +887,7 @@ def _sensor(spec: dict, dev):
             _check_keys(sub, _SENSOR_KEYS, f"{sub['type']} sensor in a batch")
     else:
         _check_keys(spec, _SENSOR_KEYS + ("medium",), f"{stype} sensor")
-    film = _film_config(spec.get("film", {}) or {})
+    film = _film_config(spec.get("film", {}) or {}, batch=stype == "batch")
     spp, sampler_type = _sampler_config(spec.get("sampler", {}) or {})
     build = (sensors_pkg.build_batch if stype == "batch"
              else sensors_pkg.build_perspective)
@@ -910,13 +983,17 @@ def _accel_builder(dev: torch.device):
     return ACCELS[choice]
 
 
-def _area_radiance(espec: dict) -> np.ndarray:
-    """The radiance row of a shape's ``area`` or ``directionalarea``
-    emitter."""
+def _area_radiance(espec: dict, spectral_variant: bool = False):
+    """(radiance row, SPD or None) of a shape's ``area`` or
+    ``directionalarea`` emitter: the SPD of a sampled-spectrum radiance
+    in the spectral variant (None in RGB)."""
     if espec.get("type") not in ("area", "directionalarea"):
         raise _not_ported(f"shape emitter type {espec.get('type')!r}")
     _check_keys(espec, ("type", "radiance"), f"{espec['type']} emitter")
-    return _rgb(espec.get("radiance"), (1, 1, 1))
+    rad = espec.get("radiance")
+    if not spectral_variant:
+        return _rgb(rad, (1, 1, 1)), None
+    return _rgb(_projected(rad), (1, 1, 1)), _spd_row(rad)
 
 
 def _env_data(env_spec: dict) -> np.ndarray:
@@ -1071,12 +1148,13 @@ def _lower_prototypes(shapegroups, instance_specs, add_bsdf, n_shapes,
             tuple(ranges), tables)
 
 
-def load_dict(d: dict, device=None, spectral: bool = False) -> Scene:
+def load_dict(d: dict, device=None, spectral: bool | None = None) -> Scene:
     """Lower a scene dict to a Scene on `device` (the card by default), in
-    the RGB variant: ``spectral=True`` (JAX's spectral variant) raises."""
-    if spectral:
-        raise _not_ported("the spectral variant (load_dict(..., "
-                          "spectral=True))")
+    the spectral variant when `spectral` is true; None reads the variant
+    that ``set_variant`` chose (RGB unless a "spectral" one)."""
+    if spectral is None:
+        from . import variant
+        spectral = "spectral" in variant()
     dev = resolve_device(device)
     if d.get("type") != "scene":
         raise ValueError("Top-level dict must have type='scene'")
@@ -1091,11 +1169,12 @@ def load_dict(d: dict, device=None, spectral: bool = False) -> Scene:
     named_bsdf: dict[str, int] = {}
     textures: list[Texture] = []
     measured: list[dict] = []
+    bsdf_spds = [] if spectral else None   # sampled reflectances' SPDs
 
     def add_bsdf(spec, name=None):
         if spec.get("type") == "ref":
             return named_bsdf[spec["id"]]
-        tid, row = _bsdf_row(spec, add_bsdf, textures, measured)
+        tid, row = _bsdf_row(spec, add_bsdf, textures, measured, bsdf_spds)
         bsdf_types.append(tid)
         bsdf_params.append(row)
         if name is not None:
@@ -1184,6 +1263,7 @@ def load_dict(d: dict, device=None, spectral: bool = False) -> Scene:
     all_verts, all_faces, face_uv, face_ns, face_vc = [], [], [], [], []
     face_shape, face_bsdf, face_emitter, face_medium = [], [], [], []
     em_radiance, em_faces, em_areas = [], [], []
+    em_spds = []                         # per area emitter: SPD or None
     em_sphere, em_directional = [], []   # per area emitter; its slots
     analytic_rows, sdf_grids, sdf_rows = [], [], []
     v_off = f_off = 0
@@ -1239,7 +1319,9 @@ def load_dict(d: dict, device=None, spectral: bool = False) -> Scene:
         e_idx = -1
         if spec.get("emitter") is not None:
             e_idx = len(em_radiance)
-            em_radiance.append(_area_radiance(spec["emitter"]))
+            rad, spd = _area_radiance(spec["emitter"], spectral)
+            em_radiance.append(rad)
+            em_spds.append(spd)
             em_faces.append(list(range(f_off, f_off + nf)))
             em_areas.append(mesh.face_areas())
             if spec["emitter"]["type"] == "directionalarea":
@@ -1345,6 +1427,13 @@ def load_dict(d: dict, device=None, spectral: bool = False) -> Scene:
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
+    em_spd = None
+    if any(r is not None for r in em_spds):
+        em_spd = np.zeros((len(em_radiance), spectral_mod.SPD_N), np.float32)
+        for i, r in enumerate(em_spds):
+            if r is not None:
+                em_spd[i] = r
+
     instances, proto_accels, proto_ranges = None, (), ()
     if instance_specs:
         # prototype faces appended past the queried ones, in prototype
@@ -1410,6 +1499,10 @@ def load_dict(d: dict, device=None, spectral: bool = False) -> Scene:
         proto_accels=proto_accels,
         proto_ranges=proto_ranges,
         n_query_faces=n_padded if instance_specs else 0,
+        em_spd=t(em_spd) if em_spd is not None else None,
+        bsdf_spd=t(np.stack(bsdf_spds, 0)) if bsdf_spds else None,
+        em_spd_slots=tuple(i for i, r in enumerate(em_spds) if r is not None),
+        spectral=bool(spectral),
         medium_types=tuple(medium_types),
         phase_types=tuple(phase_types),
         sensor_medium=sensor_medium,

@@ -33,6 +33,10 @@ class FilmConfig:
     full_height: int = 0
     crop_ox: int = 0
     crop_oy: int = 0
+    # a specfilm's channels: one response function per channel, SPD_N
+    # values on the spectral grid each (read by the spectral variant);
+    # () for an hdrfilm
+    srfs: tuple = ()
 
 
 def film_full(film: FilmConfig):

@@ -14,9 +14,12 @@ out-of-place ops that autograd follows.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import sensors
+from ..core import spectral, spectrum
 from ..core.random import M32
 from ..core.vec import Vec2, Vec3
 from ..integrators import get_integrator, n_channels
@@ -57,6 +60,14 @@ def _gen_camera_rays(scene, seed_value: int, sppc: int, pass_idx: int,
     rng, jitter = sampler_mod.next_2d(rng)
     pos01 = Vec2((pix_x.to(torch.float32) + jitter.x) / fw,
                  (pix_y.to(torch.float32) + jitter.y) / fh)
+    rng, ray = sample_camera_ray(scene, rng, pos01)
+    return rng, ray, jitter
+
+
+def sample_camera_ray(scene, rng, pos01: Vec2):
+    """The sensor's rays through film positions `pos01` in [0, 1]^2: the
+    thin lens's aperture sample, then in the spectral variant the hero
+    wavelength (``ray.wl``), drawn from `rng`. Returns (rng, ray)."""
     cfg = scene.sensor_config
     ap = None
     if cfg.type == "thinlens" or (cfg.type == "batch"
@@ -68,15 +79,66 @@ def _gen_camera_rays(scene, seed_value: int, sppc: int, pass_idx: int,
     else:
         ray = sensors.sample_ray(scene.sensor, pos01, stype=cfg.type,
                                  aperture_sample=ap)
-    return rng, ray, jitter
+    if scene.spectral:
+        rng, u_wl = sampler_mod.next_1d(rng)
+        ray = ray.replace(wl=spectral.sample_wavelengths(u_wl)[0])
+    return rng, ray
 
 
-def _finalize_splat(scene, L, jitter, sppc: int):
+def film_values(scene, L, wl):
+    """The film's channels of one sample: L itself in RGB; in the spectral
+    variant XYZ, or with a specfilm one channel per response function
+    (the estimate of its integral against L), both at the primary ray's
+    wavelengths `wl`. L is a Vec3 or an [N, C] tensor (aov, moment)."""
+    if not isinstance(L, Vec3):
+        return L
+    if scene.spectral and scene.film.srfs:
+        return torch.stack([
+            L.dot(spectral.eval_spd(srf, wl)) * (spectral.LAMBDA_RANGE / 3.0)
+            for srf in _srf_tables(scene.film.srfs, L.x.device)], dim=-1)
+    if scene.spectral:
+        L = spectral.spectral_to_xyz(L, wl)
+    return L.to_array()
+
+
+@functools.lru_cache(maxsize=8)
+def _srf_tables(srfs: tuple, device: torch.device) -> torch.Tensor:
+    """A specfilm's response functions (``FilmConfig.srfs``) as one
+    [C, SPD_N] tensor on `device`, copied there once."""
+    return torch.tensor(srfs, dtype=torch.float32, device=device)
+
+
+def n_film_channels(scene) -> int:
+    """The film's channel count: a specfilm's response functions in the
+    spectral variant, else the integrator's."""
+    if scene.spectral and scene.film.srfs:
+        return len(scene.film.srfs)
+    return n_channels(scene.integrator)
+
+
+def develop(scene, image, weight):
+    """The developed image; the spectral variant's XYZ film turned into
+    linear sRGB (a specfilm's channels stay as they are)."""
+    out = film_mod.develop(image, weight)
+    if scene.spectral and not scene.film.srfs:
+        if out.shape[-1] not in (1, 3):
+            # the JAX package's einsum over the channels fails here too (it
+            # broadcasts one channel)
+            raise ValueError(
+                f"the {scene.integrator.type} integrator's {out.shape[-1]} "
+                f"film channels in the spectral variant: its film develops "
+                f"3 channels of XYZ to sRGB")
+        out = spectrum.xyz_to_srgb(out.expand(*out.shape[:-1], 3))
+    return out
+
+
+def _finalize_splat(scene, L, wl, jitter, sppc: int):
     """Splat one pass onto the film. Returns (image [H, W, C], weight
-    [H, W]); L is a Vec3 or an [N, C] tensor (aov, moment)."""
+    [H, W]); L is a Vec3 or an [N, C] tensor (aov, moment), `wl` the
+    primary rays' wavelengths (spectral variant)."""
     w, h = scene.film.width, scene.film.height
     halo = film_mod.halo_rows(scene.film)
-    values = L.to_array() if isinstance(L, Vec3) else L
+    values = film_values(scene, L, wl)
     image, weight = film_mod.splat_ordered(scene.film, jitter, values,
                                            sppc, h, w)
     return image[halo:halo + h], weight[halo:halo + h]
@@ -92,7 +154,7 @@ def render_pass(scene, seed_value: int, sppc: int, pass_idx: int = 0,
     n = ray.o.x.shape[0]
     L, _, n_rays = get_integrator(scene.integrator).sample(
         scene, rng, ray, scene.integrator)
-    image, weight = _finalize_splat(scene, L, jitter, sppc)
+    image, weight = _finalize_splat(scene, L, ray.wl, jitter, sppc)
     return image, weight, n_rays + n
 
 
@@ -107,12 +169,13 @@ def plan_passes(scene, spp=None, max_wavefront=1 << 19):
 
 def render_with_stats(scene, seed=0, spp=None, max_wavefront=1 << 19):
     """Forward render -> (image [H, W, C] on the scene's device, C = 3 but
-    under aov and moment, total ray-query count as an int). Under ``prb``
+    under aov and moment and with a specfilm, total ray-query count as an
+    int). Under ``prb``
     the image carries autograd history to any parameter table of `scene`
     that requires grad."""
     sppc, n_passes = plan_passes(scene, spp, max_wavefront)
     w, h = scene.film.width, scene.film.height
-    image = torch.zeros((h, w, n_channels(scene.integrator)),
+    image = torch.zeros((h, w, n_film_channels(scene)),
                         dtype=torch.float32, device=scene.device)
     weight = torch.zeros((h, w), dtype=torch.float32, device=scene.device)
     rays = 0
@@ -124,7 +187,7 @@ def render_with_stats(scene, seed=0, spp=None, max_wavefront=1 << 19):
         image = image + img_i
         weight = weight + wgt_i
         rays += rays_i
-    return film_mod.develop(image, weight), rays
+    return develop(scene, image, weight), rays
 
 
 def render(scene, seed=0, spp=None, max_wavefront=1 << 19):

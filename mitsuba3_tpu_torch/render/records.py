@@ -15,15 +15,18 @@ from ..core.vec import Vec2, Vec3
 
 @struct
 class Ray:
+    """o, d, maxt; `wl` the path's three wavelengths in the spectral
+    variant (None in RGB)."""
     o: Vec3
     d: Vec3
     maxt: torch.Tensor
+    wl: Vec3 | None = None
 
     @staticmethod
-    def make(o: Vec3, d: Vec3, maxt=None):
+    def make(o: Vec3, d: Vec3, maxt=None, wl=None):
         if maxt is None:
             maxt = torch.full_like(o.x, float("inf"))
-        return Ray(o=o, d=d, maxt=maxt)
+        return Ray(o=o, d=d, maxt=maxt, wl=wl)
 
     def at(self, t):
         return self.o + self.d * t
@@ -54,6 +57,8 @@ class SurfaceInteraction:
     wi: Vec3                  # incident direction, local shading frame
     shape_index: torch.Tensor
     prim_index: torch.Tensor
+    wavelengths: Vec3 | None = None   # the path's three wavelengths
+    #                                   (spectral variant); None in RGB
     vcolor: Vec3 | None = None        # interpolated vertex color
     #                                   (mesh_attribute.cpp); None unused
     duv_scale: torch.Tensor | None = None  # |duv|/|dp|, the mip LOD input;

@@ -28,6 +28,7 @@ import torch
 
 from .. import emitters as em_pkg
 from ..core import math as m
+from ..core import spectral
 from ..core import warp
 from ..core.distr import pick
 from ..core.frame import Frame
@@ -103,9 +104,11 @@ def _soa(p):
 @struct
 class _RefPoint:
     """A reference point of NEE from a medium vertex (or of a delta
-    emitter's re-evaluation); `t` gives the lane count."""
+    emitter's re-evaluation); `t` gives the lane count, `wavelengths` the
+    path's (spectral variant)."""
     p: Vec3
     t: torch.Tensor
+    wavelengths: Vec3 | None = None
 
 
 @struct
@@ -174,6 +177,13 @@ class Scene:
     proto_accels: tuple = ()
     proto_ranges: tuple = ()
     n_query_faces: int = 0            # 0: every face is queried directly
+    # the spectral variant: sampled-spectrum emitters' SPDs [E, SPD_N]
+    # (rows of the slots em_spd_slots), sampled-spectrum reflectances'
+    # [S, SPD_N] (texture id -(k + 2) names row k)
+    em_spd: torch.Tensor | None = None
+    bsdf_spd: torch.Tensor | None = None
+    em_spd_slots: tuple = ()
+    spectral: bool = False            # hero-wavelength transport
     # static configuration
     n_emitters: int = 0
     n_area_emitters: int = 0
@@ -459,8 +469,8 @@ class Scene:
 
         si = SurfaceInteraction(
             p=p, t=pi.t, n=ng, sh_frame=sh_frame, uv=uv, wi=wi,
-            shape_index=shape_idx, prim_index=pi.prim_index, vcolor=vcolor,
-            duv_scale=duv_scale)
+            shape_index=shape_idx, prim_index=pi.prim_index,
+            wavelengths=ray.wl, vcolor=vcolor, duv_scale=duv_scale)
         attrs = {"bsdf": bsdf_idx, "emitter": emitter_idx,
                  "inv_total_area": inv_total_area}
         if med is not None:
@@ -494,12 +504,14 @@ class Scene:
             self.de_params is not None and self.de_params.shape[0]))
 
     def sample_emitter_direction_from(self, ref_p: Vec3, sample1,
-                                      sample2: Vec2):
+                                      sample2: Vec2, wavelengths=None):
         """NEE direction sampling from any reference point (a surface or a
-        medium vertex) without a visibility test. Returns
-        (DirectionSample, unshadowed weight Vec3)."""
-        return self._sample_emitter_core(_RefPoint(p=ref_p, t=ref_p.x),
-                                         sample1, sample2)
+        medium vertex) without a visibility test; `wavelengths` the path's
+        in the spectral variant. Returns (DirectionSample, unshadowed
+        weight Vec3)."""
+        return self._sample_emitter_core(
+            _RefPoint(p=ref_p, t=ref_p.x, wavelengths=wavelengths), sample1,
+            sample2)
 
     def sample_emitter_direction(self, si: SurfaceInteraction, sample1,
                                  sample2: Vec2, active=None,
@@ -678,6 +690,8 @@ class Scene:
 
         ok = pdf_sa > 0.0
         inv_pdf = torch.where(ok, 1.0 / torch.clamp(pdf_sa, min=1e-20), 0.0)
+        radiance = self.spectral_radiance(radiance, em_idx,
+                                          getattr(si, "wavelengths", None))
         weight = radiance * inv_pdf
         area_lane = (em_idx >= 0) & (em_idx < max(self.n_area_emitters,
                                                   n_area and 1))
@@ -777,12 +791,32 @@ class Scene:
         for slot in self.em_directional:
             emissive = emissive & (em_idx != slot)
         front = si.wi.z > 0.0
-        radiance = self.gather_em_radiance(torch.clamp(em_idx, min=0))
+        radiance = self.spectral_radiance(
+            self.gather_em_radiance(torch.clamp(em_idx, min=0)), em_idx,
+            getattr(si, "wavelengths", None))
         return radiance.mask(emissive & front)
 
-    def eval_env(self, d: Vec3) -> Vec3:
-        """Environment radiance for escaped rays."""
-        return env_mod.eval_env(self, d)
+    def spectral_radiance(self, radiance: Vec3, em_idx, wavelengths):
+        """An emitter's RGB radiance at the path's wavelengths: upsampled,
+        or on the slots of em_spd_slots their SPD (the spectral variant;
+        unchanged in RGB, where `wavelengths` is None)."""
+        if wavelengths is None:
+            return radiance
+        radiance = spectral.rgb_to_spectrum(radiance, wavelengths,
+                                            reflectance=False)
+        for slot in self.em_spd_slots:
+            radiance = Vec3.where(em_idx == slot, spectral.eval_spd(
+                self.em_spd[slot], wavelengths), radiance)
+        return radiance
+
+    def eval_env(self, d: Vec3, wavelengths: Vec3 | None = None) -> Vec3:
+        """Environment radiance for escaped rays (upsampled to
+        `wavelengths` in the spectral variant)."""
+        rad = env_mod.eval_env(self, d)
+        if wavelengths is not None:
+            rad = spectral.rgb_to_spectrum(rad, wavelengths,
+                                           reflectance=False)
+        return rad
 
     def texture_ids(self, bsdf_name: str):
         """The texture ids (k + 1 for textures[k], -1 for vertex colors)

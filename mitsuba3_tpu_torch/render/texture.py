@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakTensorKeyDictionary
 
+from ..core import spectral
 from ..core.gather import take_rows
 from ..core.vec import Vec2, Vec3
 from .film import film_full
@@ -205,13 +206,34 @@ def _footprint_lod(scene, si, tex_h):
     return torch.clamp(lod, 0.0, 16.0)
 
 
-def eval_color(scene, base_rgb: Vec3, tex_id_f, si, ids) -> Vec3:
+def eval_color(scene, base_rgb: Vec3, tex_id_f, si, ids,
+               raw: bool = False) -> Vec3:
     """Resolve a color parameter: the constant `base_rgb` where the lane's
     texture id is 0; a lookup in scene.textures[id-1] (with its mips when
     enabled); the interpolated vertex color where the id is -1. `ids`
     (``Scene.texture_ids``) are the ids the lanes' rows can hold: a
     texture no row names is not looked up, since every lane would discard
-    its value."""
+    its value. In the spectral variant (si.wavelengths set) the color is a
+    reflectance upsampled to the path's wavelengths, unless `raw` (normal
+    maps, opacities, blend weights), and id -(k + 2) evaluates the sampled
+    reflectance scene.bsdf_spd[k] there."""
+    out = _lookup_color(scene, base_rgb, tex_id_f, si, ids)
+    wavelengths = getattr(si, "wavelengths", None)
+    if raw or wavelengths is None:
+        return out
+    out = spectral.rgb_to_spectrum(out, wavelengths, reflectance=True)
+    spd = getattr(scene, "bsdf_spd", None)
+    if spd is not None:
+        tex_id = tex_id_f.to(torch.int32)
+        for k in range(spd.shape[0]):
+            if -(k + 2) in ids:
+                out = Vec3.where(tex_id == -(k + 2),
+                                 spectral.eval_spd(spd[k], wavelengths), out)
+    return out
+
+
+def _lookup_color(scene, base_rgb: Vec3, tex_id_f, si, ids) -> Vec3:
+    """eval_color's RGB: the constant, texture or vertex color per lane."""
     out = base_rgb
     if not ids:
         return out

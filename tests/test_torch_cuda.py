@@ -25,8 +25,9 @@ on the card; the instanced field's prototype query through K1 against its
 plain version, and instanced, analytic and SDF shapes rendered on the card
 against the CPU; the bvh_xla, grid and hybrid queries and the small
 terrain through them and through the dense test, and the spectral
-Cornell, on the card against the CPU. Run on a machine with a CUDA
-device::
+Cornell, on the card against the CPU; in the spectral variant, the small
+terrain through K1 and the spectral Cornell's PRB gradients on the card
+against the CPU. Run on a machine with a CUDA device::
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -597,6 +598,41 @@ def test_spectral_cornell_on_card_matches_cpu(cuda):
     img_g, img_c = (mt.render(mt.load_dict(d, device=dev), seed=5,
                               spp=16).cpu().numpy() for dev in (cuda, "cpu"))
     assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+
+
+def test_spectral_small_terrain_k1_on_card_matches_cpu(cuda, monkeypatch):
+    """The small terrain in the spectral variant through cellserve: K1
+    launches on the card in both modes, and the image agrees with the
+    CPU's (plain K1) per pixel."""
+    monkeypatch.setenv("MI3T_ACCEL", "cells")
+    d = chip_smoke.small_terrain_dict(mt.ScalarTransform4f, width=16)
+    cs.LAUNCHES.update(closest=0, anyhit=0)
+    img_g = mt.render(mt.load_dict(d, device=cuda, spectral=True), seed=5,
+                      spp=4).cpu().numpy()
+    assert cs.LAUNCHES["closest"] > 0 and cs.LAUNCHES["anyhit"] > 0
+    img_c = mt.render(mt.load_dict(d, device="cpu", spectral=True), seed=5,
+                      spp=4).numpy()
+    assert np.isfinite(img_g).all()
+    assert np.isclose(img_g, img_c, rtol=1e-3, atol=1e-3).mean() > 0.995
+    assert np.allclose(img_g.mean(), img_c.mean(), rtol=1e-3)
+
+
+def test_spectral_cornell_prb_grads_on_card_match_cpu(cuda):
+    """The spectral Cornell's PRB step (16^2, max_depth 4, 4 spp) in the
+    spectral variant: the BSDF rows' and emitter radiance's gradients on
+    the card finite and within 1e-3 of the CPU's largest entry."""
+    d = chip_smoke._prb_dict(chip_smoke.spectral_variant_cornell_dict(
+        mt, 16, 16, 4))
+    names = ("bsdf_params", "em_radiance")
+    g_card, g_cpu = (chip_smoke._grad_step(mt.load_dict(
+        d, device=dev, spectral=True), names, 5, 4)[2]
+        for dev in (cuda, "cpu"))
+    for k in names:
+        a, b = g_card[k].cpu(), g_cpu[k]
+        assert torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert torch.allclose(a, b, rtol=0, atol=1e-3 * scale + 1e-12)
+    assert float(g_cpu["bsdf_params"].abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -247,7 +247,6 @@ UNPORTED = {
     "checkerboard weight": {"type": "blendbsdf", "weight": {
         "type": "checkerboard", "color0": {"type": "bitmap"}},
         "a": {"type": "diffuse"}, "b": {"type": "conductor"}},
-    "dispersion": {"type": "dielectric", "dispersion": 0.004},
 }
 
 

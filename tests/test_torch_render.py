@@ -193,15 +193,7 @@ UNPORTED = {
         "type": "linearcurve", "radius": 0.02,
         "control_points": [[0, 0, 0, 0.01], [0, 0, 1, 0.01]]}),
         r"linearcurve properties \['radius'\]"),
-    # a spectral SPD emitter in the spectral variant (ROADMAP item 7b;
-    # in the RGB variant it is projected to RGB at load)
-    "emitter": (_with(BASE, lamp={"type": "rectangle", "emitter": {
-        "type": "area", "radiance": {"type": "blackbody",
-                                     "temperature": 3000.0}}}),
-        "the spectral variant", {"spectral": True}),
     "integrator": (_with(BASE, integrator={"type": "stokes"}), "'stokes'"),
-    "specfilm": (_sensor(BASE, film={"type": "specfilm", "width": 8,
-                                     "height": 8}), "'specfilm'"),
     # a perspective sensor's medium is ported (tests/test_torch_media.py);
     # a batch sensor's, which the JAX loader ignores, is refused
     "sensor_medium": (_with(BASE, sensor={

@@ -2,8 +2,7 @@
 fits, SPD projection, blackbody and D65 are bit-equal to the JAX
 package's, its RGB conversions agree on tensors; every spectrum form the
 JAX loader's ``_rgb`` reads lowers to JAX's color bit for bit, keys it
-ignores are refused; ``load_dict(..., spectral=True)`` raises; and the
-Cornell box with a blackbody light and sampled reflectances renders as
+ignores are refused; and the Cornell box with a blackbody light and sampled reflectances renders as
 JAX renders it, from a dict and from XML source."""
 import jax.numpy as jnp
 import numpy as np
@@ -101,12 +100,6 @@ def test_sampled_spectrum_as_a_scalar_is_refused():
                        match="principled's roughness given as a spectrum "
                              "type 'blackbody'"):
         mt.load_dict(d, device="cpu")
-
-
-def test_spectral_variant_raises():
-    d = chip_smoke.spectral_cornell_dict(mt, 8, 8, 2)
-    with pytest.raises(NotImplementedError, match="spectral variant"):
-        mt.load_dict(d, device="cpu", spectral=True)
 
 
 @pytest.mark.parametrize("source", ["load_dict", "load_string"])
